@@ -1,0 +1,238 @@
+"""Run orchestration: the species / pcut loop nest of one iteration.
+
+Counterpart of the JAX package's engine/run.py on its single-device
+megakernel path: ``TransportEngine.run_ion`` transports one species
+through the pcut ladder as a host loop of [drain -> finish -> split]
+per pcut (run_ion_mega_hybrid, pallas_step.py:2130-2247), breaking when
+a segment saves nothing (pcut_finalize, cuts.jl:115-119).  Keys are
+derived as the JAX package derives them, so both packages hand every
+lane the same random stream.
+"""
+
+from __future__ import annotations
+
+import logging
+import math
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..utils import constants as K
+from ..utils.config import RunConfig
+from ..utils.params import E_REL_PT
+from ..models.injection import init_pop
+from ..ops import mega, rng
+from ..ops import state as stt
+from ..ops.finish import EscapeTallies, finish_particles
+from ..ops.split import split_on_device
+from .setup import RunSetup
+
+log = logging.getLogger("mcs.torch.engine")
+
+
+def _round_up(n: int, m: int = 128) -> int:
+    return ((n + m - 1) // m) * m
+
+
+@dataclass
+class IonResult:
+    """Per-(iteration, species) tallies after all pcuts.  `psd` and
+    `therm_psd` stay on the device for the reduction."""
+
+    psd: torch.Tensor          # [n_mom+1, n_theta+1, nb]
+    therm_psd: torch.Tensor
+    num_crossings: np.ndarray  # [nb]
+    esc: EscapeTallies         # NumPy fields
+    n_pushes: int = 0
+    n_trajectories: int = 0
+
+
+@dataclass
+class IterationTallies:
+    """Per-iteration flux accumulators (zeroed at main_loops.jl:56-87)."""
+
+    pxx_flux: np.ndarray
+    pxz_flux: np.ndarray
+    energy_flux: np.ndarray
+    px_esc_upstream: float = 0.0
+    energy_esc_upstream: float = 0.0
+    sum_p_downstream: float = 0.0
+    sum_ke_downstream: float = 0.0
+
+
+@dataclass
+class TransportEngine:
+    """Builds the device-side segment inputs of a run and transports
+    species through the pcut ladder on `device`."""
+
+    setup: RunSetup
+    device: torch.device
+    batch_size: int = 0
+    n_pushes_total: int = 0
+    n_trajectories_total: int = 0
+
+    def __post_init__(self):
+        cfg = self.setup.cfg
+        self.device = torch.device(self.device)
+        self.batch_size = _round_up(
+            max(cfg.n_pts_inj + 64, cfg.n_pts_pcut, cfg.n_pts_pcut_hi))
+        if self.batch_size > 8192:
+            self.batch_size = _round_up(self.batch_size, 4096)
+        self.base_key = rng.key(cfg.random_seed)
+
+    # -- per-segment input builders -----------------------------------------
+
+    def segment_grids(self, prof) -> stt.SegmentGrids:
+        dev = self.device
+        f = lambda a: torch.as_tensor(np.asarray(a, np.float64)).to(
+            dev, torch.float32)
+        return stt.SegmentGrids(
+            x_grid=torch.as_tensor(self.setup.x_grid_cm,
+                                   dtype=stt.X_DTYPE).to(dev),
+            ux=f(prof.ux_sk), uz=f(prof.uz_sk), utot=f(prof.utot),
+            gamma_sf=f(prof.gamma_sf), gamma_ef=f(prof.gamma_ef),
+            btot=f(prof.btot), b_cos=f(np.cos(prof.theta)),
+            b_sin=f(np.sin(prof.theta)))
+
+    def segment_scalars(self, i_ion: int, i_pcut: int, bmag2: float
+                        ) -> stt.SegmentScalars:
+        cfg = self.setup.cfg
+        s = cfg.species[i_ion]
+        pcut = cfg.pcuts[i_pcut]
+        pcut_prev = cfg.pcuts[i_pcut - 1] if i_pcut > 0 else 0.0
+        return stt.SegmentScalars(
+            aa=s.aa, abs_charge=abs(s.charge), m=s.mass, pcut=pcut,
+            pcut_prev=pcut_prev, pmax_cutoff=pmax_cutoff(cfg, s.mass),
+            u2=self.setup.u2, bmag2=bmag2, b_cmbz=self.setup.b_cmbz,
+            gamma0_u0=cfg.gamma0 * cfg.u0, feb_up=cfg.feb_upstream,
+            feb_dw=cfg.feb_downstream, x_grid_stop=self.setup.x_grid_stop,
+            age_max=cfg.age_max, pe_crit=cfg.pe_crit,
+            gamma_e_crit=cfg.gamma_e_crit, inj_frac=cfg.inj_fracs[i_ion])
+
+    def step_static(self, i_ion: int) -> stt.StepStatic:
+        cfg = self.setup.cfg
+        b = self.setup.bins
+        return stt.StepStatic(
+            eta_mfp=cfg.eta_mfp, xn_per_coarse=cfg.xn_per_coarse,
+            xn_per_fine=cfg.xn_per_fine, dont_scatter=cfg.dont_scatter,
+            frg_alpha=(cfg.frg_alpha if cfg.use_custom_frg else 1.0),
+            frg_rg0_cm=(cfg.frg_rg0_rg * cfg.rg0
+                        if cfg.use_custom_frg else 0.0),
+            dont_dsa=cfg.dont_dsa, do_rad_losses=cfg.do_rad_losses,
+            do_retro=cfg.do_retro, do_tcuts=cfg.do_tcuts,
+            use_custom_eps_b=cfg.use_custom_eps_b,
+            is_electron=cfg.species[i_ion].is_electron,
+            do_energy_transfer=(cfg.energy_transfer_frac > 0
+                                and cfg.n_ions > 1),
+            electron_weight_fac=self.setup.electron_weight_fac,
+            n_xspec=len(cfg.x_spec), i_grid_feb=self.setup.i_grid_feb,
+            i_shock=self.setup.i_shock,
+            nb=self.setup.nb, psd_mom_min=b.psd_mom_min,
+            bins_per_dec_mom=b.bins_per_dec_mom, n_mom=b.n_mom,
+            cos_fine=b.cos_fine, dcos=b.dcos, theta_min=b.theta_min,
+            bins_per_dec_theta=b.bins_per_dec_theta, n_theta=b.n_theta)
+
+    # -- the ladder ---------------------------------------------------------
+
+    def run_ion(self, i_iter: int, i_ion: int, prof,
+                it: IterationTallies) -> IonResult:
+        """All pcuts for one species (main_loops.jl:95-341 inner part)."""
+        setup, cfg, bins = self.setup, self.setup.cfg, self.setup.bins
+        s = cfg.species[i_ion]
+        nb, b, dev = setup.nb, self.batch_size, self.device
+        ss = self.step_static(i_ion)
+        mega.check_supported(ss)
+        grids = self.segment_grids(prof)
+        ion_key = rng.fold_in(rng.fold_in(self.base_key, i_iter), i_ion)
+
+        # injected population (main_loops.jl:126-153), host rng keyed
+        # like the JAX package's
+        pop = init_pop(
+            np.random.default_rng((cfg.random_seed, i_iter, i_ion)),
+            cfg.species, i_ion, cfg.inp_distr, cfg.energy_inj,
+            cfg.inj_weight, cfg.n_pts_inj, setup.x_grid_start, cfg.rg0,
+            cfg.eta_mfp, cfg.do_fast_push, cfg.x_fast_stop_rg, cfg.beta0,
+            cfg.gamma0, cfg.u0, setup.x_grid_rg, prof.ux_sk, prof.gamma_sf)
+        # fast-push analytic flux backfill (zeros when not applicable)
+        it.pxx_flux += pop.pxx_flux
+        it.pxz_flux += pop.pxz_flux
+        it.energy_flux += pop.energy_flux
+
+        n0 = len(pop.ptot_pf)
+        pad = lambda a: np.concatenate(
+            [np.asarray(a), np.zeros(b - len(a), np.asarray(a).dtype)])
+        state = stt.init_state(
+            pad(pop.weight), pad(pop.ptot_pf), pad(pop.pb_pf),
+            pad(pop.x_cm), pad(pop.i_grid).astype(np.int32),
+            pad(prof.ux_sk[pop.i_grid]), cfg.xn_per_fine,
+            setup.x_grid_stop, rng.fold_in(ion_key, 0), dev)
+
+        tal = stt.make_tallies(nb, bins.n_mom, bins.n_theta, dev)
+        esc = EscapeTallies.zeros(bins.n_mom, bins.n_theta, dev)
+        p_pcut_hi = pcut_hi_momentum(cfg.energy_pcut_hi, s.mass)
+        pushes = 0
+        trajectories = n0
+        for i_pcut in range(len(cfg.pcuts)):
+            sc = self.segment_scalars(i_ion, i_pcut, prof.bmag2)
+            tabs = mega.mega_tables(grids, sc, ss, dev)
+            mega.drain(state, tabs, tal)
+            # the kernel derives the zone from position; restore it for
+            # the exit bookkeeping
+            ig = torch.searchsorted(grids.x_grid, state.x, right=True) - 1
+            state.igrid = ig.clamp(0, nb - 2).to(torch.int32)
+            finish_particles(state, esc, grids, sc, ss)
+            pushes += int(state.nsteps.sum(dtype=torch.int64))
+            n_target = (cfg.n_pts_pcut if cfg.pcuts[i_pcut] < p_pcut_hi
+                        else cfg.n_pts_pcut_hi)
+            state, n_new = split_on_device(
+                state, n_target, rng.fold_in(ion_key, i_pcut + 1))
+            trajectories += n_new
+            if n_new == 0:
+                log.info("iter %d ion %d: pcut chain ended at %d",
+                         i_iter, i_ion, i_pcut)
+                break
+
+        fin = stt.finalize_tallies(tal)
+        it.pxx_flux += fin.pxx_flux.cpu().numpy()
+        it.pxz_flux += fin.pxz_flux.cpu().numpy()
+        it.energy_flux += fin.energy_flux.cpu().numpy()
+        it.px_esc_upstream += float(fin.px_esc_up)
+        it.energy_esc_upstream += float(fin.en_esc_up)
+        it.sum_p_downstream += float(fin.sum_p_dw) * s.number_density
+        it.sum_ke_downstream += float(fin.sum_ke_dw) * s.number_density
+        self.n_pushes_total += pushes
+        self.n_trajectories_total += trajectories
+        return IonResult(
+            psd=fin.psd, therm_psd=fin.therm_psd,
+            num_crossings=fin.num_crossings.cpu().numpy(),
+            esc=esc.to_numpy(), n_pushes=pushes,
+            n_trajectories=trajectories)
+
+    def new_iteration_tallies(self) -> IterationTallies:
+        nb = self.setup.nb
+        return IterationTallies(pxx_flux=np.zeros(nb), pxz_flux=np.zeros(nb),
+                                energy_flux=np.zeros(nb))
+
+
+def pmax_cutoff(cfg: RunConfig, mass: float) -> float:
+    """Per-species maximum momentum (get_pmax_cutoff, ion_init.jl:55-72)."""
+    e0 = mass * K.C_CGS**2
+    if cfg.emax > 0:
+        g = 1.0 + cfg.emax / e0
+        return mass * K.C_CGS * math.sqrt(g * g - 1.0)
+    if cfg.emax_per_aa > 0:
+        g = 1.0 + cfg.emax_per_aa / e0
+        return mass * K.C_CGS * math.sqrt(g * g - 1.0)
+    if cfg.pmax > 0:
+        return cfg.pmax
+    raise ValueError("maximum energy not set")
+
+
+def pcut_hi_momentum(energy_pcut_hi_kev: float, mass: float) -> float:
+    """Momentum above which the high-E particle count applies
+    (pcut_hi, ion_init.jl:74-82)."""
+    e_rm = energy_pcut_hi_kev * K.KEV_ERG / (K.MP_C2)
+    if e_rm < E_REL_PT:
+        return mass * K.C_CGS * math.sqrt(2.0 * e_rm)
+    return mass * K.C_CGS * math.sqrt((e_rm + 1.0) ** 2 - 1.0)

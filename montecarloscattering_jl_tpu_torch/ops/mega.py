@@ -1,0 +1,743 @@
+"""The transport kernel K1: S helix steps per launch, one lane a thread.
+
+Replaces montecarloscattering_jl_tpu/ops/pallas_step.py::_mega_kernel /
+_mega_body (the Pallas megakernel) on an NVIDIA Hopper card.  This
+module holds:
+
+* ``step_twin``: the plain PyTorch version of one launch, a direct
+  reading of ``_mega_body.step`` (pallas_step.py:318-1034).  It is the
+  spec of K1, the CPU path, and what ``chip_smoke.py`` holds K1 against
+  on the card.
+* ``launch``: the wrapper.  A state on the CPU takes the twin; a state
+  on a CUDA device launches K1 (csrc/mega_step.cu) or raises.
+* ``drain``: the drive, a host loop of launches until no lane is ACTIVE
+  or the helix-cap bound on launches is reached (pallas_step.py:1650).
+* ``check_supported``: the static-flag gate of this kernel.
+
+Arithmetic follows the megakernel: momenta, fields and segment scalars
+in float32, with one change of contract taken from the XLA engine:
+positions, PRP and acceleration time are float64 (no double-single
+words), and zone lookups compare float64 positions with float64
+boundaries.  Tallies go straight into the full difference arrays
+(f32 PSD, f64 flux and sums): no band, window, stochastic rounding or
+drop counting.  Because the RNG counter is the lane's step count, where
+launches begin and end cannot change any lane's trajectory, and lanes
+keep their order (no partition, no unsort).
+
+``hyp`` is jnp.hypot's formula, written out so the JAX reference, the
+twin and K1 round alike; every constant that divides or is divided by a
+tensor is a 0-dim tensor on the state's device, because torch turns
+``t / python_scalar`` into a reciprocal multiply on CUDA and
+``python_scalar / t`` into one everywhere.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from dataclasses import dataclass
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ..utils.constants import C_CGS
+from ..utils.params import (
+    ALL_FLUX_SPIKE_AWAY, E_REL_PT, MAX_HELIX_STEPS)
+from . import rng
+from .state import (ACTIVE, FINISHED, FL_DW, FL_INJ, FL_JRET, FL_RETRO,
+                    R_AGE, R_DOWNSTREAM, R_UPSTREAM_PMAX, SAVED,
+                    ParticleState, SegmentGrids, SegmentScalars,
+                    StepStatic, Tallies)
+
+STEPS = 256            # helix steps per launch (pallas_step.py:91)
+ZMAX = 128             # zone-table capacity: nb + 1 <= ZMAX
+
+# kernel launches and twin calls since the last reset (plain counters:
+# chip_smoke.py zeroes them around the main path and reads them back)
+LAUNCHES = 0
+TWIN_CALLS = 0
+
+# f32 scalar vector `sf` (the kernel reads the same indices)
+(SF_M, SF_MC, SF_E0, SF_INV_Q, SF_PCUT, SF_PCUT_PREV, SF_PMAX, SF_U2,
+ SF_BMAG2, SF_G0U0, SF_PE_CRIT, SF_GAMMA_E_CRIT, SF_INJ_FRAC, SF_C,
+ SF_ETA3, SF_XN_COARSE, SF_XN_FINE, SF_CMAX_COARSE, SF_CMAX_FINE,
+ SF_TWO_PI, SF_PI, SF_PSD_MOM_MIN, SF_LOG_PMIN, SF_THETA_MIN,
+ SF_LOG_TMIN, SF_COS_FINE, SF_DCOS, SF_INV_LN10, SF_SPIKE, SF_THREE,
+ SF_ONE, SF_TINY30, SF_TINY37, SF_E_REL) = range(34)
+N_SF = 34
+# f64 scalar vector `sd`
+SD_FEB_UP, SD_FEB_DW, SD_X_STOP, SD_AGE_MAX = range(4)
+N_SD = 4
+# int vector `si`
+(SI_NB, SI_I_GRID_FEB, SI_N_MOM, SI_N_THETA, SI_BPD_MOM, SI_BPD_THETA,
+ SI_IS_ELECTRON) = range(7)
+N_SI = 7
+
+_N_REFLECT_TRIES = 2
+_U_BLOCK = 64          # steps of uniforms the twin draws at once
+
+# flags that K1 does not implement yet, with the ROADMAP item that adds
+# them (ROADMAP.md, "Modules still to port")
+_DEFERRED = (
+    ("do_rad_losses", "radiative losses"),
+    ("do_retro", "the retro-time walk"),
+    ("do_tcuts", "tcut tracking"),
+    ("do_energy_transfer", "ion-electron energy transfer"),
+    ("use_custom_eps_b", "the custom eps_B field decay"),
+    ("dont_scatter", "the no-scatter switch"),
+    ("dont_dsa", "the no-DSA switch"),
+)
+_ROADMAP_ITEM = ("ROADMAP.md: K1's deferred static flags "
+                 "(configs/baseline.toml slice)")
+
+
+def check_supported(ss: StepStatic) -> None:
+    """Raise NotImplementedError for a config K1 does not run: one the
+    megakernel itself rejects (megakernel_supported,
+    pallas_step.py:1206-1239; the port's momenta and PSD are always
+    float32), or one with a static flag whose branch this port has not
+    written yet."""
+    if not ss.parallel or ss.n_xspec != 0:
+        raise NotImplementedError(
+            "oblique fields and x_spec detectors run on the XLA-fallback "
+            "surface, not the megakernel (ROADMAP.md: f64 momenta and "
+            "the XLA-fallback surface)")
+    if ss.nb + 1 > ZMAX:
+        raise NotImplementedError(
+            f"nb + 1 = {ss.nb + 1} exceeds the {ZMAX}-zone table")
+    for name, what in _DEFERRED:
+        if getattr(ss, name):
+            raise NotImplementedError(
+                f"{name}: {what} is not in K1 yet ({_ROADMAP_ITEM})")
+    if ss.frg_rg0_cm > 0.0:
+        raise NotImplementedError(
+            f"frg_rg0_cm > 0: the custom f(r_g) law is not in K1 yet "
+            f"({_ROADMAP_ITEM})")
+
+
+@dataclass
+class MegaTables:
+    """Device inputs of one segment: zone table and packed scalars."""
+
+    xg: torch.Tensor     # [nb] f64 boundaries
+    zf: torch.Tensor     # [4, nb] f32: ux, gamma_sf, gamma_ef, btot
+    sf: torch.Tensor     # [N_SF] f32
+    sd: torch.Tensor     # [N_SD] f64
+    si: torch.Tensor     # [N_SI] int32
+    nb: int
+    i_grid_feb: int
+    n_mom: int
+    n_theta: int
+    bins_per_dec_mom: int
+    bins_per_dec_theta: int
+    is_electron: bool
+
+
+def mega_tables(grids: SegmentGrids, sc: SegmentScalars, ss: StepStatic,
+                device) -> MegaTables:
+    """Pack the segment's grids and scalars the way the megakernel's
+    _mega_scf/_scvec do (pallas_step.py:1341-1369): derived scalars are
+    computed in float32 from float32 operands."""
+    dev = torch.device(device)
+    f = np.float32
+    m = f(sc.m)
+    c = f(C_CGS)
+    eta = f(ss.eta_mfp)
+    sf = np.zeros(N_SF, np.float32)
+    sf[SF_M] = m
+    sf[SF_MC] = m * c
+    sf[SF_E0] = m * f(C_CGS ** 2)
+    sf[SF_INV_Q] = f(1.0) / f(sc.abs_charge)
+    sf[SF_PCUT] = sc.pcut
+    sf[SF_PCUT_PREV] = sc.pcut_prev
+    sf[SF_PMAX] = sc.pmax_cutoff
+    sf[SF_U2] = sc.u2
+    sf[SF_BMAG2] = sc.bmag2
+    sf[SF_G0U0] = sc.gamma0_u0
+    sf[SF_PE_CRIT] = sc.pe_crit
+    sf[SF_GAMMA_E_CRIT] = sc.gamma_e_crit
+    sf[SF_INJ_FRAC] = sc.inj_frac
+    sf[SF_C] = c
+    sf[SF_ETA3] = eta / f(3.0)
+    sf[SF_XN_COARSE] = ss.xn_per_coarse
+    sf[SF_XN_FINE] = ss.xn_per_fine
+    sf[SF_CMAX_COARSE] = np.cos(np.sqrt(
+        12.0 * np.pi / (ss.xn_per_coarse * ss.eta_mfp)))
+    sf[SF_CMAX_FINE] = np.cos(np.sqrt(
+        12.0 * np.pi / (ss.xn_per_fine * ss.eta_mfp)))
+    sf[SF_TWO_PI] = 2.0 * np.pi
+    sf[SF_PI] = np.pi
+    sf[SF_PSD_MOM_MIN] = ss.psd_mom_min
+    sf[SF_LOG_PMIN] = np.log10(ss.psd_mom_min)
+    sf[SF_THETA_MIN] = ss.theta_min
+    sf[SF_LOG_TMIN] = np.log10(ss.theta_min)
+    sf[SF_COS_FINE] = ss.cos_fine
+    sf[SF_DCOS] = ss.dcos
+    sf[SF_INV_LN10] = 1.0 / np.log(10.0)
+    sf[SF_SPIKE] = ALL_FLUX_SPIKE_AWAY
+    sf[SF_THREE] = 3.0
+    sf[SF_ONE] = 1.0
+    sf[SF_TINY30] = 1e-30
+    sf[SF_TINY37] = 1e-37
+    sf[SF_E_REL] = E_REL_PT
+    sd = np.array([sc.feb_up, sc.feb_dw, sc.x_grid_stop,
+                   sc.age_max if sc.age_max > 0 else 3.0e38], np.float64)
+    si = np.array([ss.nb, ss.i_grid_feb, ss.n_mom, ss.n_theta,
+                   ss.bins_per_dec_mom, ss.bins_per_dec_theta,
+                   int(ss.is_electron)], np.int32)
+    nb = ss.nb
+    zf = torch.stack([grids.ux[:nb], grids.gamma_sf[:nb],
+                      grids.gamma_ef[:nb], grids.btot[:nb]]).to(
+                          dev, torch.float32).contiguous()
+    return MegaTables(
+        xg=grids.x_grid[:nb].to(dev, torch.float64).contiguous(), zf=zf,
+        sf=torch.from_numpy(sf).to(dev), sd=torch.from_numpy(sd).to(dev),
+        si=torch.from_numpy(si).to(dev), nb=nb, i_grid_feb=ss.i_grid_feb,
+        n_mom=ss.n_mom, n_theta=ss.n_theta,
+        bins_per_dec_mom=ss.bins_per_dec_mom,
+        bins_per_dec_theta=ss.bins_per_dec_theta,
+        is_electron=bool(ss.is_electron))
+
+
+def hyp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """jnp.hypot's formula: max * sqrt(1 + (min/max)^2), 0 at 0."""
+    a = a.abs()
+    b = b.abs()
+    hi = torch.maximum(a, b)
+    lo = torch.minimum(a, b)
+    zero = hi == 0
+    r = lo / torch.where(zero, torch.ones_like(hi), hi)
+    return torch.where(zero, hi, hi * torch.sqrt(1.0 + r * r))
+
+
+def floor_mod(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """jnp.mod for floats: fmod, moved into b's sign."""
+    r = torch.fmod(a, b)
+    return torch.where((r != 0) & ((r < 0) != (b < 0)), r + b, r)
+
+
+def _zone(xg: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Index of the last boundary <= x (int64), -1 below the grid."""
+    return torch.searchsorted(xg, x.contiguous(), right=True) - 1
+
+
+def step_twin(st: ParticleState, tb: MegaTables, tl: Tallies,
+              n_steps: int, max_helix: int) -> int:
+    """Advance every ACTIVE lane of `st` by up to `n_steps` helix steps,
+    in place, depositing tallies into `tl` in place.  Returns the number
+    of lanes still ACTIVE.  The plain PyTorch version of K1."""
+    global TWIN_CALLS
+    TWIN_CALLS += 1
+    k = lambda i: tb.sf[i]                # 0-dim f32 device tensors
+    m, mc, e0, inv_q = k(SF_M), k(SF_MC), k(SF_E0), k(SF_INV_Q)
+    pcut, pcut_prev, pmax_cutoff = k(SF_PCUT), k(SF_PCUT_PREV), k(SF_PMAX)
+    u2, bmag2, g0u0 = k(SF_U2), k(SF_BMAG2), k(SF_G0U0)
+    pe_crit, gamma_e_crit = k(SF_PE_CRIT), k(SF_GAMMA_E_CRIT)
+    inj_frac, c, eta3 = k(SF_INJ_FRAC), k(SF_C), k(SF_ETA3)
+    xn_coarse, xn_fine = k(SF_XN_COARSE), k(SF_XN_FINE)
+    cmax_coarse, cmax_fine = k(SF_CMAX_COARSE), k(SF_CMAX_FINE)
+    two_pi, pi = k(SF_TWO_PI), k(SF_PI)
+    psd_mom_min, log_pmin = k(SF_PSD_MOM_MIN), k(SF_LOG_PMIN)
+    theta_min, log_tmin = k(SF_THETA_MIN), k(SF_LOG_TMIN)
+    cos_fine, dcos, inv_ln10 = k(SF_COS_FINE), k(SF_DCOS), k(SF_INV_LN10)
+    spike_away, three, one = k(SF_SPIKE), k(SF_THREE), k(SF_ONE)
+    tiny30, tiny37, e_rel = k(SF_TINY30), k(SF_TINY37), k(SF_E_REL)
+    feb_up, feb_dw = tb.sd[SD_FEB_UP], tb.sd[SD_FEB_DW]
+    x_stop, age_max = tb.sd[SD_X_STOP], tb.sd[SD_AGE_MAX]
+    nb, nz = tb.nb, tb.nb + 1
+    is_el = tb.is_electron
+    xg = tb.xg
+    zux, zgsf, zgef, zb = tb.zf[0], tb.zf[1], tb.zf[2], tb.zf[3]
+    psd_flat = tl.psd_diff.view(-1)
+    flux_flat = tl.flux_diff.view(-1)
+    i32 = torch.int32
+
+    w_lane = st.weight
+    pb, pperp, phi = st.pb, st.pperp, st.phi
+    uxp, xnp, tstep = st.ux_prev, st.xn_per, st.t_step
+    prp, x, acct = st.prp_x, st.x, st.acctime
+    status, reason, nsteps, flags = st.status, st.reason, st.nsteps, st.flags
+
+    # the reflection at the shock can only fire with inj_frac < 1
+    reflect = float(inj_frac) < 1.0
+    nsteps0 = nsteps.clone()
+    for s in range(n_steps):
+        act = status == ACTIVE
+        if not bool(act.any()):
+            break
+        if s % _U_BLOCK == 0:
+            # a lane ACTIVE at step s has made exactly s steps in this
+            # launch, so its counters are nsteps0 + s: draw a block of
+            # steps' uniforms at once (the same numbers, fewer ops)
+            ctr = (nsteps0[None] + torch.arange(
+                min(_U_BLOCK, n_steps - s), device=nsteps0.device,
+                dtype=torch.int32)[:, None] + s)
+            u_blk = torch.stack(rng.uniforms(st.key0, st.key1, ctr))
+        u = u_blk[:, s % _U_BLOCK]
+        retro = (flags & FL_RETRO) != 0
+        jret = (flags & FL_JRET) != 0
+        dwf = (flags & FL_DW) != 0
+        injf = (flags & FL_INJ) != 0
+        norm = act & ~retro
+        do_b3 = norm & ~jret
+
+        # ---- zone fields from position ---------------------------------
+        ig = _zone(xg, x)
+        igc = ig.clamp(min=0)
+        ux, gsf, gef, bmag = zux[igc], zgsf[igc], zgef[igc], zb[igc]
+        gden = inv_q / bmag
+
+        ptot = hyp(pb, pperp)
+        gamma_pf = hyp(ptot / mc, one)
+
+        # ---- Code Block 3 ----------------------------------------------
+        changed = do_b3 & (ux != uxp)
+        beta_old = uxp / c
+        gsf_old = torch.div(one, torch.sqrt(torch.maximum(
+            1.0 - beta_old * beta_old, tiny30)))
+        px_sk_t = gsf_old * (pb + gamma_pf * m * uxp)
+        pt_sk_t = hyp(px_sk_t, pperp)
+        g_sk_t = hyp(pt_sk_t / mc, one)
+        pb_tr = gsf * (px_sk_t - g_sk_t * m * ux)
+        pb = torch.where(changed, pb_tr, pb)
+        ptot = hyp(pb, pperp)
+        gamma_pf = hyp(ptot / mc, one)
+        uxp = torch.where(do_b3, ux, uxp)
+
+        # pmax escape (both frames)
+        px_sk0 = gsf * (pb + gamma_pf * m * ux)
+        pt_sk0 = hyp(px_sk0, pperp)
+        esc_pmax = do_b3 & (ptot > pmax_cutoff) & (pt_sk0 > pmax_cutoff)
+        status = torch.where(esc_pmax, FINISHED, status)
+        reason = torch.where(esc_pmax, R_UPSTREAM_PMAX, reason)
+        do_b3 = do_b3 & ~esc_pmax
+
+        # upstream FEB escape
+        esc_feb = do_b3 & injf & (x < feb_up)
+        status = torch.where(esc_feb, FINISHED, status)
+        reason = torch.where(esc_feb, R_UPSTREAM_PMAX, reason)
+        do_b3 = do_b3 & ~esc_feb
+
+        # age escape
+        esc_age = do_b3 & (acct > age_max)
+        status = torch.where(esc_age, FINISHED, status)
+        reason = torch.where(esc_age, R_AGE, reason)
+        do_b3 = do_b3 & ~esc_age
+
+        # pitch-angle scattering (parallel: no phase adjustment)
+        cos_max = torch.where(xnp == xn_coarse, cmax_coarse, cmax_fine)
+        safe_pt = torch.maximum(ptot, tiny30)
+        cos_old = pb / safe_pt
+        sin_old = pperp / safe_pt
+        cos_dt = 1.0 - u[0] * (1.0 - cos_max)
+        sin_dt = torch.sqrt(torch.clamp(1.0 - cos_dt * cos_dt, min=0.0))
+        phi_sc = u[1] * two_pi - pi
+        cos_new = torch.clamp(cos_old * cos_dt
+                              + sin_old * sin_dt * torch.cos(phi_sc),
+                              -1.0, 1.0)
+        sin_new = torch.sqrt(torch.clamp(1.0 - cos_new * cos_new, min=0.0))
+        pb = torch.where(do_b3, ptot * cos_new, pb)
+        pperp = torch.where(do_b3, ptot * sin_new, pperp)
+
+        # gyro period / t_step
+        if is_el:
+            g_eff = torch.where(ptot < pe_crit, gamma_e_crit, gamma_pf)
+        else:
+            g_eff = gamma_pf
+        gyro_period = two_pi * g_eff * mc * gden
+
+        # acctime (downstream only), pcut save-out
+        adding = do_b3 & dwf
+        acct = acct + torch.where(adding, tstep * gef, 0.0).to(
+            torch.float64)
+        save = adding & (ptot > pcut)
+        status = torch.where(save, SAVED, status)
+        prp = torch.where(save & (x >= prp), x * 1.1, prp)
+        do_b3 = do_b3 & ~save
+
+        r_g_tot = ptot * c * gden
+        xnp = torch.where(norm & (status == ACTIVE),
+                          torch.where(x > r_g_tot, xn_coarse, xn_fine),
+                          xnp)
+
+        # ---- movement ---------------------------------------------------
+        moving = (status == ACTIVE) & ~retro
+        tstep = torch.where(moving, gyro_period / xnp, tstep)
+
+        x_old = x
+        done = ~moving
+        pb_m = pb
+        phi_m = phi
+        dx_acc = torch.zeros_like(pb)
+        phi_fin = phi
+        u_inj = (u[5], u[6])
+        u_phi = (u[7], u[3])
+        # without reflection every try is accepted at once: the loop's
+        # first pass and the fallback below compute the same move
+        for kk in range(_N_REFLECT_TRIES if reflect else 0):
+            phi_try = floor_mod(phi_m + torch.div(two_pi, xnp), two_pi)
+            dx = gsf * (pb_m * tstep / (gamma_pf * m) + ux * tstep)
+            x_try = x_old + dx.to(torch.float64)
+            cross_up = ((x_try <= 0.0) & (x_old > 0.0) & ~injf
+                        & (inj_frac < 1.0))
+            fail = u_inj[kk] > inj_frac
+            refl = ~done & cross_up & fail
+            accept = ~done & ~refl
+            dx_acc = torch.where(accept, dx, dx_acc)
+            phi_fin = torch.where(accept, phi_try, phi_fin)
+            done = done | accept
+            neg = pb_m < 0.0
+            pb_m = torch.where(refl & neg, -pb_m, pb_m)
+            phi_m = torch.where(refl & ~neg, u_phi[kk] * two_pi, phi_m)
+        phi_try = floor_mod(phi_m + torch.div(two_pi, xnp), two_pi)
+        dx = gsf * (pb_m * tstep / (gamma_pf * m) + ux * tstep)
+        dx_acc = torch.where(done, dx_acc, dx)
+        phi_fin = torch.where(done, phi_fin, phi_try)
+        pb = torch.where(moving, pb_m, pb)
+        phi = torch.where(moving, phi_fin, phi)
+        x = x + torch.where(moving, dx_acc, 0.0).to(torch.float64)
+
+        first_dw = moving & (x_old < 0.0) & (x >= 0.0)
+        dwf = dwf | first_dw
+        l_diff0 = eta3 * r_g_tot * ptot / (m * gamma_pf * u2)
+        prp = torch.where(first_dw, torch.maximum(prp, l_diff0), prp)
+        injf = injf | (moving & dwf & (x < 0.0))
+
+        # ---- tallies (all_flux) -----------------------------------------
+        ig_new = _zone(xg, x).clamp(0, nb - 2)
+        ig_new = torch.where(moving, ig_new, ig)
+
+        px_sk = gsf * (pb + gamma_pf * m * ux)
+        pt_sk = hyp(px_sk, pperp)
+        g_sk = hyp(pt_sk / mc, one)
+        pz_sk = -pperp * torch.sin(phi)
+        spike = pt_sk > px_sk.abs() * spike_away
+        inv_vx = torch.where(
+            spike, torch.div(spike_away, ux).abs(),
+            (g_sk * m / torch.where(px_sk == 0.0, tiny30, px_sk)).abs())
+        rel = (g_sk - 1.0) > e_rel
+        e_add = torch.where(rel, (g_sk - 1.0) * e0 * w_lane,
+                            pt_sk * pt_sk / (2.0 * m) * w_lane)
+
+        moved_down = x > x_old
+        lo_z = torch.where(moved_down, ig + 1, ig_new + 1)
+        hi_z = torch.where(moved_down, ig_new, ig)
+        lo_z = torch.where(~moved_down & injf,
+                           torch.clamp(lo_z, min=tb.i_grid_feb + 1), lo_z)
+        crossed = moving & (hi_z >= lo_z)
+        if bool(crossed.any()):      # deposit only when some lane crossed
+            lo_c = lo_z.clamp(0, nb - 1)
+            hi_c = hi_z.clamp(0, nb - 1)
+
+            sign = torch.where(moved_down, 1.0, -1.0).to(torch.float32)
+            on = crossed.to(torch.float32)
+            v_pxx = sign * px_sk * w_lane * g0u0 * on
+            v_pxz = pz_sk.abs() * w_lane * g0u0 * on
+            v_en = sign * e_add * g0u0 * on
+            v_n = (crossed & ~injf).to(torch.float32)
+
+            # psd bins (get_psd_bins.jl:16-39, 73-97)
+            lp = (torch.log(torch.maximum(pt_sk, tiny37)) * inv_ln10
+                  - log_pmin)
+            ipb = torch.floor(lp * float(tb.bins_per_dec_mom)).to(i32) + 1
+            ipb = torch.where(pt_sk < psd_mom_min, 0, ipb)
+            ipb = ipb.clamp(0, tb.n_mom)
+            p_cos = torch.clamp(-px_sk / torch.maximum(pt_sk, tiny37),
+                                -1.0, 1.0)
+            jlin = tb.n_theta - torch.floor((p_cos + 1.0) / dcos).to(i32)
+            theta = torch.acos(p_cos)
+            lt = (torch.log(torch.maximum(theta, tiny37)) * inv_ln10
+                  - log_tmin)
+            jlog = (torch.floor(lt * float(tb.bins_per_dec_theta)).to(i32)
+                    + 1)
+            jlog = torch.where(theta < theta_min, 0, jlog)
+            jt = torch.where(p_cos < cos_fine, jlin, jlog)
+            jt = torch.where(pt_sk <= 0.0, 0, jt)
+            jt = jt.clamp(0, tb.n_theta)
+            kind = (~injf).to(i32)
+            cell = ((ipb * 2 + kind) * (tb.n_theta + 1) + jt).long()
+            psd_w = torch.where(crossed, w_lane * inv_vx * on, 0.0)
+
+            base = cell * nz
+            psd_flat.index_put_(
+                (torch.cat([base + lo_c, base + hi_c + 1]),),
+                torch.cat([psd_w, -psd_w]), accumulate=True)
+            vals = torch.stack([v_pxx, v_pxz, v_en, v_n]).to(torch.float64)
+            vals = torch.where(crossed, vals, 0.0)
+            ch = (torch.arange(4, device=x.device) * nz)[:, None]
+            flux_flat.index_put_(
+                (torch.cat([(ch + lo_c).reshape(-1),
+                            (ch + hi_c + 1).reshape(-1)]),),
+                torch.cat([vals.reshape(-1), -vals.reshape(-1)]),
+                accumulate=True)
+
+        # escaping flux at the upstream FEB
+        esc_cross = moving & injf & (x < feb_up) & (x_old >= feb_up)
+        if bool(esc_cross.any()):
+            tl.esc[1] += torch.where(esc_cross, e_add * g0u0, 0.0).to(
+                torch.float64).sum()
+            tl.esc[0] += torch.where(esc_cross, -px_sk * w_lane * g0u0,
+                                     0.0).to(torch.float64).sum()
+
+        # ---- downstream logic -------------------------------------------
+        jret_new = torch.zeros_like(jret)
+        if is_el:
+            low_e = ptot < pe_crit
+            v_fac = torch.where(
+                low_e,
+                (pe_crit * c * gden) * pe_crit / (m * gamma_e_crit * u2),
+                (ptot * c * gden) * ptot / (m * gamma_pf * u2))
+        else:
+            v_fac = (ptot * c * gden) * ptot / (m * gamma_pf * u2)
+        l_diff = eta3 * v_fac
+
+        esc_feb_dw = moving & (feb_dw > 0.0) & (x > feb_dw)
+        esc_far = (moving & ~esc_feb_dw & (x > 1.1 * prp)
+                   & (x > (6.91 * l_diff).to(torch.float64)))
+        do_ret = moving & ~esc_feb_dw & ~esc_far
+
+        past_end = do_ret & (x >= x_stop)
+        just_end = past_end & (x_old < x_stop)
+        r_g2 = ptot * c * inv_q / bmag2
+        l_diff2 = eta3 * r_g2 * ptot / (m * gamma_pf * u2)
+        prp = torch.where(just_end, x + (3.0 * l_diff2).to(torch.float64),
+                          prp)
+
+        crossed_prp = past_end & ~just_end & (x_old < prp) & (x >= prp)
+        if bool(crossed_prp.any()):  # the PRP test and the return
+            vt = ptot / (gamma_pf * m)
+            q_ret = (vt - u2) / (vt + u2)
+            p_ret = q_ret * q_ret
+            no_ret = crossed_prp & ((vt < u2) | (u[2] > p_ret))
+            status = torch.where(no_ret, FINISHED, status)
+            reason = torch.where(no_ret, R_DOWNSTREAM, reason)
+            returns = crossed_prp & ~no_ret
+            # analytic return (the do_retro=False branch)
+            span = u2 + vt
+            vmu = u2 - span * torch.sqrt(u[3])
+            mu = torch.clamp(vmu / torch.maximum(vt, tiny30), -1.0, 1.0)
+            pb_ret = ptot * mu
+            pperp_ret = torch.sqrt(torch.clamp(ptot * ptot - pb_ret * pb_ret,
+                                               min=0.0))
+            pb = torch.where(returns, pb_ret, pb)
+            pperp = torch.where(returns, pperp_ret, pperp)
+            phi = torch.where(returns, u[4] * two_pi, phi)
+            x = torch.where(returns, prp, x)
+            jret_new = jret_new | returns
+
+        if is_el:
+            idle = past_end & ~just_end & ~crossed_prp
+            check = (idle & (ptot < pcut_prev)
+                     & (nsteps % 1000 == 0))
+            r_g = ptot * c * gden
+            l_d = eta3 * r_g * ptot / (m * gamma_pf * u2)
+            far = x > (2.0e3 * l_d).to(torch.float64)
+            ratio = pcut_prev / torch.maximum(ptot, tiny30)
+            r2 = ratio * ratio
+            p5 = ratio * (r2 * r2)
+            shrink = torch.where(
+                far, 0.8 * x,
+                torch.minimum(prp, x_stop + (l_d * p5).to(torch.float64)))
+            prp = torch.where(check, shrink, prp)
+
+        esc = esc_feb_dw | esc_far
+        status = torch.where(esc, FINISHED, status)
+        reason = torch.where(esc, R_DOWNSTREAM, reason)
+
+        # downstream-escape pressure / KE sums
+        esc_dw = moving & (status == FINISHED) & (reason == R_DOWNSTREAM)
+        if bool(esc_dw.any()):
+            vel = ptot / m
+            vel = torch.where((gamma_pf - 1.0) >= e_rel, vel / gamma_pf,
+                              vel)
+            tl.esc[2] += torch.where(esc_dw, ptot / three * vel * w_lane,
+                                     0.0).to(torch.float64).sum()
+            tl.esc[3] += torch.where(esc_dw, (gamma_pf - 1.0) * e0 * w_lane,
+                                     0.0).to(torch.float64).sum()
+
+        # helix cap
+        nsteps = nsteps + act.to(i32)
+        capped = (status == ACTIVE) & (nsteps >= max_helix)
+        status = torch.where(capped, FINISHED, status)
+        reason = torch.where(capped, R_DOWNSTREAM, reason)
+
+        # a lane that was not ACTIVE at the step's start leaves the
+        # kernel's loop, so its flags (the just-returned bit included)
+        # stay as they were
+        new_flags = (dwf.to(i32) * FL_DW | injf.to(i32) * FL_INJ
+                     | retro.to(i32) * FL_RETRO
+                     | jret_new.to(i32) * FL_JRET)
+        flags = torch.where(act, new_flags, flags).to(i32)
+
+    st.pb.copy_(pb)
+    st.pperp.copy_(pperp)
+    st.phi.copy_(phi)
+    st.ux_prev.copy_(uxp)
+    st.xn_per.copy_(xnp)
+    st.t_step.copy_(tstep)
+    st.prp_x.copy_(prp)
+    st.x.copy_(x)
+    st.acctime.copy_(acct)
+    st.status.copy_(status)
+    st.reason.copy_(reason)
+    st.nsteps.copy_(nsteps)
+    st.flags.copy_(flags)
+    return int((status == ACTIVE).sum())
+
+
+# ---------------------------------------------------------------------------
+# K1: build, bind, launch
+# ---------------------------------------------------------------------------
+
+_SRC = Path(__file__).resolve().parent.parent / "csrc" / "mega_step.cu"
+_BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false")
+_LIB = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found: K1 is built from "
+                       f"{_SRC} with the CUDA toolkit")
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile csrc/mega_step.cu for sm_90a into the package's build
+    directory (once per source and flag set); returns the library."""
+    src = _SRC.read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    out = _BUILD_DIR / f"libmega_step_{tag[:16]}.so"
+    if out.exists():
+        return out
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS]
+    if verbose:
+        cmd += ["-Xptxas", "-v"]
+    cmd += ["-o", tmp, str(_SRC)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    if verbose:
+        print(proc.stdout + proc.stderr)
+    os.replace(tmp, out)
+    return out
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build()))
+        fn = lib.mcs_mega_launch
+        fn.argtypes = [ctypes.c_void_p] * 25 + [ctypes.c_int] * 3 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+_STATE_SPEC = (
+    ("weight", torch.float32), ("pb", torch.float32),
+    ("pperp", torch.float32), ("phi", torch.float32),
+    ("ux_prev", torch.float32), ("xn_per", torch.float32),
+    ("t_step", torch.float32), ("x", torch.float64),
+    ("prp_x", torch.float64), ("acctime", torch.float64),
+    ("status", torch.int32), ("reason", torch.int32),
+    ("nsteps", torch.int32), ("flags", torch.int32),
+    ("key0", torch.int32), ("key1", torch.int32),
+)
+
+
+def _check(st: ParticleState, tb: MegaTables, tl: Tallies) -> None:
+    n = st.weight.shape[0]
+    dev = st.weight.device
+    for name, dt in _STATE_SPEC:
+        a = getattr(st, name)
+        if a.dtype != dt or a.shape != (n,) or a.device != dev \
+                or not a.is_contiguous():
+            raise ValueError(f"state.{name}: want contiguous {dt} [{n}] "
+                             f"on {dev}, got {a.dtype} {tuple(a.shape)} "
+                             f"on {a.device}")
+    nz = tb.nb + 1
+    want = (("xg", tb.xg, torch.float64, (tb.nb,)),
+            ("zf", tb.zf, torch.float32, (4, tb.nb)),
+            ("sf", tb.sf, torch.float32, (N_SF,)),
+            ("sd", tb.sd, torch.float64, (N_SD,)),
+            ("si", tb.si, torch.int32, (N_SI,)),
+            ("psd_diff", tl.psd_diff, torch.float32,
+             ((tb.n_mom + 1) * 2 * (tb.n_theta + 1), nz)),
+            ("flux_diff", tl.flux_diff, torch.float64, (4, nz)),
+            ("esc", tl.esc, torch.float64, (4,)))
+    for name, a, dt, shape in want:
+        if a.dtype != dt or tuple(a.shape) != shape or a.device != dev \
+                or not a.is_contiguous():
+            raise ValueError(f"{name}: want contiguous {dt} {shape} on "
+                             f"{dev}, got {a.dtype} {tuple(a.shape)} on "
+                             f"{a.device}")
+    if nz > ZMAX:
+        raise ValueError(f"nb + 1 = {nz} exceeds the {ZMAX}-zone table")
+
+
+def k1_launch(st: ParticleState, tb: MegaTables, tl: Tallies,
+              n_steps: int, max_helix: int) -> int:
+    """Launch K1 once on the current stream; returns the ACTIVE count."""
+    global LAUNCHES
+    n = st.weight.shape[0]
+    n_active = torch.zeros(1, dtype=torch.int32, device=st.weight.device)
+    ptr = lambda a: ctypes.c_void_p(a.data_ptr())
+    args = [ptr(getattr(st, name)) for name, _ in _STATE_SPEC]
+    args += [ptr(tb.xg), ptr(tb.zf), ptr(tb.sf), ptr(tb.sd), ptr(tb.si)]
+    args += [ptr(tl.psd_diff), ptr(tl.flux_diff), ptr(tl.esc),
+             ptr(n_active)]
+    stream = torch.cuda.current_stream(st.weight.device).cuda_stream
+    err = _lib().mcs_mega_launch(*args, ctypes.c_int(n), ctypes.c_int(n_steps),
+                                 ctypes.c_int(max_helix),
+                                 ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"K1 launch failed: CUDA error {err}")
+    LAUNCHES += 1
+    return int(n_active.item())
+
+
+def launch(st: ParticleState, tb: MegaTables, tl: Tallies,
+           n_steps: int = STEPS, max_helix: int | None = None) -> int:
+    """One launch of `n_steps` steps: the twin for a state on the CPU,
+    K1 for a state on a CUDA device.  Returns the ACTIVE count."""
+    if max_helix is None:
+        max_helix = MAX_HELIX_STEPS
+    _check(st, tb, tl)
+    dev = st.weight.device
+    if dev.type == "cpu":
+        return step_twin(st, tb, tl, n_steps, max_helix)
+    if dev.type == "cuda":
+        return k1_launch(st, tb, tl, n_steps, max_helix)
+    raise ValueError(f"no transport kernel for device {dev}")
+
+
+def drain(st: ParticleState, tb: MegaTables, tl: Tallies,
+          n_steps: int = STEPS, max_helix: int | None = None) -> None:
+    """Launch until no lane is ACTIVE or the helix cap bounds the
+    launch count (MAX_HELIX_STEPS // S + 2, pallas_step.py:1650)."""
+    if max_helix is None:
+        max_helix = MAX_HELIX_STEPS
+    max_launches = max_helix // n_steps + 2
+    n_act = int((st.status == ACTIVE).sum())
+    k = 0
+    while n_act > 0 and k < max_launches:
+        n_act = launch(st, tb, tl, n_steps, max_helix)
+        k += 1

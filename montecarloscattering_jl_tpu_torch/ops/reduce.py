@@ -1,0 +1,328 @@
+"""Reduction layer: PSD -> spectra, zone populations, pressures.
+
+Counterpart of the JAX package's ops/reduce.py on the slice's path:
+
+* ``ion_reduce_device`` (``_ion_reduce_prog``, reduce.py:237-352): dN/dp
+  in the shock, plasma and ISM frames by corner-transform rebinning with
+  the scalene-triangle cell spreading (i_approx = 2, the reference's
+  production choice, particle_counter.jl:72), and the center-point
+  boosted d2N (thermo_calcs.jl:179-208).  It runs in torch on the PSD's
+  device in float64: the reference ran it in float32 only because f64
+  is emulated on a TPU.  The per-zone rebin is a plain product of the
+  weights with the fraction matrix, left to ``torch.matmul``.
+* the host helpers ``ion_finalize`` uses, in NumPy float64 as in the
+  reference: ``zone_populations``, ``normalize_dndp``, ``thermo_calcs``
+  and ``ef_zone_norm``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from ..utils.constants import C_CGS, KB_CGS, PC_CM
+from ..models.psd_bins import PsdBins, psd_bin_angle, psd_bin_momentum
+from .transforms import boost_x
+
+F64 = torch.float64
+
+
+# ---------------------------------------------------------------------------
+# corner-transform rebinning (CR dN/dp)
+# ---------------------------------------------------------------------------
+
+def corner_logp(gamma: float, e0: float, mom_edges: torch.Tensor,
+                cos_bounds: torch.Tensor) -> torch.Tensor:
+    """Transformed corner log10-momenta [n_mom+2, n_theta+2]
+    (transform_psd_corners, transformers.jl:634-682)."""
+    beta = (math.sqrt(max(1.0 - 1.0 / gamma ** 2, 0.0))
+            if gamma >= 1.000001 else 0.0)
+    pt = mom_edges[:, None]
+    ct = cos_bounds[None, :]
+    px = pt * ct
+    etot = torch.hypot(pt * C_CGS, torch.full_like(pt, e0))
+    px_t = gamma * (px - beta * etot / C_CGS)
+    pt_t = torch.sqrt(torch.clamp(pt * pt + px_t * px_t - px * px,
+                                  min=1.0e-300))
+    return torch.log10(pt_t)
+
+
+def _triangle_cdf(x, lo, peak, hi):
+    """CDF of the triangular distribution on [lo, hi] peaked at `peak`,
+    robust to degenerate (point-like) cells."""
+    width = hi - lo
+    tinyw = width <= 1.0e-12
+    d1 = torch.clamp((peak - lo) * width, min=1.0e-30)
+    d2 = torch.clamp((hi - peak) * width, min=1.0e-30)
+    up = (x - lo) ** 2 / d1
+    down = 1.0 - (hi - x) ** 2 / d2
+    cdf = torch.where(x <= peak, up, down)
+    cdf = torch.where(x <= lo, 0.0, torch.where(x >= hi, 1.0, cdf))
+    return torch.where(tinyw, (x >= lo).to(x.dtype), cdf)
+
+
+def rebin_matrix(corner_lp: torch.Tensor,
+                 edges_log: torch.Tensor) -> torch.Tensor:
+    """[n_cells, n_bins] fraction matrix from the cell corner log-p grid
+    (get_transform_dN, transformers.jl:106-148, i_approx = 2): cell
+    (i, j) owns corners (i..i+1, j..j+1); their min and max bound the
+    cell, the mean of the two middle ones is the triangle's peak."""
+    stack = torch.stack([corner_lp[:-1, :-1], corner_lp[1:, :-1],
+                         corner_lp[:-1, 1:], corner_lp[1:, 1:]], dim=-1)
+    lo = stack.min(dim=-1).values
+    hi = stack.max(dim=-1).values
+    peak = (stack.sum(dim=-1) - lo - hi) / 2.0
+    # the last bin extends to +inf so overflow lands there, as the
+    # reference clamps to the top bin (transformers.jl:68-92)
+    e = torch.cat([edges_log[:-1], edges_log.new_tensor([1.0e9])])
+    cdf = _triangle_cdf(e[None, :], lo.reshape(-1, 1), peak.reshape(-1, 1),
+                        hi.reshape(-1, 1))
+    return cdf[:, 1:] - cdf[:, :-1]
+
+
+def d2n_boosted(total: torch.Tensor, gammas, betas, e0: float,
+                bins: PsdBins) -> torch.Tensor:
+    """Center-point boost of a d2N histogram [n_mom+1, n_theta+1, nb]
+    into per-zone frames (thermo_calcs.jl:179-208): each cell's weight
+    moves to the bin its boosted center lands in."""
+    dev = total.device
+    nmp1, ntp1, nb = total.shape
+    p_cent = torch.as_tensor(bins.mom_centers, dtype=F64, device=dev)
+    cos_cent = torch.as_tensor(bins.cos_centers(), dtype=F64, device=dev)
+    g = torch.as_tensor(np.asarray(gammas, np.float64), device=dev)
+    b = torch.as_tensor(np.asarray(betas, np.float64), device=dev)
+    pt = (p_cent[:, None] * torch.ones_like(cos_cent)[None, :])[None]
+    px = (p_cent[:, None] * cos_cent[None, :])[None]
+    pt_t, px_t = boost_x(pt, px, g[:, None, None], b[:, None, None], e0,
+                         C_CGS)                        # [nb, nm+1, nt+1]
+    ip = psd_bin_momentum(pt_t, bins.psd_mom_min, bins.bins_per_dec_mom,
+                          bins.n_mom).long()
+    jt = psd_bin_angle(px_t, pt_t, bins.cos_fine, bins.dcos,
+                       bins.theta_min, bins.bins_per_dec_theta,
+                       bins.n_theta).long()
+    z = torch.arange(nb, device=dev)[:, None, None]
+    flat = (z * nmp1 + ip) * ntp1 + jt
+    out = torch.zeros(nb * nmp1 * ntp1, dtype=total.dtype, device=dev)
+    out.index_put_((flat.reshape(-1),),
+                   total.permute(2, 0, 1).reshape(-1), accumulate=True)
+    return out.reshape(nb, nmp1, ntp1).permute(1, 2, 0)
+
+
+# ---------------------------------------------------------------------------
+# fused per-ion device reduction
+# ---------------------------------------------------------------------------
+
+def ion_reduce_device(psd, therm_psd, bins: PsdBins, e0: float,
+                      gamma_sf_grid, ux_sk_grid, gamma0: float,
+                      want_ef: bool = False):
+    """(dn_cr, dn_th, d2n_tot, d2n_ef) as float64 NumPy arrays.
+
+    dn_cr / dn_th are the un-normalized dN/dp [n_mom+1, nb, 3] (shock,
+    plasma, ISM frames); d2n_tot is the plasma-frame center-point
+    boosted CR+thermal d2N for thermo_calcs; d2n_ef (when want_ef) the
+    ISM-frame d2N/dp of the raw CR+thermal total, which the caller
+    multiplies by ``ef_zone_norm``.  `psd` / `therm_psd` are
+    [n_mom+1, n_theta+1, nb] tensors (any float dtype) on the device
+    the reduction runs on."""
+    dev = psd.device
+    psd = psd.to(F64)
+    therm = therm_psd.to(F64)
+    nb = psd.shape[-1]
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=dev)
+    mom_edges = t(bins.mom_edges)
+    cos_bounds = t(bins.cos_bounds())
+    edges_log = t(bins.mom_bounds_log)
+    gam = np.asarray(gamma_sf_grid, np.float64)
+    dp = torch.diff(mom_edges)[:, None]
+
+    dn_sf_cr = psd.sum(dim=1)                       # [n_mom+1, nb]
+    dn_sf_th = therm.sum(dim=1)
+    psd_t = psd.permute(2, 0, 1)                    # [nb, nm+1, nt+1]
+    th_t = therm.permute(2, 0, 1)
+
+    dn_pf_cr = torch.empty(nb, psd.shape[0], dtype=F64, device=dev)
+    dn_pf_th = torch.empty_like(dn_pf_cr)
+    for z in range(nb):
+        g = float(gam[z])
+        m = rebin_matrix(corner_logp(g, e0, mom_edges, cos_bounds),
+                         edges_log)
+        dn_pf_cr[z] = torch.matmul((psd_t[z] / g).reshape(-1), m)
+        dn_pf_th[z] = torch.matmul((th_t[z] / g).reshape(-1), m)
+    m0 = rebin_matrix(corner_logp(gamma0, e0, mom_edges, cos_bounds),
+                      edges_log)
+    dn_ef_cr = torch.matmul(psd_t.reshape(nb, -1) / gamma0, m0)
+    dn_ef_th = torch.matmul(th_t.reshape(nb, -1) / gamma0, m0)
+
+    dn_cr = torch.stack([dn_sf_cr, dn_pf_cr.T, dn_ef_cr.T],
+                        dim=-1) / dp[..., None]
+    dn_th = torch.stack([dn_sf_th, dn_pf_th.T, dn_ef_th.T],
+                        dim=-1) / dp[..., None]
+
+    total = psd + therm
+    betas = np.asarray(ux_sk_grid, np.float64) / C_CGS
+    d2n_tot = d2n_boosted(total, gam, betas, e0, bins)
+    d2n_ef = None
+    if want_ef:
+        beta0 = math.sqrt(1.0 - 1.0 / gamma0 ** 2)
+        d2n_ef = d2n_boosted(total, np.full(nb, gamma0), np.full(nb, beta0),
+                             e0, bins) / dp[..., None]
+        d2n_ef = d2n_ef.cpu().numpy()
+    return (dn_cr.cpu().numpy(), dn_th.cpu().numpy(),
+            d2n_tot.cpu().numpy(), d2n_ef)
+
+
+# ---------------------------------------------------------------------------
+# zone populations (set_grid_volumes!, particle_counter.jl:1466-1524)
+# ---------------------------------------------------------------------------
+
+def shell_surface_areas(x_grid_cm: np.ndarray, i_shock: int,
+                        gamma0: float, jet_rad_pc: float,
+                        jet_sph_frac: float) -> np.ndarray:
+    """Spherical-cap shell surface area per zone [cm^2] from the jet
+    geometry (set_grid_volumes!, particle_counter.jl:1476-1505); unit
+    area when no jet radius is configured."""
+    nb = len(x_grid_cm)
+    dx = np.diff(x_grid_cm)
+    surf = np.ones(nb)
+    if jet_rad_pc > 0:
+        jet_rad_cm = jet_rad_pc * PC_CM
+        rad_min = jet_rad_cm - x_grid_cm[i_shock]
+        for i in range(i_shock - 1, 0, -1):
+            rad_max = rad_min + dx[i] / gamma0
+            surf[i] = math.pi * (rad_max + rad_min) ** 2 * jet_sph_frac
+            rad_min = rad_max
+        rad_max = jet_rad_cm - x_grid_cm[i_shock]
+        for i in range(i_shock, nb - 1):
+            rad_min = rad_max - dx[i] / gamma0
+            surf[i] = math.pi * (rad_max + rad_min) ** 2 * jet_sph_frac
+            rad_max = rad_min
+    return surf
+
+
+def zone_populations(x_grid_cm: np.ndarray, i_shock: int, n0_ion: float,
+                     beta0: float, gamma0: float, jet_rad_pc: float,
+                     jet_sph_frac: float, ux_sk_grid: np.ndarray,
+                     gamma_sf_grid: np.ndarray
+                     ) -> tuple[np.ndarray, np.ndarray]:
+    """(zone_pop, zone_vol) per boundary index (length nb): upstream
+    particle flux x shell surface area x dwell time."""
+    nb = len(x_grid_cm)
+    dx = np.diff(x_grid_cm)
+    surf = shell_surface_areas(x_grid_cm, i_shock, gamma0, jet_rad_pc,
+                               jet_sph_frac)
+
+    zone_pop = np.zeros(nb)
+    zone_vol = np.zeros(nb)
+    f_up = gamma0 * n0_ion * beta0 * C_CGS
+    for i in range(1, nb - 1):
+        dwell = dx[i] / ux_sk_grid[i]
+        zone_pop[i] = f_up * surf[i] * dwell
+        density_pf = gamma0 * ux_sk_grid[1] / (gamma_sf_grid[i]
+                                               * ux_sk_grid[i])
+        zone_vol[i] = zone_pop[i] / max(density_pf, 1e-300)
+    return zone_pop, zone_vol
+
+
+def normalize_dndp(dndp_cr_arr, dndp_therm_arr, mom_edges, zone_pop,
+                   n0_ion: float, gamma0: float, ux_sk_grid,
+                   gamma_sf_grid):
+    """Normalize thermal + CR dN/dp so each zone integrates to its
+    population (get_normalized_dNdp, particle_counter.jl:730-778).
+    Arrays are [n_mom+1, nb, 3]; returns (therm, cr) as new arrays."""
+    dp = np.diff(np.asarray(mom_edges))[:, None, None]
+    area_therm = (np.asarray(dndp_therm_arr) * dp).sum(axis=0)   # [nb, 3]
+    area_cr = (np.asarray(dndp_cr_arr) * dp).sum(axis=0)
+    # fast-push zones with no thermal crossings approximate the thermal
+    # area by the compressed density / local speed
+    # (particle_counter.jl:756-758)
+    density_pf = (gamma0 * np.asarray(ux_sk_grid)[1]
+                  / (np.asarray(gamma_sf_grid) * np.asarray(ux_sk_grid)))
+    area_tot = np.where((area_therm == 0) & (area_cr > 0),
+                        (n0_ion * density_pf[:, None]
+                         / np.asarray(ux_sk_grid)[:, None]) + area_cr,
+                        area_therm + area_cr)
+    ok = area_tot > 0
+    norm = np.zeros_like(area_tot)
+    np.divide(np.broadcast_to(np.asarray(zone_pop)[:, None],
+                              area_tot.shape),
+              area_tot, out=norm, where=ok)
+    return (np.asarray(dndp_therm_arr) * norm[None, :, :],
+            np.asarray(dndp_cr_arr) * norm[None, :, :])
+
+
+# ---------------------------------------------------------------------------
+# pressures (thermo_calcs.jl) and the ISM-frame normalization
+# ---------------------------------------------------------------------------
+
+def thermo_calcs(psd, therm_psd, bins: PsdBins, m_ion: float,
+                 zone_pop, num_crossings, n0_ion: float, t0_ion: float,
+                 zz_ion: float, beta0: float, gamma0: float,
+                 ux_sk_grid, gamma_sf_grid, d2n):
+    """Anisotropic pressure + kinetic-energy density per zone
+    (thermo_calcs.jl:29-352) from ion_reduce_device's plasma-frame
+    d2N `d2n`.  Returns (P_par, P_perp, energy_density) of length nb."""
+    e0 = m_ion * C_CGS**2
+    mc = m_ion * C_CGS
+    nb = psd.shape[-1]
+    gam = np.asarray(gamma_sf_grid)
+
+    p_cent = bins.mom_centers
+    cos_cent = bins.cos_centers()
+    vel = p_cent * C_CGS / (mc * np.hypot(1.0, p_cent / mc))
+    g_cent = np.hypot(1.0, p_cent / mc)
+
+    p_par = np.zeros(nb)
+    p_perp = np.zeros(nb)
+    e_dens = np.zeros(nb)
+    ncross = np.asarray(num_crossings)
+    zpop = np.asarray(zone_pop)
+
+    for i in range(1, nb - 1):
+        density_loc = (gamma0 * beta0 * n0_ion
+                       / max(math.sqrt(max(gam[i] ** 2 - 1.0, 1e-300)),
+                             1e-300))
+        has_parts = d2n[:, :, i].max() > 0
+        if (not has_parts) and ncross[i] == 0:
+            # case 1: untracked thermal plasma only — analytic adiabatic
+            # pressure (thermo_calcs.jl:258-279)
+            pres = density_loc ** (5.0 / 3.0) * KB_CGS * t0_ion
+            p_par[i] = pres / 3.0
+            p_perp[i] = 2.0 * pres / 3.0
+            e_dens[i] = 1.5 * pres
+            continue
+        if ncross[i] == 0:
+            # case 2: CRs only; thermal part analytic, scaled by the
+            # untracked fraction (thermo_calcs.jl:281-306)
+            pres = density_loc ** (5.0 / 3.0) * KB_CGS * t0_ion
+            d2n_pop = d2n[:, :, i].sum()
+            pres *= max(1.0 - d2n_pop / max(zpop[i], 1e-300), 0.0)
+            p_par[i] = pres / 3.0
+            p_perp[i] = 2.0 * pres / 3.0
+            e_dens[i] = 1.5 * pres
+        norm = density_loc / max(zpop[i], 1e-300)
+        w = d2n[:, :, i] * norm
+        pf = (p_cent * vel / 3.0)[:, None]
+        mu2 = (cos_cent ** 2)[None, :]
+        p_par[i] += float((w * pf * mu2).sum())
+        p_perp[i] += float((w * pf * (1.0 - mu2)).sum())
+        e_dens[i] += float((w * ((g_cent - 1.0) * e0)[:, None]).sum())
+
+    return p_par, p_perp, e_dens
+
+
+def ef_zone_norm(psd, therm_psd, zone_pop, num_crossings,
+                 n0_ion: float) -> np.ndarray:
+    """Per-zone population normalization factor [nb] for the ISM-frame
+    d2N (particle_counter.jl:480-518), float64 on the host (zone
+    populations are ~1e50 in CGS)."""
+    total = np.asarray(psd, np.float64) + np.asarray(therm_psd, np.float64)
+    density_tot = total.sum(axis=(0, 1))
+    density_tot = np.where((np.asarray(num_crossings) == 0)
+                           & (density_tot > 0),
+                           density_tot + n0_ion, density_tot)
+    norm = np.zeros_like(density_tot)
+    np.divide(np.asarray(zone_pop), density_tot, out=norm,
+              where=density_tot > 0)
+    return norm

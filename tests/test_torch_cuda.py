@@ -1,0 +1,107 @@
+"""K1 (csrc/mega_step.cu) against its plain PyTorch version on a CUDA
+card.  Every test here needs the card: it carries the ``cuda`` marker
+and skips without one.  Run on the card with
+
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
+
+(tests/conftest.py sets JAX up; these tests need none of it).
+
+Bounds: K1 is built with -fmad=false and calls the CUDA libm functions
+the twin's torch ops call, so per-lane state agrees to 16 f32 ulp
+relative (momenta relative to the lane's |p|) on all but at most 0.1% of
+lanes, and tally totals to 1e-4 (f32 atomics in another order)."""
+
+import dataclasses
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from montecarloscattering_jl_tpu_torch.engine.run import TransportEngine
+from montecarloscattering_jl_tpu_torch.engine.setup import build_setup
+from montecarloscattering_jl_tpu_torch.models.injection import init_pop
+from montecarloscattering_jl_tpu_torch.ops import mega, rng
+from montecarloscattering_jl_tpu_torch.ops import state as stt
+from montecarloscattering_jl_tpu_torch.utils import load_config
+
+pytestmark = pytest.mark.cuda
+LANES = 4096
+CFG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "tests", "data", "dsa_nonrel.toml")
+
+
+@pytest.fixture(scope="module")
+def card():
+    # decided in a fixture, not at import: every worker collects the
+    # same tests
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda:0")
+
+
+@pytest.fixture(scope="module")
+def population(card):
+    cfg = load_config(CFG)
+    setup = build_setup(cfg)
+    eng = TransportEngine(setup, device=card)
+    prof = setup.profile
+    pop = init_pop(np.random.default_rng(0), cfg.species, 0, 1,
+                   cfg.energy_inj, True, cfg.n_pts_inj, setup.x_grid_start,
+                   cfg.rg0, 1.0, True, -1.0, cfg.beta0, cfg.gamma0, cfg.u0,
+                   setup.x_grid_rg, prof.ux_sk, prof.gamma_sf)
+    reps = LANES // len(pop.ptot_pf) + 1
+    t = lambda a: np.tile(a, reps)[:LANES]
+    st = stt.init_state(
+        t(pop.weight), t(pop.ptot_pf), t(pop.pb_pf), t(pop.x_cm),
+        t(pop.i_grid).astype(np.int32), t(prof.ux_sk[pop.i_grid]),
+        cfg.xn_per_fine, setup.x_grid_stop, rng.key(0), card)
+    ss = eng.step_static(0)
+    tabs = {kind: mega.mega_tables(
+        eng.segment_grids(prof), eng.segment_scalars(0, 2, prof.bmag2),
+        dataclasses.replace(ss, is_electron=kind == "electron"), card)
+        for kind in ("ion", "electron")}
+    fresh = lambda: stt.make_tallies(setup.nb, setup.bins.n_mom,
+                                     setup.bins.n_theta, card)
+    return st, tabs, fresh
+
+
+def _clone(st):
+    return dataclasses.replace(st, **{
+        f.name: getattr(st, f.name).clone() for f in dataclasses.fields(st)})
+
+
+@pytest.mark.parametrize("kind", ["ion", "electron"])
+@pytest.mark.parametrize("n_steps", [1, 64, 256])
+def test_k1_matches_twin(population, n_steps, kind):
+    st0, tabs, fresh = population
+    tabs = tabs[kind]
+    s_k, t_k, s_t, t_t = _clone(st0), fresh(), _clone(st0), fresh()
+    before = mega.LAUNCHES
+    mega.launch(s_k, tabs, t_k, n_steps=n_steps)
+    assert mega.LAUNCHES == before + 1
+    mega.step_twin(s_t, tabs, t_t, n_steps, mega.MAX_HELIX_STEPS)
+    torch.cuda.synchronize()
+    same = torch.ones(LANES, dtype=torch.bool, device=st0.device)
+    for name in ("status", "reason", "nsteps", "flags"):
+        same &= getattr(s_k, name) == getattr(s_t, name)
+    assert int((~same).sum()) <= 1e-3 * LANES
+    ptot = torch.hypot(s_t.pb.double(), s_t.pperp.double())
+    for name in ("pb", "pperp", "phi", "x", "prp_x", "acctime", "t_step"):
+        a = getattr(s_k, name).double()[same]
+        b = getattr(s_t, name).double()[same]
+        scale = (ptot[same] if name in ("pb", "pperp") else b.abs())
+        over = (a - b).abs() > 16 * 2.0 ** -23 * scale
+        assert int(over.sum()) <= 1e-3 * LANES, name
+    for name in ("psd_diff", "flux_diff", "esc"):
+        a = getattr(t_k, name).double().abs().sum()
+        b = getattr(t_t, name).double().abs().sum()
+        assert abs(float(a - b)) <= 1e-4 * float(b) + 1e-300, name
+
+
+def test_wrapper_raises_on_bad_input(population):
+    st0, tabs, fresh = population
+    tabs = tabs["ion"]
+    with pytest.raises(ValueError):
+        mega.launch(dataclasses.replace(_clone(st0), x=st0.x.float()),
+                    tabs, fresh(), n_steps=1)
