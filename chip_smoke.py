@@ -3,18 +3,32 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
-1. Prints the card (nvidia-smi name and power limit) and builds the
-   transport kernel K1 (csrc/mega_step.cu) with nvcc for sm_90a.
+1. Prints the card (nvidia-smi name and power limit) and builds every
+   kernel of the port with nvcc for sm_90a, one nvcc per source, all
+   started together: K1 (csrc/mega_step.cu) and K2/K3
+   (csrc/psd_hist.cu).
 2. Holds K1 against its plain PyTorch version (ops/mega.py step_twin) on
    the card, on the flagship population: tests/data/dsa_nonrel.toml,
    65,536 injected lanes at pcut index 2.  First one 64-step launch from
    the same state (per-lane fields), then a full drain with the helix
-   cap lowered to 2,048 steps (status counts, step totals, tallies).
-3. Drives the main path: ``engine.driver.run`` on the flagship nonlinear
-   config (65,536 particles per pcut, smoothing on, 2 iterations),
-   checks that every transport launch went through K1 and none through
-   the twin, that the output files are written, and the test-particle
-   power-law slope of iteration 1.
+   cap lowered to 512 steps (status counts, step totals, tallies).
+3. Holds K2 and K3 (ops/hist.py) against their plain versions on the
+   card, through the histogram probe (scripts/probe_hist.py): K2 at the
+   main path's shape (one record per lane of the 69,632-lane batch into
+   the 4,428 x 102 PSD) and on the probe's 2^21 records, K3 at bands
+   1,024 and 2,048, K2 at the probe's 2^16-record P4 shape; each timed
+   beside its plain version and checked against float64.
+4. Drives the K1 path: ``engine.driver.run`` on the flagship nonlinear
+   config with float32 momenta (65,536 particles per pcut, smoothing
+   on, 2 iterations), checks that every transport launch went through
+   K1 and none through the twin, that the output files are written, and
+   the test-particle power-law slope of iteration 1.
+5. Drives the XLA-engine path, the JAX CLI's default: the same config
+   with float64 momenta and two x_spec detectors at -/+0.5 r_g0, 1
+   iteration; checks that every PSD deposit went through K2 (none
+   through its plain version, no K1 launch), that the output files with
+   mc_xspec.dat are written, that both detectors' spectra are positive,
+   and the slope.
 
 Every phase that fails raises, so the script exits non-zero; it also
 exits non-zero without a CUDA device.  The line before the last is a
@@ -33,7 +47,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CFG = os.path.join(ROOT, "tests", "data", "dsa_nonrel.toml")
 LANES = 65_536
 WINDOW = 64
-DRAIN_CAP = 2_048
+DRAIN_CAP = 512
 # per-lane bounds of K1 against the twin on the card: both round every
 # f32 operation once (nvcc -fmad=false) and call the same CUDA libm, so
 # state agrees to a few ulp; lanes whose step count or status differ
@@ -42,6 +56,8 @@ DRAIN_CAP = 2_048
 ULP_BOUND = 16 * 2.0 ** -23    # relative; momenta relative to |p|
 MAX_DIVERGENT = 1e-3
 TALLY_RTOL = 1e-4                          # f32 atomics in any order
+# K2/K3 against their plain versions: f32 sums in another order
+HIST_TOL = 1e-4                            # of max |psd|
 
 
 def fail(msg: str) -> None:
@@ -244,37 +260,32 @@ def expected_files(cfg):
     return names
 
 
-def main_path(dev) -> dict:
+def hist_phase(dev) -> dict:
+    """K2, K3 and K4 (K2 at P4's shape) against their plain versions on
+    the same records, with the histogram probe (scripts/probe_hist.py):
+    ns/record of each, errors against the plain version and against
+    float64."""
+    from montecarloscattering_jl_tpu_torch.scripts import probe_hist as ph
+
+    print("histogram kernels (scripts/probe_hist.py):")
+    out = ph.run(dev)
+    for name, r in out.items():
+        err, scale = r["max_abs_err"], r["max_abs_psd"]
+        if not scale > 0 or not math.isfinite(err) or err > HIST_TOL * scale:
+            fail(f"{name}: max abs err {err!r} against the plain version "
+                 f"(max |psd| {scale!r})")
+        if not r["rel_err_f64"] < 1e-4:
+            fail(f"{name}: max rel err {r['rel_err_f64']!r} against "
+                 f"float64")
+    return out
+
+
+def slope_of(res) -> tuple[float, float]:
+    """The downstream power-law slope of iteration 1 and its theory."""
     import numpy as np
 
-    from montecarloscattering_jl_tpu_torch.engine.driver import run
-    from montecarloscattering_jl_tpu_torch.ops import mega
     from montecarloscattering_jl_tpu_torch.utils import constants as K
-    from montecarloscattering_jl_tpu_torch.utils import load_config
 
-    cfg = load_config(CFG)
-    cfg.n_itrs = 2
-    cfg.do_smoothing = True
-    cfg.n_pts_inj = cfg.n_pts_pcut = cfg.n_pts_pcut_hi = LANES
-    with tempfile.TemporaryDirectory() as out:
-        mega.LAUNCHES = 0
-        mega.TWIN_CALLS = 0
-        t0 = time.perf_counter()
-        res = run(cfg, device=dev, out_dir=out)
-        wall = time.perf_counter() - t0
-        launches, twin_calls = mega.LAUNCHES, mega.TWIN_CALLS
-        written = sorted(os.listdir(out))
-    phases = {k: round(v, 3) for k, v in res.timers.totals.items()}
-    print(f"main path: {len(res.iterations)} iterations, "
-          f"{res.n_trajectories} trajectories, {res.n_pushes} pushes, "
-          f"{launches} K1 launches, {twin_calls} twin calls in "
-          f"{wall:.2f} s ({res.n_pushes / wall / 1e6:.2f} M pushes/s); "
-          f"phases {json.dumps(phases)}")
-    if launches <= 0 or twin_calls != 0:
-        fail(f"main path: {launches} K1 launches, {twin_calls} twin calls")
-    missing = [f for f in expected_files(cfg) if f not in written]
-    if missing:
-        fail(f"main path: output files missing: {missing} (got {written})")
     setup = res.setup
     fi = res.iterations[0].ion_finals[0]
     p_cent = setup.bins.mom_centers
@@ -282,20 +293,72 @@ def main_path(dev) -> dict:
     sel = ((p_cent > 0.018 * K.MP_C) & (p_cent < 0.12 * K.MP_C)
            & (dndp > 0))
     if sel.sum() < 6:
-        fail(f"main path: only {sel.sum()} spectrum bins in the fit range")
+        fail(f"only {sel.sum()} spectrum bins in the fit range")
     slope = float(np.polyfit(np.log10(p_cent[sel]), np.log10(dndp[sel]),
                              1)[0])
-    expect = -(3 * setup.r_comp / (setup.r_comp - 1) - 2)
-    print(f"iteration 1 downstream slope {slope:.4f} (expected "
+    return slope, -(3 * setup.r_comp / (setup.r_comp - 1) - 2)
+
+
+def main_path(dev, p_dtype, n_itrs: int, x_spec: bool) -> dict:
+    """One driven run of the flagship config; counts of every kernel's
+    launches set to 0 just before it and read just after."""
+    import numpy as np
+    import torch
+
+    from montecarloscattering_jl_tpu_torch.engine.driver import run
+    from montecarloscattering_jl_tpu_torch.ops import hist, mega
+    from montecarloscattering_jl_tpu_torch.utils import load_config
+
+    cfg = load_config(CFG)
+    cfg.n_itrs = n_itrs
+    cfg.do_smoothing = True
+    cfg.n_pts_inj = cfg.n_pts_pcut = cfg.n_pts_pcut_hi = LANES
+    if x_spec:
+        cfg.x_spec = [-0.5 * cfg.rg0, 0.5 * cfg.rg0]
+    tag = f"{str(p_dtype).replace('torch.', '')} path"
+    with tempfile.TemporaryDirectory() as out:
+        mega.LAUNCHES = mega.TWIN_CALLS = 0
+        hist.LAUNCHES = hist.BAND_LAUNCHES = hist.PLAIN_CALLS = 0
+        t0 = time.perf_counter()
+        res = run(cfg, device=dev, out_dir=out, p_dtype=p_dtype)
+        wall = time.perf_counter() - t0
+        counts = dict(k1=mega.LAUNCHES, twin=mega.TWIN_CALLS,
+                      k2=hist.LAUNCHES, k3=hist.BAND_LAUNCHES,
+                      hist_plain=hist.PLAIN_CALLS)
+        written = sorted(os.listdir(out))
+    phases = {k: round(v, 3) for k, v in res.timers.totals.items()}
+    print(f"{tag}: {len(res.iterations)} iterations, "
+          f"{res.n_trajectories} trajectories, {res.n_pushes} pushes in "
+          f"{wall:.2f} s ({res.n_pushes / wall / 1e6:.2f} M pushes/s); "
+          f"launches {json.dumps(counts)}; phases {json.dumps(phases)}")
+    if p_dtype == torch.float32:
+        if counts["k1"] <= 0 or counts["twin"] != 0:
+            fail(f"{tag}: {counts} (every drain must launch K1)")
+    elif (counts["k2"] <= 0 or counts["hist_plain"] != 0
+          or counts["k1"] != 0 or counts["twin"] != 0):
+        fail(f"{tag}: {counts} (every deposit must launch K2, no K1)")
+    missing = [f for f in expected_files(cfg) if f not in written]
+    if missing:
+        fail(f"{tag}: output files missing: {missing} (got {written})")
+    slope, expect = slope_of(res)
+    print(f"{tag}: iteration 1 downstream slope {slope:.4f} (expected "
           f"{expect:.4f} +- 0.45)")
     if not math.isfinite(slope) or abs(slope - expect) > 0.45:
-        fail(f"main path: slope {slope} vs {expect}")
+        fail(f"{tag}: slope {slope} vs {expect}")
     for itr in res.iterations:
         for f in itr.ion_finals:
             if not (np.isfinite(f.dndp_cr).all()
                     and np.isfinite(f.p_psd_par).all()):
-                fail("main path: non-finite reductions")
-    return dict(launches=launches)
+                fail(f"{tag}: non-finite reductions")
+    if x_spec:
+        fi = res.iterations[0].ion_finals[0]
+        tot = [(float(fi.spectra_sf[:, i].sum()),
+                float(fi.spectra_pf[:, i].sum())) for i in range(2)]
+        print(f"{tag}: detector spectra totals (sf, pf) {tot}")
+        if not all(a > 0 and b > 0 and math.isfinite(a + b)
+                   for a, b in tot):
+            fail(f"{tag}: detector spectra {tot}")
+    return counts
 
 
 def main() -> int:
@@ -309,8 +372,9 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from montecarloscattering_jl_tpu_torch.ops import mega
+    from montecarloscattering_jl_tpu_torch.ops import build
 
+    t_start = time.perf_counter()
     card = card_line()
     print(f"nvidia-smi: {card}")
     name = torch.cuda.get_device_name(0)
@@ -319,17 +383,41 @@ def main() -> int:
     dev = torch.device("cuda:0")
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
-    lib = mega.build(verbose=True)
-    print(f"K1 build: {time.perf_counter() - t0:.2f} s ({lib.name})")
+    libs = build.build_all(["mega_step", "psd_hist"], verbose=True)
+    print(f"build (nvcc, in parallel): {time.perf_counter() - t0:.2f} s "
+          f"({', '.join(p.name for p in libs.values())})")
 
     k1 = kernel_vs_twin(dev)
-    launches = main_path(dev)["launches"]
-    print(json.dumps({"kernels": [{
-        "name": "K1 mega_step", "route": "cuda",
-        "source": "montecarloscattering_jl_tpu_torch/csrc/mega_step.cu",
-        "replaces": "montecarloscattering_jl_tpu/ops/pallas_step.py:225",
-        "launches": launches, "max_abs_err": k1["max_abs_err"],
-        "ms": k1["ms"], "plain_ms": k1["plain_ms"]}]}))
+    hp = hist_phase(dev)
+    c32 = main_path(dev, torch.float32, n_itrs=2, x_spec=False)
+    c64 = main_path(dev, torch.float64, n_itrs=1, x_spec=True)
+    src = "montecarloscattering_jl_tpu_torch/csrc/"
+    k2, k3, k4 = (hp["K2 (69,632 records)"], hp["K3 band=2048"],
+                  hp["K4 = K2 (2^16 records)"])
+    print(json.dumps({"kernels": [
+        {"name": "K1 mega_step", "route": "cuda",
+         "source": src + "mega_step.cu",
+         "replaces": "montecarloscattering_jl_tpu/ops/pallas_step.py:225",
+         "launches": c32["k1"], "max_abs_err": k1["max_abs_err"],
+         "ms": k1["ms"], "plain_ms": k1["plain_ms"]},
+        {"name": "K2 psd_scatter", "route": "cuda",
+         "source": src + "psd_hist.cu",
+         "replaces": "montecarloscattering_jl_tpu/ops/pallas_hist.py:149",
+         "launches": c64["k2"], "max_abs_err": k2["max_abs_err"],
+         "ms": k2["ms"], "plain_ms": k2["plain_ms"]},
+        {"name": "K3 psd_scatter_band", "route": "cuda",
+         "source": src + "psd_hist.cu",
+         "replaces": "scripts/probe_hist.py:97",
+         "launches": c64["k3"], "max_abs_err": k3["max_abs_err"],
+         "ms": k3["ms"], "plain_ms": k3["plain_ms"],
+         "note": "probe kernel, off the main path; timed at band 2,048"},
+        {"name": "K4 = K2 psd_scatter", "route": "cuda",
+         "source": src + "psd_hist.cu",
+         "replaces": "scripts/probe_hist.py:173",
+         "launches": c64["k2"], "max_abs_err": k4["max_abs_err"],
+         "ms": k4["ms"], "plain_ms": k4["plain_ms"],
+         "note": "runs K2's kernel at P4's 2^16 records"}]}))
+    print(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

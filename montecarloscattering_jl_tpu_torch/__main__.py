@@ -1,8 +1,8 @@
 """Command-line driver: python -m montecarloscattering_jl_tpu_torch.
 
-Reads a TOML config, runs the nonlinear loop on one device with float32
-momenta (the transport kernel's type) and writes the output-file
-surface of the JAX package's CLI.
+Reads a TOML config, runs the nonlinear loop on one device and writes
+the output-file surface of the JAX package's CLI.  Momenta are float64
+unless ``--f32`` is given, as in the JAX CLI.
 """
 
 import argparse
@@ -24,8 +24,7 @@ def main(argv=None) -> int:
                     help="run on the CUDA card (default) or on the CPU "
                          "through the kernels' plain versions")
     ap.add_argument("--f32", action="store_true",
-                    help="accepted for parity with the JAX CLI: momenta "
-                         "are always float32 here")
+                    help="float32 momenta (positions stay float64)")
     ap.add_argument("-v", "--verbose", action="store_true")
     args = ap.parse_args(argv)
 
@@ -45,7 +44,8 @@ def main(argv=None) -> int:
         raise RuntimeError("--device cuda: no CUDA device is available")
 
     t0 = time.time()
-    result = run(args.config, device=args.device, out_dir=args.out_dir)
+    result = run(args.config, device=args.device, out_dir=args.out_dir,
+                 p_dtype=torch.float32 if args.f32 else torch.float64)
     dt = time.time() - t0
     print(f"finished: {len(result.iterations)} iterations, "
           f"{result.n_trajectories} trajectories, "

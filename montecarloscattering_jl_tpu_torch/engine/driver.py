@@ -44,6 +44,8 @@ class IonFinal:
     psd: np.ndarray
     therm_psd: np.ndarray
     num_crossings: np.ndarray
+    spectra_sf: np.ndarray      # x_spec detector spectra [n_mom+1, nx]
+    spectra_pf: np.ndarray
     n_pushes: int
     n_trajectories: int
 
@@ -114,14 +116,16 @@ def ion_finalize(setup: RunSetup, res: IonResult, prof, i_ion: int,
         zone_vol=zone_vol, p_psd_par=p_par, p_psd_perp=p_perp,
         energy_density_psd=e_dens, d2n_ef=d2n_ef, esc=res.esc, psd=psd,
         therm_psd=therm, num_crossings=res.num_crossings,
+        spectra_sf=res.spectra_sf, spectra_pf=res.spectra_pf,
         n_pushes=res.n_pushes, n_trajectories=res.n_trajectories)
 
 
-def run(cfg: RunConfig | str, device, out_dir: str | None = None
-        ) -> RunResult:
-    """Full nonlinear run (main_loops.jl:52-391) on `device`, with
-    float32 momenta (the transport kernel's type); positions, PRP and
-    times stay float64."""
+def run(cfg: RunConfig | str, device, out_dir: str | None = None,
+        p_dtype: torch.dtype = torch.float64) -> RunResult:
+    """Full nonlinear run (main_loops.jl:52-391) on `device`.  `p_dtype`
+    is the momentum precision, float64 by default as in the JAX package
+    (driver.py:173-210); float32 runs the configs K1 accepts on K1
+    (engine/run.py).  Positions, PRP and times stay float64."""
     timers = PhaseTimers()
     t_start = time.time()
     if isinstance(cfg, str):
@@ -132,7 +136,7 @@ def run(cfg: RunConfig | str, device, out_dir: str | None = None
             "port does not compute it yet")
     with timers.phase("setup"):
         setup = build_setup(cfg)
-    engine = TransportEngine(setup, device=device)
+    engine = TransportEngine(setup, device=device, p_dtype=p_dtype)
     prof = setup.profile
     nb = setup.nb
     if cfg.do_old_prof:

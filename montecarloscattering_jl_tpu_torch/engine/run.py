@@ -1,12 +1,22 @@
 """Run orchestration: the species / pcut loop nest of one iteration.
 
-Counterpart of the JAX package's engine/run.py on its single-device
-megakernel path: ``TransportEngine.run_ion`` transports one species
-through the pcut ladder as a host loop of [drain -> finish -> split]
-per pcut (run_ion_mega_hybrid, pallas_step.py:2130-2247), breaking when
-a segment saves nothing (pcut_finalize, cuts.jl:115-119).  Keys are
-derived as the JAX package derives them, so both packages hand every
-lane the same random stream.
+Counterpart of the JAX package's engine/run.py on one device:
+``TransportEngine.run_ion`` transports one species through the pcut
+ladder as a host loop of [drain -> finish -> split] per pcut, breaking
+when a segment saves nothing (pcut_finalize, cuts.jl:115-119).  Two
+engines drain a segment, chosen as the JAX package chooses them
+(megakernel_supported's static gate, pallas_step.py:1237-1239):
+
+* K1 (ops/mega.py), the megakernel's counterpart
+  (run_ion_mega_hybrid, pallas_step.py:2130-2247): float32 momenta, no
+  x_spec detectors, a parallel field and nb + 1 <= 128 zones;
+* otherwise the XLA engine (ops/step.py run_segment; run_ion_xla_hybrid,
+  fused_ion.py:162-218, and on the CPU the scan ladder run_ion_fused,
+  run.py:520-536, with the same segment semantics): float64 momenta by
+  default, and x_spec detectors.
+
+Keys are derived as the JAX package derives them, so both packages hand
+every lane the same random stream on either engine.
 """
 
 from __future__ import annotations
@@ -23,6 +33,7 @@ from ..utils.config import RunConfig
 from ..utils.params import E_REL_PT
 from ..models.injection import init_pop
 from ..ops import mega, rng
+from ..ops import step as xla_step
 from ..ops import state as stt
 from ..ops.finish import EscapeTallies, finish_particles
 from ..ops.split import split_on_device
@@ -44,6 +55,8 @@ class IonResult:
     therm_psd: torch.Tensor
     num_crossings: np.ndarray  # [nb]
     esc: EscapeTallies         # NumPy fields
+    spectra_sf: np.ndarray     # [n_mom+1, max(n_xspec, 1)]
+    spectra_pf: np.ndarray
     n_pushes: int = 0
     n_trajectories: int = 0
 
@@ -64,10 +77,12 @@ class IterationTallies:
 @dataclass
 class TransportEngine:
     """Builds the device-side segment inputs of a run and transports
-    species through the pcut ladder on `device`."""
+    species through the pcut ladder on `device`, with momenta in
+    `p_dtype` (float64, as the JAX package's default)."""
 
     setup: RunSetup
     device: torch.device
+    p_dtype: torch.dtype = torch.float64
     batch_size: int = 0
     n_pushes_total: int = 0
     n_trajectories_total: int = 0
@@ -86,17 +101,21 @@ class TransportEngine:
     def segment_grids(self, prof) -> stt.SegmentGrids:
         dev = self.device
         f = lambda a: torch.as_tensor(np.asarray(a, np.float64)).to(
-            dev, torch.float32)
+            dev, self.p_dtype)
+        x_spec = self.setup.cfg.x_spec or [0.0]
         return stt.SegmentGrids(
             x_grid=torch.as_tensor(self.setup.x_grid_cm,
                                    dtype=stt.X_DTYPE).to(dev),
             ux=f(prof.ux_sk), uz=f(prof.uz_sk), utot=f(prof.utot),
             gamma_sf=f(prof.gamma_sf), gamma_ef=f(prof.gamma_ef),
             btot=f(prof.btot), b_cos=f(np.cos(prof.theta)),
-            b_sin=f(np.sin(prof.theta)))
+            b_sin=f(np.sin(prof.theta)),
+            x_spec=torch.tensor(x_spec, dtype=stt.X_DTYPE, device=dev))
 
     def segment_scalars(self, i_ion: int, i_pcut: int, bmag2: float
                         ) -> stt.SegmentScalars:
+        """Host floats; each engine's table function puts them on the
+        device in its dtypes (mega.mega_tables, step.step_tables)."""
         cfg = self.setup.cfg
         s = cfg.species[i_ion]
         pcut = cfg.pcuts[i_pcut]
@@ -133,6 +152,12 @@ class TransportEngine:
             cos_fine=b.cos_fine, dcos=b.dcos, theta_min=b.theta_min,
             bins_per_dec_theta=b.bins_per_dec_theta, n_theta=b.n_theta)
 
+    def uses_k1(self, ss: stt.StepStatic) -> bool:
+        """The JAX package's engine selection (megakernel_supported,
+        pallas_step.py:1237-1239, without its TPU memory test)."""
+        return (self.p_dtype == torch.float32 and ss.n_xspec == 0
+                and ss.parallel and ss.nb + 1 <= mega.ZMAX)
+
     # -- the ladder ---------------------------------------------------------
 
     def run_ion(self, i_iter: int, i_ion: int, prof,
@@ -142,7 +167,11 @@ class TransportEngine:
         s = cfg.species[i_ion]
         nb, b, dev = setup.nb, self.batch_size, self.device
         ss = self.step_static(i_ion)
-        mega.check_supported(ss)
+        k1 = self.uses_k1(ss)
+        if k1:
+            mega.check_supported(ss)
+        else:
+            xla_step.check_supported(ss)
         grids = self.segment_grids(prof)
         ion_key = rng.fold_in(rng.fold_in(self.base_key, i_iter), i_ion)
 
@@ -166,21 +195,27 @@ class TransportEngine:
             pad(pop.weight), pad(pop.ptot_pf), pad(pop.pb_pf),
             pad(pop.x_cm), pad(pop.i_grid).astype(np.int32),
             pad(prof.ux_sk[pop.i_grid]), cfg.xn_per_fine,
-            setup.x_grid_stop, rng.fold_in(ion_key, 0), dev)
+            setup.x_grid_stop, rng.fold_in(ion_key, 0), dev,
+            p_dtype=self.p_dtype)
 
-        tal = stt.make_tallies(nb, bins.n_mom, bins.n_theta, dev)
+        tal = stt.make_tallies(nb, bins.n_mom, bins.n_theta, dev,
+                               n_xspec=ss.n_xspec)
         esc = EscapeTallies.zeros(bins.n_mom, bins.n_theta, dev)
         p_pcut_hi = pcut_hi_momentum(cfg.energy_pcut_hi, s.mass)
         pushes = 0
         trajectories = n0
         for i_pcut in range(len(cfg.pcuts)):
             sc = self.segment_scalars(i_ion, i_pcut, prof.bmag2)
-            tabs = mega.mega_tables(grids, sc, ss, dev)
-            mega.drain(state, tabs, tal)
-            # the kernel derives the zone from position; restore it for
-            # the exit bookkeeping
-            ig = torch.searchsorted(grids.x_grid, state.x, right=True) - 1
-            state.igrid = ig.clamp(0, nb - 2).to(torch.int32)
+            if k1:
+                mega.drain(state, mega.mega_tables(grids, sc, ss, dev), tal)
+                # K1 derives the zone from position; restore it for the
+                # exit bookkeeping
+                ig = torch.searchsorted(grids.x_grid, state.x,
+                                        right=True) - 1
+                state.igrid = ig.clamp(0, nb - 2).to(torch.int32)
+            else:
+                xla_step.run_segment(
+                    state, tal, xla_step.step_tables(grids, sc, ss, dev))
             finish_particles(state, esc, grids, sc, ss)
             pushes += int(state.nsteps.sum(dtype=torch.int64))
             n_target = (cfg.n_pts_pcut if cfg.pcuts[i_pcut] < p_pcut_hi
@@ -206,7 +241,8 @@ class TransportEngine:
         return IonResult(
             psd=fin.psd, therm_psd=fin.therm_psd,
             num_crossings=fin.num_crossings.cpu().numpy(),
-            esc=esc.to_numpy(), n_pushes=pushes,
+            esc=esc.to_numpy(), spectra_sf=fin.spectra_sf.cpu().numpy(),
+            spectra_pf=fin.spectra_pf.cpu().numpy(), n_pushes=pushes,
             n_trajectories=trajectories)
 
     def new_iteration_tallies(self) -> IterationTallies:

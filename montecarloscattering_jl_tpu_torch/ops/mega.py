@@ -34,13 +34,7 @@ tensor is a 0-dim tensor on the state's device, because torch turns
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 from dataclasses import dataclass
-from pathlib import Path
 
 import numpy as np
 import torch
@@ -48,11 +42,12 @@ import torch
 from ..utils.constants import C_CGS
 from ..utils.params import (
     ALL_FLUX_SPIKE_AWAY, E_REL_PT, MAX_HELIX_STEPS)
-from . import rng
+from . import build, rng
+from .transforms import hyp
 from .state import (ACTIVE, FINISHED, FL_DW, FL_INJ, FL_JRET, FL_RETRO,
                     R_AGE, R_DOWNSTREAM, R_UPSTREAM_PMAX, SAVED,
                     ParticleState, SegmentGrids, SegmentScalars,
-                    StepStatic, Tallies)
+                    StepStatic, Tallies, check_deferred_flags)
 
 STEPS = 256            # helix steps per launch (pallas_step.py:91)
 ZMAX = 128             # zone-table capacity: nb + 1 <= ZMAX
@@ -81,43 +76,22 @@ N_SI = 7
 _N_REFLECT_TRIES = 2
 _U_BLOCK = 64          # steps of uniforms the twin draws at once
 
-# flags that K1 does not implement yet, with the ROADMAP item that adds
-# them (ROADMAP.md, "Modules still to port")
-_DEFERRED = (
-    ("do_rad_losses", "radiative losses"),
-    ("do_retro", "the retro-time walk"),
-    ("do_tcuts", "tcut tracking"),
-    ("do_energy_transfer", "ion-electron energy transfer"),
-    ("use_custom_eps_b", "the custom eps_B field decay"),
-    ("dont_scatter", "the no-scatter switch"),
-    ("dont_dsa", "the no-DSA switch"),
-)
-_ROADMAP_ITEM = ("ROADMAP.md: K1's deferred static flags "
-                 "(configs/baseline.toml slice)")
-
 
 def check_supported(ss: StepStatic) -> None:
     """Raise NotImplementedError for a config K1 does not run: one the
     megakernel itself rejects (megakernel_supported,
-    pallas_step.py:1206-1239; the port's momenta and PSD are always
-    float32), or one with a static flag whose branch this port has not
-    written yet."""
+    pallas_step.py:1206-1239: oblique fields, x_spec detectors, more
+    zones than the table holds; float64 momenta are the engine
+    selection's business, engine/run.py), or one with a static flag
+    whose branch this port has not written yet."""
     if not ss.parallel or ss.n_xspec != 0:
         raise NotImplementedError(
-            "oblique fields and x_spec detectors run on the XLA-fallback "
-            "surface, not the megakernel (ROADMAP.md: f64 momenta and "
-            "the XLA-fallback surface)")
+            "oblique fields and x_spec detectors run on the XLA engine "
+            "(ops/step.py), not K1")
     if ss.nb + 1 > ZMAX:
         raise NotImplementedError(
             f"nb + 1 = {ss.nb + 1} exceeds the {ZMAX}-zone table")
-    for name, what in _DEFERRED:
-        if getattr(ss, name):
-            raise NotImplementedError(
-                f"{name}: {what} is not in K1 yet ({_ROADMAP_ITEM})")
-    if ss.frg_rg0_cm > 0.0:
-        raise NotImplementedError(
-            f"frg_rg0_cm > 0: the custom f(r_g) law is not in K1 yet "
-            f"({_ROADMAP_ITEM})")
+    check_deferred_flags(ss)
 
 
 @dataclass
@@ -202,17 +176,6 @@ def mega_tables(grids: SegmentGrids, sc: SegmentScalars, ss: StepStatic,
         bins_per_dec_mom=ss.bins_per_dec_mom,
         bins_per_dec_theta=ss.bins_per_dec_theta,
         is_electron=bool(ss.is_electron))
-
-
-def hyp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """jnp.hypot's formula: max * sqrt(1 + (min/max)^2), 0 at 0."""
-    a = a.abs()
-    b = b.abs()
-    hi = torch.maximum(a, b)
-    lo = torch.minimum(a, b)
-    zero = hi == 0
-    r = lo / torch.where(zero, torch.ones_like(hi), hi)
-    return torch.where(zero, hi, hi * torch.sqrt(1.0 + r * r))
 
 
 def floor_mod(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -594,55 +557,13 @@ def step_twin(st: ParticleState, tb: MegaTables, tl: Tallies,
 # K1: build, bind, launch
 # ---------------------------------------------------------------------------
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "mega_step.cu"
-_BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false")
 _LIB = None
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = os.path.join(home, "bin", "nvcc")
-    if os.path.exists(cand):
-        return cand
-    raise RuntimeError("nvcc not found: K1 is built from "
-                       f"{_SRC} with the CUDA toolkit")
-
-
-def build(verbose: bool = False) -> Path:
-    """Compile csrc/mega_step.cu for sm_90a into the package's build
-    directory (once per source and flag set); returns the library."""
-    src = _SRC.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out = _BUILD_DIR / f"libmega_step_{tag[:16]}.so"
-    if out.exists():
-        return out
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", tmp, str(_SRC)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    if verbose:
-        print(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
-    return out
 
 
 def _lib():
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
+        lib = build.library("mega_step")
         fn = lib.mcs_mega_launch
         fn.argtypes = [ctypes.c_void_p] * 25 + [ctypes.c_int] * 3 + [
             ctypes.c_void_p]

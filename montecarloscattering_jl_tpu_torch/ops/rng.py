@@ -103,6 +103,26 @@ def uniforms(key0: torch.Tensor, key1: torch.Tensor,
     return list(u.unbind(0))                            # u[0..7]
 
 
+def lane_uniforms_xla(key0: torch.Tensor, key1: torch.Tensor,
+                      nsteps: torch.Tensor) -> torch.Tensor:
+    """The XLA engine's 8 f32 uniforms of one step (``_lane_uniforms``,
+    ops/step.py:178-195 of the JAX package): k = fold_in(lane_key,
+    nsteps), then ``jax.random.bits(k, (4,), uint32)`` -- word j is the
+    xor of the two threefry words at counter (0, j) under k -- and the
+    uniforms are the low halves of words 0..3 followed by their high
+    halves, as (h + 0.5) / 2^16.  `nsteps` may carry leading dimensions
+    (a block of steps) over the lane axis of the keys.  Returns a
+    float32 tensor [8, *nsteps.shape]."""
+    ctr = _u32(nsteps)
+    k0, k1 = threefry2x32(key0, key1, torch.zeros_like(ctr), ctr)
+    j = torch.arange(4, dtype=torch.int64, device=ctr.device).view(
+        4, *([1] * ctr.dim()))
+    y0, y1 = threefry2x32(k0[None], k1[None], torch.zeros_like(j), j)
+    w = y0 ^ y1                                         # [4, *shape]
+    halves = torch.cat([w & 0xFFFF, w >> 16]).to(torch.float32)
+    return (halves + 0.5) * (1.0 / 65536.0)
+
+
 def initial_phase(key0: torch.Tensor, key1: torch.Tensor) -> torch.Tensor:
     """The gyro phase ``init_state`` draws for fresh lanes
     (ops/state.py:207-211 of the JAX package): 2*pi times the float64

@@ -1,0 +1,63 @@
+"""Pitch-angle scattering on torch tensors, at either momentum dtype.
+
+Counterpart of the JAX package's ops/scattering.py ``scattering``
+(scattering.jl:29-101): a random small-angle deflection on the unit
+sphere whose largest angle is set by the mean free path lambda =
+eta * r_g, with the electron constant-MFP regime below ``pe_crit``.
+The custom f(r_g) law stays deferred (ROADMAP.md item 1): callers pass
+the fixed ``cos_max``.
+
+The uniforms arrive as float32 (the XLA engine's stream, rng.py), and
+the scattering phase is formed in float32 before it meets the momenta,
+as the reference forms it.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+
+_PI32 = float(torch.tensor(math.pi, dtype=torch.float32))
+
+
+class ScatterResult(NamedTuple):
+    gyro_period: torch.Tensor   # [s]
+    pb: torch.Tensor
+    pperp: torch.Tensor
+
+
+def scattering(u1, u2, pb, pperp, ptot, gamma_pf, gyro_denom,
+               is_electron: bool, pe_crit, gamma_e_crit, mc,
+               cos_max) -> ScatterResult:
+    """One scattering event per lane.  `gyro_denom` is 1/(|z| q B);
+    `mc`, `pe_crit`, `gamma_e_crit` are scalars or 0-dim tensors of the
+    momentum dtype; `cos_max` broadcasts against the lanes.  The gyro
+    phase is left as it is: its Ellison+ (1990) adjustment is observable
+    only in oblique fields, which are not ported (ROADMAP.md item 2)."""
+    if is_electron:
+        g_eff = torch.where(ptot < pe_crit, gamma_e_crit, gamma_pf)
+    else:
+        g_eff = gamma_pf
+    gyro_period = 2.0 * math.pi * g_eff * mc * gyro_denom
+
+    # the guard in the momentum dtype: 1e-300 is 0 in float32, as the
+    # reference's weakly typed constant is
+    safe_ptot = torch.clamp(ptot, min=1.0e-300)
+    cos_old = pb / safe_ptot
+    sin_old = pperp / safe_ptot
+
+    cos_dt = 1.0 - u1 * (1.0 - cos_max)
+    sin_dt = torch.sqrt(torch.clamp(1.0 - cos_dt * cos_dt, min=0.0))
+    # the float32 phase u2 * 2pi - pi, rounded once as the reference's
+    # fused multiply-add rounds it: the product of two float32 values is
+    # exact in float64
+    phi_scat = ((u2.double() * 2.0) * _PI32 - _PI32).to(u2.dtype)
+
+    cos_new = torch.clamp(cos_old * cos_dt
+                          + sin_old * sin_dt * torch.cos(phi_scat),
+                          -1.0, 1.0)
+    sin_new = torch.sqrt(torch.clamp(1.0 - cos_new * cos_new, min=0.0))
+    return ScatterResult(gyro_period, ptot * cos_new, ptot * sin_new)

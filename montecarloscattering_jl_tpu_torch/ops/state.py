@@ -9,9 +9,10 @@ Layout follows the megakernel's packed state (pallas_step.py:1372-1421):
 the four per-lane booleans ride one int32 ``flags`` plane and the
 per-lane key is two int32 planes (``key0``, ``key1``).  Positions, PRP
 and acceleration time are float64 by contract; momenta are float32 on
-the kernel path.  The XLA engine's record buffer (``rec``,
-``step_phase``) has no counterpart: the kernel deposits every crossing
-straight into the full difference arrays.
+K1's path and float64 on the XLA engine's (ops/step.py) by default.
+The XLA engine's record buffer (``rec``, ``step_phase``) has no
+counterpart: both engines deposit every crossing straight into the full
+difference arrays.
 
 ``from_jax_numpy`` / ``to_numpy`` carry state, tallies, grids and
 scalars across from the JAX package (given as NumPy arrays, the key as
@@ -173,43 +174,54 @@ class Tallies:
     * flux_diff [4, nb+1] f64: (pxx, pxz, energy, n_crossings);
     * psd_diff [(n_mom+1)*2*(n_theta+1), nb+1]: the CR (kind 0) and
       thermal (kind 1) histograms on one (ip, kind, jt) cell axis;
-    * esc [4] f64: px_esc_up, en_esc_up, sum_p_dw, sum_ke_dw."""
+    * esc [4] f64: px_esc_up, en_esc_up, sum_p_dw, sum_ke_dw;
+    * spectra_sf, spectra_pf [n_mom+1, max(n_xspec, 1)] f64: the x_spec
+      detector spectra in the shock and plasma frames."""
 
     flux_diff: torch.Tensor
     psd_diff: torch.Tensor
     esc: torch.Tensor
     n_mom: int
+    spectra_sf: torch.Tensor
+    spectra_pf: torch.Tensor
 
     ESC_FIELDS = ("px_esc_up", "en_esc_up", "sum_p_dw", "sum_ke_dw")
 
     @classmethod
     def from_jax_numpy(cls, f: dict, device="cpu") -> "Tallies":
         dev = torch.device(device)
+        f64 = lambda a: torch.from_numpy(np.array(a, np.float64)).to(dev)
         return cls(
             flux_diff=torch.from_numpy(np.array(f["flux_diff"],
                                                 np.float64)).to(dev),
             psd_diff=torch.from_numpy(np.array(f["psd_diff"])).to(dev),
             esc=torch.tensor([float(f[k]) for k in cls.ESC_FIELDS],
                              dtype=torch.float64, device=dev),
-            n_mom=int(np.asarray(f["spectra_sf"]).shape[0]) - 1)
+            n_mom=int(np.asarray(f["spectra_sf"]).shape[0]) - 1,
+            spectra_sf=f64(f["spectra_sf"]), spectra_pf=f64(f["spectra_pf"]))
 
     def to_numpy(self) -> dict:
         out = {"flux_diff": self.flux_diff.cpu().numpy(),
-               "psd_diff": self.psd_diff.cpu().numpy()}
+               "psd_diff": self.psd_diff.cpu().numpy(),
+               "spectra_sf": self.spectra_sf.cpu().numpy(),
+               "spectra_pf": self.spectra_pf.cpu().numpy()}
         esc = self.esc.cpu().numpy()
         for i, k in enumerate(self.ESC_FIELDS):
             out[k] = esc[i]
         return out
 
 
-def make_tallies(nb: int, n_mom: int, n_theta: int, device) -> Tallies:
+def make_tallies(nb: int, n_mom: int, n_theta: int, device,
+                 n_xspec: int = 0) -> Tallies:
     dev = torch.device(device)
+    f64 = lambda *s: torch.zeros(s, dtype=torch.float64, device=dev)
     return Tallies(
-        flux_diff=torch.zeros(4, nb + 1, dtype=torch.float64, device=dev),
+        flux_diff=f64(4, nb + 1),
         psd_diff=torch.zeros((n_mom + 1) * 2 * (n_theta + 1), nb + 1,
                              dtype=torch.float32, device=dev),
-        esc=torch.zeros(4, dtype=torch.float64, device=dev),
-        n_mom=n_mom)
+        esc=f64(4), n_mom=n_mom,
+        spectra_sf=f64(n_mom + 1, max(n_xspec, 1)),
+        spectra_pf=f64(n_mom + 1, max(n_xspec, 1)))
 
 
 @dataclass
@@ -226,6 +238,8 @@ class FinalTallies:
     en_esc_up: torch.Tensor
     sum_p_dw: torch.Tensor
     sum_ke_dw: torch.Tensor
+    spectra_sf: torch.Tensor     # [n_mom+1, max(n_xspec, 1)]
+    spectra_pf: torch.Tensor
 
 
 def finalize_tallies(t: Tallies) -> FinalTallies:
@@ -240,13 +254,15 @@ def finalize_tallies(t: Tallies) -> FinalTallies:
         pxx_flux=flux[0], pxz_flux=flux[1], energy_flux=flux[2],
         num_crossings=flux[3], psd=psd[0], therm_psd=psd[1],
         px_esc_up=t.esc[0], en_esc_up=t.esc[1],
-        sum_p_dw=t.esc[2], sum_ke_dw=t.esc[3])
+        sum_p_dw=t.esc[2], sum_ke_dw=t.esc[3],
+        spectra_sf=t.spectra_sf, spectra_pf=t.spectra_pf)
 
 
 @dataclass
 class SegmentGrids:
     """Per-boundary arrays (length nb) on the device: positions f64,
-    fields in the momentum dtype."""
+    fields in the momentum dtype; ``x_spec`` holds the detector
+    positions [max(n_xspec, 1)] in f64."""
 
     x_grid: torch.Tensor
     ux: torch.Tensor
@@ -257,6 +273,7 @@ class SegmentGrids:
     btot: torch.Tensor
     b_cos: torch.Tensor
     b_sin: torch.Tensor
+    x_spec: torch.Tensor
 
     @classmethod
     def from_jax_numpy(cls, f: dict, device="cpu",
@@ -264,7 +281,7 @@ class SegmentGrids:
         dev = torch.device(device)
         kw = {}
         for fl in fields(cls):
-            dt = X_DTYPE if fl.name == "x_grid" else p_dtype
+            dt = X_DTYPE if fl.name in ("x_grid", "x_spec") else p_dtype
             kw[fl.name] = torch.from_numpy(np.array(f[fl.name])).to(dev, dt)
         return cls(**kw)
 
@@ -344,3 +361,31 @@ class StepStatic:
     def from_jax(cls, ss) -> "StepStatic":
         """From the JAX StepStatic (a frozen dataclass of host values)."""
         return cls(**{fl.name: getattr(ss, fl.name) for fl in fields(cls)})
+
+
+# static flags whose branches neither engine has yet, with the ROADMAP
+# item that adds them
+_DEFERRED = (
+    ("do_rad_losses", "radiative losses"),
+    ("do_retro", "the retro-time walk"),
+    ("do_tcuts", "tcut tracking"),
+    ("do_energy_transfer", "ion-electron energy transfer"),
+    ("use_custom_eps_b", "the custom eps_B field decay"),
+    ("dont_scatter", "the no-scatter switch"),
+    ("dont_dsa", "the no-DSA switch"),
+)
+_DEFERRED_ITEM = ("ROADMAP.md item 1: the deferred static flags of "
+                 "helix_step and K1 (configs/baseline.toml slice)")
+
+
+def check_deferred_flags(ss: StepStatic) -> None:
+    """Raise NotImplementedError for a static flag whose branch the port
+    has not written yet, on either transport engine."""
+    for name, what in _DEFERRED:
+        if getattr(ss, name):
+            raise NotImplementedError(
+                f"{name}: {what} is not ported yet ({_DEFERRED_ITEM})")
+    if ss.frg_rg0_cm > 0.0:
+        raise NotImplementedError(
+            f"frg_rg0_cm > 0: the custom f(r_g) law is not ported yet "
+            f"({_DEFERRED_ITEM})")

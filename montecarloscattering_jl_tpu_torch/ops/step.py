@@ -1,0 +1,510 @@
+"""The XLA engine's transport step and drain, in plain PyTorch.
+
+Counterpart of the JAX package's ops/step.py: ``helix_step`` (step.py:
+198-684, with ``_downstream_logic``, :902-1003) advances every lane of
+a ParticleState by one helix step as masked lane-parallel updates, and
+``run_segment`` (:724-785) repeats it until no lane is ACTIVE.  This is
+the engine of every config K1 does not run (engine/run.py): float64
+momenta -- the CLI's default -- and x_spec detectors.  The JAX package
+computes this step outside any Pallas kernel, so plain torch is its
+counterpart; the one kernel on the path is the PSD deposit, K2
+(ops/hist.py), launched once a step.
+
+Branches: the parallel-field step (theta_B = 0, the only geometry the
+config admits) for K1's flag set, plus the x_spec detector spectra
+(:612-637) and the analytic PRP return (:965-982).  The deferred
+branches (radiative losses, the retro walk, tcuts, energy transfer,
+custom eps_B, f(r_g), no-scatter, no-DSA) raise through
+``check_supported``; so no lane is ever in retro mode here.
+
+What differs from the JAX engine, on purpose:
+
+* Tallies are deposited every step, straight into the difference
+  arrays -- (cell, lo, hi, w) to K2, the four flux channels and the
+  detector spectra by ``index_add_`` in float64 -- with no chunked
+  record buffer and no flush.  Sums run in another order.
+* The zone gather is an index gather and the zone lookup a
+  ``searchsorted``; the JAX step's one-hot contraction and
+  compare-and-sum give the same values exactly.
+* No compaction ladder: it changes only the summation order of the
+  tallies (step.py:745-758).
+
+Arithmetic follows the reference in the momentum dtype of the state:
+float32 uniforms and the float32 scattering and return phases, float64
+positions, PRP and acceleration time.  Scalars that divide or are
+divided by a tensor are 0-dim tensors on the device (torch turns
+``t / python_scalar`` into a reciprocal multiply on CUDA).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+
+from ..models.psd_bins import psd_bin_angle, psd_bin_momentum
+from ..utils.constants import C_CGS
+from ..utils.params import ALL_FLUX_SPIKE_AWAY, E_REL_PT, MAX_HELIX_STEPS
+from . import hist, rng
+from .mega import floor_mod
+from .scattering import scattering
+from .state import (ACTIVE, FINISHED, FL_DW, FL_INJ, FL_JRET, FL_RETRO,
+                    R_AGE, R_DOWNSTREAM, R_UPSTREAM_PMAX, SAVED, X_DTYPE,
+                    ParticleState, SegmentGrids, SegmentScalars,
+                    StepStatic, Tallies, check_deferred_flags)
+from .transforms import (hyp, transform_p_ps_parallel,
+                         transform_p_psp_parallel)
+
+SYNC_EVERY = 64    # steps between the drain's host checks for ACTIVE lanes
+
+# uniform slots (step.py:66-74)
+_U_SCAT1, _U_SCAT2, _U_PRET, _U_RET_MU, _U_RET_PHI = 0, 1, 2, 3, 4
+_U_REFL_INJ = (5, 6)
+_U_REFL_PHI = (7, 3)
+_N_REFLECT_TRIES = 2
+
+
+def check_supported(ss: StepStatic) -> None:
+    """Raise NotImplementedError for a config this engine does not run
+    yet: an oblique field, or a deferred static flag."""
+    if not ss.parallel:
+        raise NotImplementedError(
+            "oblique fields: the general frame transforms are not ported "
+            "(ROADMAP.md item 2)")
+    check_deferred_flags(ss)
+
+
+@dataclass
+class StepTables:
+    """Device inputs of one segment for ``helix_step``."""
+
+    x_grid: torch.Tensor      # [nb] f64 boundaries
+    ux: torch.Tensor          # [nb] zone fields, momentum dtype
+    gamma_sf: torch.Tensor
+    gamma_ef: torch.Tensor
+    btot: torch.Tensor
+    x_spec: torch.Tensor      # [n_xspec] f64 detector positions
+    k: dict                   # 0-dim tensors (momentum dtype or f64)
+    ss: StepStatic
+    reflect: bool             # inj_frac < 1: the shock reflection is live
+    age_cut: bool             # age_max > 0
+    feb_dw_on: bool           # feb_dw > 0
+
+
+def step_tables(grids: SegmentGrids, sc: SegmentScalars, ss: StepStatic,
+                device) -> StepTables:
+    """The segment's grids on `device` and its scalars as 0-dim tensors
+    in the grids' momentum dtype (positions and times in float64)."""
+    dev = torch.device(device)
+    pdt = grids.ux.dtype
+    p = lambda v: torch.tensor(v, dtype=pdt, device=dev)
+    d = lambda v: torch.tensor(v, dtype=X_DTYPE, device=dev)
+    m = p(sc.m)
+    mc = m * C_CGS
+    k = dict(
+        m=m, mc=mc, e0=mc * C_CGS, two_m=2.0 * m, abs_charge=p(sc.abs_charge),
+        qb2=p(sc.abs_charge) * p(sc.bmag2), pcut=p(sc.pcut),
+        pcut_prev=p(sc.pcut_prev), pmax=p(sc.pmax_cutoff), u2=p(sc.u2),
+        g0u0=p(sc.gamma0_u0), pe_crit=p(sc.pe_crit),
+        gamma_e_crit=p(sc.gamma_e_crit), inj_frac=p(sc.inj_frac),
+        one=p(1.0), three=p(3.0), c=p(C_CGS), two_pi=p(2.0 * math.pi),
+        spike=p(ALL_FLUX_SPIKE_AWAY), tiny=p(1.0e-300), tiny30=p(1.0e-30),
+        cmax_coarse=p(math.cos(math.sqrt(
+            12.0 * math.pi / (ss.xn_per_coarse * ss.eta_mfp)))),
+        cmax_fine=p(math.cos(math.sqrt(
+            12.0 * math.pi / (ss.xn_per_fine * ss.eta_mfp)))),
+        xn_coarse=p(ss.xn_per_coarse), xn_fine=p(ss.xn_per_fine),
+        feb_up=d(sc.feb_up), feb_dw=d(sc.feb_dw), x_stop=d(sc.x_grid_stop),
+        age_max=d(sc.age_max))
+    nb = ss.nb
+    f = lambda a: a[:nb].to(dev, pdt).contiguous()
+    return StepTables(
+        x_grid=grids.x_grid[:nb].to(dev, X_DTYPE).contiguous(),
+        ux=f(grids.ux), gamma_sf=f(grids.gamma_sf),
+        gamma_ef=f(grids.gamma_ef), btot=f(grids.btot),
+        x_spec=grids.x_spec[:ss.n_xspec].to(dev, X_DTYPE).contiguous(),
+        k=k, ss=ss, reflect=sc.inj_frac < 1.0, age_cut=sc.age_max > 0,
+        feb_dw_on=sc.feb_dw > 0.0)
+
+
+def _zone(x_grid: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Index of the last boundary <= x (-1 below the grid): the JAX
+    step's sum(x >= x_grid) - 1, exactly."""
+    return torch.searchsorted(x_grid, x.contiguous(), right=True) - 1
+
+
+def helix_step(st: ParticleState, tl: Tallies, tb: StepTables,
+               u: torch.Tensor, max_helix: int) -> None:
+    """Advance every ACTIVE lane of `st` by one helix step, in place, and
+    deposit its tallies into `tl` in place.  `u` [8, B] holds the lanes'
+    float32 uniforms of this step (rng.lane_uniforms_xla at the lanes'
+    step counts)."""
+    ss, k = tb.ss, tb.k
+    m, mc, e0, u2 = k["m"], k["mc"], k["e0"], k["u2"]
+    one, tiny = k["one"], k["tiny"]
+    c = C_CGS
+    eta3 = ss.eta_mfp / 3.0
+    nb, nz = ss.nb, ss.nb + 1
+    pdt = st.pb.dtype
+    f64 = X_DTYPE
+
+    status, reason, flags = st.status, st.reason, st.flags
+    weight, x_old = st.weight, st.x
+    act = status == ACTIVE
+    dw_old = (flags & FL_DW) != 0
+    inj_old = (flags & FL_INJ) != 0
+    do_b3 = act & ((flags & FL_JRET) == 0)
+
+    # ---- zone fields (an exact index gather) -----------------------------
+    ig = st.igrid.long()
+    ux, gsf = tb.ux[ig], tb.gamma_sf[ig]
+    gef, bmag = tb.gamma_ef[ig], tb.btot[ig]
+    gyro_denom = torch.div(one, k["abs_charge"] * bmag)
+
+    pb, pperp, phi = st.pb, st.pperp, st.phi
+    ptot = hyp(pb, pperp)
+    gamma_pf = hyp(ptot / mc, one)
+
+    # ---- Code Block 3: frame re-transform, escapes, scattering ----------
+    changed = do_b3 & (ux != st.ux_prev)
+    beta_old = st.ux_prev / k["c"]
+    gsf_old = torch.div(one, torch.sqrt(torch.maximum(
+        1.0 - beta_old * beta_old, k["tiny30"])))
+    pb_tr, _ = transform_p_psp_parallel(pb, pperp, gamma_pf, st.ux_prev,
+                                        gsf_old, ux, gsf, m, c)
+    pb = torch.where(changed, pb_tr, pb)
+    ptot = hyp(pb, pperp)
+    gamma_pf = hyp(ptot / mc, one)
+    ux_prev = torch.where(do_b3, ux, st.ux_prev)
+
+    ptot_sk0, _, _ = transform_p_ps_parallel(pb, pperp, gamma_pf, ux, gsf,
+                                             m, c)
+    esc_pmax = do_b3 & (ptot > k["pmax"]) & (ptot_sk0 > k["pmax"])
+    esc_feb = do_b3 & ~esc_pmax & inj_old & (x_old < k["feb_up"])
+    esc_up = esc_pmax | esc_feb
+    status = torch.where(esc_up, FINISHED, status)
+    reason = torch.where(esc_up, R_UPSTREAM_PMAX, reason)
+    do_b3 = do_b3 & ~esc_up
+    if tb.age_cut:
+        esc_age = do_b3 & (st.acctime > k["age_max"])
+        status = torch.where(esc_age, FINISHED, status)
+        reason = torch.where(esc_age, R_AGE, reason)
+        do_b3 = do_b3 & ~esc_age
+
+    cos_max = torch.where(st.xn_per == k["xn_coarse"], k["cmax_coarse"],
+                          k["cmax_fine"])
+    res = scattering(u[_U_SCAT1], u[_U_SCAT2], pb, pperp, ptot, gamma_pf,
+                     gyro_denom, ss.is_electron, k["pe_crit"],
+                     k["gamma_e_crit"], mc, cos_max)
+    pb = torch.where(do_b3, res.pb, pb)
+    pperp = torch.where(do_b3, res.pperp, pperp)
+    gyro_period = res.gyro_period
+
+    # acceleration time and pcut save-out, downstream lanes only
+    adding = do_b3 & dw_old
+    acct = st.acctime + torch.where(adding, (st.t_step * gef).to(f64), 0.0)
+    save = adding & (ptot > k["pcut"])
+    status = torch.where(save, SAVED, status)
+    prp_x = torch.where(save & (x_old >= st.prp_x), x_old * 1.1, st.prp_x)
+
+    r_g_tot = ptot * c * gyro_denom
+    xn_per = torch.where(act & (status == ACTIVE),
+                         torch.where(x_old > r_g_tot, k["xn_coarse"],
+                                     k["xn_fine"]), st.xn_per)
+
+    # ---- Code Block 2: movement -------------------------------------------
+    moving = status == ACTIVE
+    t_step = gyro_period / xn_per
+    m_gpf = gamma_pf * m
+    dphi = torch.div(k["two_pi"], xn_per)
+
+    def move(pb_m, phi_m):
+        phi_try = floor_mod(phi_m + dphi, k["two_pi"])
+        dx = gsf * (pb_m * t_step / m_gpf + ux * t_step)
+        return phi_try, x_old + dx.to(f64)
+
+    pb_m, phi_m = pb, phi
+    if tb.reflect:
+        # reflection at the shock when the injection test fails
+        # (no_DSA_loop, particle_loop.jl:510-571)
+        done = ~moving
+        x_new, phi_fin = x_old, phi
+        for kk in range(_N_REFLECT_TRIES):
+            phi_try, x_try = move(pb_m, phi_m)
+            cross_up = (x_try <= 0.0) & (x_old > 0.0) & ~inj_old
+            refl = ~done & cross_up & (u[_U_REFL_INJ[kk]].to(pdt)
+                                       > k["inj_frac"])
+            accept = ~done & ~refl
+            x_new = torch.where(accept, x_try, x_new)
+            phi_fin = torch.where(accept, phi_try, phi_fin)
+            done = done | accept
+            neg = pb_m < 0.0
+            pb_m = torch.where(refl & neg, -pb_m, pb_m)
+            phi_m = torch.where(refl & ~neg,
+                                (u[_U_REFL_PHI[kk]] * 2.0 * math.pi).to(pdt),
+                                phi_m)
+        phi_try, x_try = move(pb_m, phi_m)
+        x_new = torch.where(done, x_new, x_try)
+        phi_fin = torch.where(done, phi_fin, phi_try)
+    else:
+        # every move is accepted at the first try
+        phi_fin, x_try = move(pb_m, phi_m)
+        x_new = torch.where(moving, x_try, x_old)
+    pb = torch.where(moving, pb_m, pb)
+    phi = torch.where(moving, phi_fin, phi)
+
+    first_dw = moving & (x_old < 0.0) & (x_new >= 0.0)
+    downstream = dw_old | first_dw
+    l_diff0 = (eta3 * r_g_tot * ptot / (m * gamma_pf * u2)).to(f64)
+    prp_x = torch.where(first_dw, torch.maximum(prp_x, l_diff0), prp_x)
+    inj = inj_old | (moving & downstream & (x_new < 0.0))
+
+    # ---- tallies and the new zone (all_flux.jl:45-259) --------------------
+    ig_new = _zone(tb.x_grid, x_new).clamp(0, nb - 2)
+    ig_new = torch.where(moving, ig_new, ig)
+
+    pt_sk, px_sk, g_sk = transform_p_ps_parallel(pb, pperp, gamma_pf, ux,
+                                                 gsf, m, c)
+    pz_sk = -pperp * torch.sin(phi)
+    spike = pt_sk > px_sk.abs() * ALL_FLUX_SPIKE_AWAY
+    px_safe = torch.where(px_sk == 0.0, tiny, px_sk)
+    abs_inv_vx = torch.where(spike, torch.div(k["spike"], ux).abs(),
+                             (g_sk * m / px_safe).abs())
+    rel = (g_sk - 1.0) > E_REL_PT
+    e_add = torch.where(rel, (g_sk - 1.0) * e0 * weight,
+                        torch.div(pt_sk * pt_sk, k["two_m"]) * weight)
+
+    moved_down = x_new > x_old
+    lo = torch.where(moved_down, ig + 1, ig_new + 1)
+    hi = torch.where(moved_down, ig_new, ig)
+    lo = torch.where(~moved_down & inj,
+                     torch.clamp(lo, min=ss.i_grid_feb + 1), lo)
+    crossed = moving & (hi >= lo)
+    lo_c = lo.clamp(0, nb - 1)
+    hi_c = hi.clamp(0, nb - 1)
+
+    g0u0 = k["g0u0"]
+    sign = torch.where(moved_down, one, -one)
+    on = crossed.to(pdt)
+    vals = torch.stack([sign * px_sk * weight * g0u0 * on,
+                        pz_sk.abs() * weight * g0u0 * on,
+                        sign * e_add * g0u0 * on,
+                        (crossed & ~inj).to(pdt)]).to(f64)
+    ch = (torch.arange(4, device=vals.device) * nz)[:, None]
+    dep_idx = [(ch + lo_c).reshape(-1), (ch + hi_c + 1).reshape(-1)]
+    dep_val = [vals.reshape(-1), -vals.reshape(-1)]
+    dep_on = [crossed.expand(4, -1).reshape(-1)] * 2
+
+    ip_sk = psd_bin_momentum(pt_sk, ss.psd_mom_min, ss.bins_per_dec_mom,
+                             ss.n_mom)
+    jt_sk = psd_bin_angle(px_sk, pt_sk, ss.cos_fine, ss.dcos, ss.theta_min,
+                          ss.bins_per_dec_theta, ss.n_theta)
+    psd_w = (weight * abs_inv_vx * on).to(torch.float32)
+    cell = (ip_sk * 2 + (~inj).to(torch.int32)) * (ss.n_theta + 1) + jt_sk
+    hist.psd_scatter(tl.psd_diff, cell, lo_c.to(torch.int32),
+                     hi_c.to(torch.int32), psd_w)
+
+    # escaping flux at the upstream FEB (all_flux.jl:153-159)
+    esc_cross = (moving & inj & (x_new < k["feb_up"])
+                 & (x_old >= k["feb_up"]))
+    px_up = torch.where(esc_cross, px_sk * weight * g0u0, 0.0).to(f64).sum()
+    en_up = torch.where(esc_cross, e_add * g0u0, 0.0).to(f64).sum()
+
+    # x_spec detector spectra (calculate_x_spec_spectra!,
+    # all_flux.jl:164-190)
+    if ss.n_xspec > 0:
+        ip_pf = psd_bin_momentum(ptot, ss.psd_mom_min, ss.bins_per_dec_mom,
+                                 ss.n_mom)
+        pt_o_px_sk = torch.where(spike, k["spike"], pt_sk / px_safe)
+        pt_o_px_pf = torch.minimum(
+            (ptot / torch.where(pb == 0.0, tiny, pb)).abs(), k["spike"])
+        f_weight = (pb / px_safe).abs() * g_sk / gamma_pf
+        xs = tb.x_spec[:, None]
+        hit = moving & (((x_old < xs) & (x_new >= xs))
+                        | ((x_new <= xs) & (x_old > xs)))      # [nx, B]
+        det = torch.arange(ss.n_xspec, device=hit.device)[:, None]
+        n_sp = tl.spectra_sf.numel()
+        nx = tl.spectra_sf.shape[1]
+        dep_idx += [(4 * nz + ip_sk.long() * nx + det).reshape(-1),
+                    (4 * nz + n_sp + ip_pf.long() * nx + det).reshape(-1)]
+        dep_val += [(weight * pt_o_px_sk).to(f64).expand_as(hit).reshape(-1),
+                    (weight * pt_o_px_pf * f_weight).to(f64).expand_as(
+                        hit).reshape(-1)]
+        dep_on += [hit.reshape(-1)] * 2
+    _deposit(tl, dep_idx, dep_val, dep_on, 4 * nz)
+
+    # ---- downstream escape / return (particle_loop.jl:453-495) -----------
+    if ss.is_electron:
+        v_fac = torch.where(
+            ptot < k["pe_crit"],
+            (k["pe_crit"] * c * gyro_denom) * k["pe_crit"]
+            / (m * k["gamma_e_crit"] * u2),
+            (ptot * c * gyro_denom) * ptot / (m * gamma_pf * u2))
+    else:
+        v_fac = (ptot * c * gyro_denom) * ptot / (m * gamma_pf * u2)
+    l_diff = (eta3 * v_fac).to(f64)
+    if tb.feb_dw_on:
+        esc_feb_dw = moving & (x_new > k["feb_dw"])
+    else:
+        esc_feb_dw = torch.zeros_like(moving)
+    esc_far = (moving & ~esc_feb_dw & (x_new > 1.1 * prp_x)
+               & (x_new > 6.91 * l_diff))
+    do_ret = moving & ~esc_feb_dw & ~esc_far
+    past_end = do_ret & (x_new >= k["x_stop"])
+    just_end = past_end & (x_old < k["x_stop"])
+    r_g2 = torch.div(ptot * c, k["qb2"])
+    l_diff2 = (eta3 * r_g2 * ptot / (m * gamma_pf * u2)).to(f64)
+    prp_x = torch.where(just_end, x_new + 3.0 * l_diff2, prp_x)
+
+    crossed_prp = past_end & ~just_end & (x_old < prp_x) & (x_new >= prp_x)
+    vt = ptot / m_gpf
+    q_ret = (vt - u2) / (vt + u2)
+    no_ret = crossed_prp & ((vt < u2) | (u[_U_PRET] > q_ret * q_ret))
+    status = torch.where(no_ret, FINISHED, status)
+    reason = torch.where(no_ret, R_DOWNSTREAM, reason)
+    # the analytic return: back on the plane with a flux-weighted inward
+    # pitch, P(mu) ~ |v mu - u2| (step.py:965-982)
+    returns = crossed_prp & ~no_ret
+    vmu = u2 - (u2 + vt) * torch.sqrt(u[_U_RET_MU])
+    mu = torch.clamp(vmu / torch.maximum(vt, tiny), -1.0, 1.0)
+    pb_ret = ptot * mu
+    pperp_ret = torch.sqrt(torch.clamp(ptot * ptot - pb_ret * pb_ret,
+                                       min=0.0))
+    pb = torch.where(returns, pb_ret, pb)
+    pperp = torch.where(returns, pperp_ret, pperp)
+    phi = torch.where(returns, (u[_U_RET_PHI] * 2.0 * math.pi).to(pdt), phi)
+    x_new = torch.where(returns, prp_x, x_new)
+
+    if ss.is_electron:
+        # electron PRP shrink heuristics (prob_return.jl:142-164)
+        idle = past_end & ~just_end & ~crossed_prp
+        check = idle & (ptot < k["pcut_prev"]) & (st.nsteps % 1000 == 0)
+        l_d = (eta3 * (ptot * c * gyro_denom) * ptot
+               / (m * gamma_pf * u2)).to(f64)
+        ratio = torch.div(k["pcut_prev"], torch.maximum(ptot, tiny))
+        r2 = ratio * ratio
+        shrink = torch.where(
+            x_new > 2.0e3 * l_d, 0.8 * x_new,
+            torch.minimum(prp_x, k["x_stop"] + l_d * (ratio * (r2 * r2))))
+        prp_x = torch.where(check, shrink, prp_x)
+
+    esc = esc_feb_dw | esc_far
+    status = torch.where(esc, FINISHED, status)
+    reason = torch.where(esc, R_DOWNSTREAM, reason)
+
+    # downstream-escape pressure / KE sums (particle_loop.jl:477-495)
+    esc_dw = moving & (status == FINISHED) & (reason == R_DOWNSTREAM)
+    vel = ptot / m
+    vel = torch.where((gamma_pf - 1.0) >= E_REL_PT, vel / gamma_pf, vel)
+    p_dw = torch.where(esc_dw, torch.div(ptot, k["three"]) * vel * weight,
+                       0.0).to(f64).sum()
+    ke_dw = torch.where(esc_dw, (gamma_pf - 1.0) * e0 * weight,
+                        0.0).to(f64).sum()
+    tl.esc.add_(torch.stack([-px_up, en_up, p_dw, ke_dw]))
+
+    # helix cap (particle_loop.jl:162-165)
+    nsteps = st.nsteps + act.to(torch.int32)
+    capped = (status == ACTIVE) & (nsteps >= max_helix)
+    status = torch.where(capped, FINISHED, status)
+    reason = torch.where(capped, R_DOWNSTREAM, reason)
+
+    st.pb.copy_(pb)
+    st.pperp.copy_(pperp)
+    st.phi.copy_(phi)
+    st.x.copy_(x_new)
+    st.igrid.copy_(ig_new)
+    st.ux_prev.copy_(ux_prev)
+    st.xn_per.copy_(xn_per)
+    st.prp_x.copy_(prp_x)
+    st.acctime.copy_(acct)
+    st.status.copy_(status)
+    st.reason.copy_(reason)
+    st.nsteps.copy_(nsteps)
+    st.t_step.copy_(torch.where(moving, t_step, st.t_step))
+    st.flags.copy_(downstream.to(torch.int32) * FL_DW
+                   | inj.to(torch.int32) * FL_INJ
+                   | (flags & FL_RETRO)
+                   | returns.to(torch.int32) * FL_JRET)
+
+
+def _deposit(tl: Tallies, idx, val, on, n_flux: int) -> None:
+    """One float64 index_add_ of the step's flux and detector entries
+    into a scratch buffer laid out [flux_diff | spectra_sf | spectra_pf
+    | one slot per entry], then the real part into the tallies.  An
+    entry that is off (its lane crossed nothing) goes to its own slot:
+    it adds nothing to a tally, and on a CUDA device it does not queue
+    on the atomics of the few slots the lanes share."""
+    idx, val, on = torch.cat(idx), torch.cat(val), torch.cat(on)
+    n_sp = tl.spectra_sf.numel()
+    n_real = n_flux + 2 * n_sp
+    own = n_real + torch.arange(idx.shape[0], device=idx.device)
+    buf = torch.zeros(n_real + idx.shape[0], dtype=torch.float64,
+                      device=idx.device)
+    buf.index_add_(0, torch.where(on, idx, own), torch.where(on, val, 0.0))
+    tl.flux_diff.view(-1).add_(buf[:n_flux])
+    tl.spectra_sf.view(-1).add_(buf[n_flux:n_flux + n_sp])
+    tl.spectra_pf.view(-1).add_(buf[n_flux + n_sp:n_real])
+
+
+def _block(st: ParticleState, tl: Tallies, tb: StepTables, n: int,
+           max_helix: int) -> None:
+    """`n` helix steps, the uniforms of the block drawn at once: a lane
+    ACTIVE at step s of the block has made exactly s steps in it."""
+    ctr = st.nsteps[None] + torch.arange(n, dtype=torch.int32,
+                                         device=st.weight.device)[:, None]
+    u_blk = rng.lane_uniforms_xla(st.key0, st.key1, ctr)
+    for s in range(n):
+        helix_step(st, tl, tb, u_blk[:, s], max_helix)
+
+
+class _BlockGraph:
+    """One S-step block captured as a CUDA graph and replayed: the
+    plain-torch step is some 300 small kernels, and launching them one
+    by one from the host takes several times their device time.  A
+    replay runs the captured kernels on the same tensors (the state and
+    tallies are updated in place).  Capture only records, so K2's
+    launches counted while capturing are taken back, and every replay
+    adds the number of K2 launches it makes."""
+
+    def __init__(self, st, tl, tb, n, max_helix):
+        self.graph = torch.cuda.CUDAGraph()
+        before = hist.LAUNCHES
+        with torch.cuda.graph(self.graph):
+            _block(st, tl, tb, n, max_helix)
+        self.k2_launches = hist.LAUNCHES - before
+        hist.LAUNCHES = before
+
+    def replay(self) -> None:
+        self.graph.replay()
+        hist.LAUNCHES += self.k2_launches
+
+
+def run_segment(st: ParticleState, tl: Tallies, tb: StepTables,
+                sync_every: int = SYNC_EVERY,
+                max_helix: int | None = None) -> int:
+    """Step every lane until none is ACTIVE (one pcut segment), in place;
+    returns the number of helix steps taken.
+
+    The host checks for ACTIVE lanes only every `sync_every` steps.  The
+    extra steps are exact no-ops: a lane that is not ACTIVE does not
+    step (its count and state stay), and every tally is gated on a
+    moving lane, so the result does not depend on `sync_every`.  On a
+    CUDA device the first block runs eagerly and the rest replay it as
+    a CUDA graph (_BlockGraph)."""
+    if max_helix is None:
+        max_helix = MAX_HELIX_STEPS
+    cuda = st.weight.device.type == "cuda"
+    graph = None
+    taken = 0
+    for i in range(max_helix // sync_every + 2):
+        if not bool((st.status == ACTIVE).any()):
+            break
+        if cuda and i == 1:
+            graph = _BlockGraph(st, tl, tb, sync_every, max_helix)
+        if graph is not None:
+            graph.replay()
+        else:
+            _block(st, tl, tb, sync_every, max_helix)
+        taken += sync_every
+    return taken

@@ -1,6 +1,10 @@
-"""K1 (csrc/mega_step.cu) against its plain PyTorch version on a CUDA
-card.  Every test here needs the card: it carries the ``cuda`` marker
-and skips without one.  Run on the card with
+"""The port's kernels against their plain PyTorch versions on a CUDA
+card: K1 (csrc/mega_step.cu) against its twin, K2 and K3
+(csrc/psd_hist.cu) against ops/hist.py's plain versions, and the XLA
+engine's float64 segment (ops/step.py, K2 inside, replayed as a CUDA
+graph) against the same segment on the CPU.  Every test here needs the
+card: it carries the ``cuda`` marker and skips without one.  Run on the
+card with
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
@@ -9,7 +13,13 @@ and skips without one.  Run on the card with
 Bounds: K1 is built with -fmad=false and calls the CUDA libm functions
 the twin's torch ops call, so per-lane state agrees to 16 f32 ulp
 relative (momenta relative to the lane's |p|) on all but at most 0.1% of
-lanes, and tally totals to 1e-4 (f32 atomics in another order)."""
+lanes, and tally totals to 1e-4 (f32 atomics in another order).  K2 and
+K3 agree with their plain versions to 1e-4 of the largest PSD entry
+(f32 sums in another order).  The float64 segment on the card agrees
+with the CPU's on all but 0.1% of lanes' integer fields; the card's
+float32 cos of the scattering phase may differ from the CPU's by an ulp,
+which moves momenta by ~1e-7 a step, so float fields agree to 1e-4
+relative and the tallies to 1e-4 of their largest entry."""
 
 import dataclasses
 import os
@@ -105,3 +115,102 @@ def test_wrapper_raises_on_bad_input(population):
     with pytest.raises(ValueError):
         mega.launch(dataclasses.replace(_clone(st0), x=st0.x.float()),
                     tabs, fresh(), n_steps=1)
+
+
+# ---------------------------------------------------------------------------
+# K2 / K3 and the XLA engine's segment
+# ---------------------------------------------------------------------------
+
+def _records(n, dev, seed=7):
+    from montecarloscattering_jl_tpu_torch.scripts import probe_hist as ph
+    return [torch.from_numpy(a).to(dev)
+            for a in ph.synth(n, np.random.default_rng(seed))]
+
+
+def _hist_pair(card, kernel, plain, recs):
+    from montecarloscattering_jl_tpu_torch.scripts import probe_hist as ph
+    got = torch.zeros(ph.N_CELLS, ph.NZC, device=card)
+    want = torch.zeros_like(got)
+    kernel(got, *recs)
+    plain(want, *recs)
+    torch.cuda.synchronize()
+    scale = float(want.abs().max())
+    assert scale > 0
+    assert float((got - want).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("n", [69_632, 1 << 21])
+def test_k2_matches_plain(card, n):
+    from montecarloscattering_jl_tpu_torch.ops import hist
+    before = hist.LAUNCHES
+    _hist_pair(card, hist.psd_scatter, hist.psd_scatter_plain,
+               _records(n, card))
+    assert hist.LAUNCHES == before + 1
+
+
+@pytest.mark.parametrize("band", [1024, 2048])
+def test_k3_matches_plain(card, band):
+    from montecarloscattering_jl_tpu_torch.ops import hist
+    before = hist.BAND_LAUNCHES
+    _hist_pair(card, lambda p, *a: hist.psd_scatter_band(p, *a, band),
+               lambda p, *a: hist.psd_scatter_band_plain(p, *a, band),
+               _records(1 << 21, card))
+    assert hist.BAND_LAUNCHES == before + 1
+
+
+def test_hist_wrapper_raises_on_bad_input(card):
+    from montecarloscattering_jl_tpu_torch.ops import hist
+    cell, lo, hi, w = _records(1024, card)
+    psd = torch.zeros(4428, 102, device=card)
+    with pytest.raises(ValueError):
+        hist.psd_scatter(psd, cell.cpu(), lo, hi, w)
+    with pytest.raises(ValueError):
+        hist.psd_scatter(psd, cell, lo, hi, w.double())
+
+
+def test_xla_segment_matches_cpu(card):
+    from montecarloscattering_jl_tpu_torch.ops import hist, step
+    cfg = load_config(CFG)
+    cfg.x_spec = [-0.5 * cfg.rg0, 0.5 * cfg.rg0]
+    setup = build_setup(cfg)
+    prof = setup.profile
+    pop = init_pop(np.random.default_rng(0), cfg.species, 0, 1,
+                   cfg.energy_inj, True, cfg.n_pts_inj, setup.x_grid_start,
+                   cfg.rg0, 1.0, True, -1.0, cfg.beta0, cfg.gamma0, cfg.u0,
+                   setup.x_grid_rg, prof.ux_sk, prof.gamma_sf)
+    t = lambda a: np.tile(a, LANES // len(a) + 1)[:LANES]
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        eng = TransportEngine(setup, device=dev)
+        st = stt.init_state(
+            t(pop.weight), t(pop.ptot_pf), t(pop.pb_pf), t(pop.x_cm),
+            t(pop.i_grid).astype(np.int32), t(prof.ux_sk[pop.i_grid]),
+            cfg.xn_per_fine, setup.x_grid_stop, rng.key(0), dev,
+            p_dtype=torch.float64)
+        tl = stt.make_tallies(setup.nb, setup.bins.n_mom,
+                              setup.bins.n_theta, dev, n_xspec=2)
+        tb = step.step_tables(eng.segment_grids(prof),
+                              eng.segment_scalars(0, 2, prof.bmag2),
+                              eng.step_static(0), dev)
+        before = hist.LAUNCHES
+        taken = step.run_segment(st, tl, tb, max_helix=512)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert hist.LAUNCHES - before == taken   # one K2 launch a step
+        out[dev.type] = (st.to_numpy(), tl.to_numpy())
+    (sg, tg), (sc, tc) = out["cuda"], out["cpu"]
+    same = np.ones(LANES, bool)
+    for name in ("status", "reason", "nsteps", "igrid", "downstream",
+                 "inj"):
+        same &= sg[name] == sc[name]
+    assert (~same).sum() <= 1e-3 * LANES
+    ptot = np.hypot(sc["pb"], sc["pperp"])[same]
+    for name in ("pb", "pperp", "x", "prp_x", "acctime", "t_step"):
+        a, b = sg[name][same], sc[name][same]
+        scale = ptot if name in ("pb", "pperp") else np.abs(b)
+        assert (np.abs(a - b) > 1e-4 * scale).sum() <= 1e-3 * LANES, name
+    for name in ("flux_diff", "psd_diff", "spectra_sf", "spectra_pf"):
+        a = np.asarray(tg[name], np.float64)
+        b = np.asarray(tc[name], np.float64)
+        assert np.abs(b).max() > 0, name
+        assert np.abs(a - b).max() <= 1e-4 * np.abs(b).max(), name

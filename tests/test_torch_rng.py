@@ -127,3 +127,29 @@ def test_init_state_matches(p_dtype):
                        - want.astype(np.float64) ** 2), 4 * eps * pt + 1e-300)
             continue
         np.testing.assert_array_equal(got[name], want, err_msg=name)
+
+
+@pytest.mark.parametrize("seed", [7, 8])
+def test_lane_uniforms_xla_match_xla_engine(seed):
+    """The XLA engine's stream (ops/step.py _lane_uniforms: fold_in of
+    the step count, then jax.random.bits): bit-exact, including a block
+    of steps drawn at once."""
+    from montecarloscattering_jl_tpu.ops import step as stp
+    g = np.random.default_rng(seed)
+    b = 400
+    st = jst.init_state(np.ones(b), np.full(b, 1e-16), np.full(b, 5e-17),
+                        np.zeros(b), np.zeros(b, np.int32), np.zeros(b),
+                        50.0, 1e15, jax.random.fold_in(jax.random.key(9),
+                                                       seed))
+    nsteps = g.integers(0, 2**31 - 8, b).astype(np.int32)
+    kd = np.asarray(jax.random.key_data(st.key))
+    k0 = torch.from_numpy(kd[:, 0].copy().view(np.int32))
+    k1 = torch.from_numpy(kd[:, 1].copy().view(np.int32))
+    blk = torch.from_numpy(nsteps)[None] + torch.arange(
+        3, dtype=torch.int32)[:, None]
+    got = rng.lane_uniforms_xla(k0, k1, blk)
+    assert got.dtype == torch.float32 and got.shape == (8, 3, b)
+    for s in range(3):
+        want = np.asarray(stp._lane_uniforms(
+            st._replace(nsteps=jnp.asarray(nsteps + s))))
+        np.testing.assert_array_equal(got[:, s].numpy().T, want)

@@ -1,6 +1,7 @@
-"""The port's slice end to end on the CPU (kernels through their plain
-versions): the flagship workload's config at test size, against the
-JAX package's acceptance checks and output surface."""
+"""The port's K1 slice end to end on the CPU (kernels through their
+plain versions): the flagship workload's config at test size with
+float32 momenta (the CLI's --f32, which selects K1), against the JAX
+package's acceptance checks and output surface."""
 
 import os
 import subprocess
@@ -24,7 +25,8 @@ CFG = os.path.join(ROOT, "tests", "data", "dsa_nonrel.toml")
 @pytest.fixture(scope="module")
 def slice_run():
     """One port run of tests/data/dsa_nonrel.toml at 100 / 150 / 150
-    particles (the JAX test_dsa_power_law sizes), written to disk."""
+    particles (the JAX test_dsa_power_law sizes) with float32 momenta,
+    written to disk."""
     n_threads = torch.get_num_threads()
     torch.set_num_threads(1)
     cfg = load_config(CFG)
@@ -34,7 +36,7 @@ def slice_run():
     out = tempfile.mkdtemp(prefix="mcs_torch_slice_")
     calls = mega.TWIN_CALLS
     try:
-        res = run(cfg, device="cpu", out_dir=out)
+        res = run(cfg, device="cpu", out_dir=out, p_dtype=torch.float32)
     finally:
         torch.set_num_threads(n_threads)
     yield res, out, mega.TWIN_CALLS - calls
@@ -114,8 +116,10 @@ def test_output_files_match_jax_writer(slice_run):
 
 
 def test_port_runs_without_jax():
-    """Importing the port and running one twin step loads no jax and no
-    module of the JAX package."""
+    """Importing the port and running one twin step, one float64 step of
+    the XLA engine with both detectors (its deposit through K2's plain
+    version) and the histogram probe's records through K3's plain
+    version loads no jax and no module of the JAX package."""
     code = (
         "import sys, torch\n"
         "from montecarloscattering_jl_tpu_torch.engine.run import "
@@ -142,6 +146,32 @@ def test_port_runs_without_jax():
         "                      'cpu')\n"
         "mega.launch(st, tb, tl, n_steps=1)\n"
         "assert int(st.nsteps.sum()) == b, st.nsteps\n"
+        "import numpy as np\n"
+        "from montecarloscattering_jl_tpu_torch.ops import hist, step\n"
+        "from montecarloscattering_jl_tpu_torch.scripts import "
+        "probe_hist\n"
+        "cfg.x_spec = [-0.5 * cfg.rg0, 0.5 * cfg.rg0]\n"
+        "eng = TransportEngine(build_setup(cfg), device='cpu')\n"
+        "ss = eng.step_static(0)\n"
+        "st = stt.init_state([1.0] * b, [1e-16] * b, [5e-17] * b,\n"
+        "                    [-1e8] * b, [60] * b, [prof.ux_sk[60]] * b,\n"
+        "                    cfg.xn_per_fine, setup.x_grid_stop,\n"
+        "                    rng.key(1), 'cpu', p_dtype=torch.float64)\n"
+        "tl = stt.make_tallies(setup.nb, setup.bins.n_mom,\n"
+        "                      setup.bins.n_theta, 'cpu', n_xspec=2)\n"
+        "tx = step.step_tables(eng.segment_grids(prof),\n"
+        "                      eng.segment_scalars(0, 0, prof.bmag2), ss,\n"
+        "                      'cpu')\n"
+        "calls = hist.PLAIN_CALLS\n"
+        "step.helix_step(st, tl, tx, rng.lane_uniforms_xla(\n"
+        "    st.key0, st.key1, st.nsteps), 10_000)\n"
+        "assert hist.PLAIN_CALLS == calls + 1\n"
+        "assert int(st.nsteps.sum()) == b and st.pb.dtype == torch.float64\n"
+        "recs = [torch.from_numpy(a) for a in probe_hist.synth(\n"
+        "    4096, np.random.default_rng(42))]\n"
+        "psd = torch.zeros(probe_hist.N_CELLS, probe_hist.NZC)\n"
+        "hist.psd_scatter_band(psd, *recs, 1024)\n"
+        "assert float(psd.abs().sum()) > 0\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'montecarloscattering_jl_tpu'"
         " or m.startswith('montecarloscattering_jl_tpu.')]\n"
