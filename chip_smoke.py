@@ -1,34 +1,67 @@
-#!/usr/bin/env python3
 """Smoke test of montecarloscattering_jl_tpu_torch on one CUDA card.
 
 Run from the root of a checkout:  python3 chip_smoke.py
+(``--phases k1,flags,hist,f32,science,electrons,f64,shipped`` runs a
+subset; every phase runs by default.)
 
 1. Prints the card (nvidia-smi name and power limit) and builds every
    kernel of the port with nvcc for sm_90a, one nvcc per source, all
    started together: K1 (csrc/mega_step.cu) and K2/K3
-   (csrc/psd_hist.cu).
-2. Holds K1 against its plain PyTorch version (ops/mega.py step_twin) on
-   the card, on the flagship population: tests/data/dsa_nonrel.toml,
-   65,536 injected lanes at pcut index 2.  First one 64-step launch from
-   the same state (per-lane fields), then a full drain with the helix
-   cap lowered to 512 steps (status counts, step totals, tallies).
-3. Holds K2 and K3 (ops/hist.py) against their plain versions on the
-   card, through the histogram probe (scripts/probe_hist.py): K2 at the
-   main path's shape (one record per lane of the 69,632-lane batch into
-   the 4,428 x 102 PSD) and on the probe's 2^21 records, K3 at bands
-   1,024 and 2,048, K2 at the probe's 2^16-record P4 shape; each timed
-   beside its plain version and checked against float64.
-4. Drives the K1 path: ``engine.driver.run`` on the flagship nonlinear
-   config with float32 momenta (65,536 particles per pcut, smoothing
-   on, 2 iterations), checks that every transport launch went through
-   K1 and none through the twin, that the output files are written, and
-   the test-particle power-law slope of iteration 1.
-5. Drives the XLA-engine path, the JAX CLI's default: the same config
-   with float64 momenta and two x_spec detectors at -/+0.5 r_g0, 1
-   iteration; checks that every PSD deposit went through K2 (none
-   through its plain version, no K1 launch), that the output files with
-   mc_xspec.dat are written, that both detectors' spectra are positive,
-   and the slope.
+   (csrc/psd_hist.cu), with each kernel's registers and spills.
+2. ``k1``: holds K1 against its plain PyTorch version (ops/mega.py
+   step_twin) on the card, on the flagship population:
+   tests/data/dsa_nonrel.toml, 65,536 injected lanes at pcut index 2.
+   First one 64-step launch from the same state (per-lane fields), then
+   a full drain with the helix cap lowered to 512 steps (status counts,
+   step totals, tallies).
+3. ``flags``: the same with K1's static-flag branches on, on
+   configs/baseline.toml (electron density set to 1) at 65,536 lanes
+   placed to reach every branch (``flag_population``): protons of the
+   science variant (tcuts, retro walk, custom eps_B, pool donation),
+   electrons (radiative loss, received energy) and protons with the
+   shipped no-scatter / no-DSA switches.  Window and drain as in 2, the
+   pool, tcut and counter tallies included.
+4. ``hist``: holds K2 and K3 (ops/hist.py) against their plain versions
+   on the card, through the histogram probe (scripts/probe_hist.py): K2
+   at the main path's shape (one record per lane of the 69,632-lane
+   batch into the 4,428 x 102 PSD) and on the probe's 2^21 records, K3
+   at bands 1,024 and 2,048, K2 at the probe's 2^16-record P4 shape;
+   each timed beside its plain version and, for K2/K4, beside one
+   ``index_add_`` of the same records (the library call, never used by
+   the port), and checked against float64.
+5. ``f32``: drives the K1 path: ``engine.driver.run`` on the flagship
+   nonlinear config with float32 momenta (65,536 particles per pcut,
+   smoothing on, 2 iterations); checks that every transport launch went
+   through K1 and none through the twin, that the output files are
+   written, and the test-particle power-law slope of iteration 1.
+6. ``science``: the gamma0 = 5 baseline's science variant on K1 (f32):
+   configs/baseline.toml with scattering, DSA and smoothing on, 4 pcuts
+   per decade, the helix cap at 200,000 steps and 4x the particle
+   counts (scripts/flagship_baseline.py --dsa --pcuts-per-decade 4
+   --max-helix-steps 200000 --n-pts-mult 4), 1 iteration.  Every drain
+   must launch K1; the coupled CSVs are written; per species the exit
+   reasons, tcut weights, pool, retro entries and radiated energy are
+   printed, and the proton side must show tcut weight and retro or age
+   activity.
+7. ``electrons``: examples/03_electron_synch_ic.toml with photon
+   production off and the baseline's energy-transfer fraction 0.1, at
+   float64 momenta (the XLA engine and K2), 1 iteration, cut to its
+   first 4 pcuts and a 2,000-step helix cap: the ions' pool, the
+   electrons' received and radiated energy must be positive.  Float64,
+   because a thermal proton's gamma - 1 (~2e-8) and an electron's loss
+   in a step (~1e-10 of its momentum) are below a float32 ulp.  The
+   reference removes a lane as radiated only when its momentum after
+   the loss is <= 0, which p / (1 + dlnp) never is, so the exit count
+   is printed, not required.
+8. ``f64``: drives the XLA-engine path, the JAX CLI's default: the
+   flagship config with float64 momenta and two x_spec detectors at
+   -/+0.5 r_g0, 1 iteration, cut to its first 4 pcuts; checks that every
+   PSD deposit went through K2 (none through its plain version, no K1
+   launch), that the output files with mc_xspec.dat are written, that
+   both detectors' spectra are positive, and the slope.
+9. ``shipped``: configs/baseline.toml as shipped (no-scatter, no-DSA)
+   at float64 on the XLA engine, 1 iteration: every PSD deposit through
+   K2, the coupled CSVs written, pushes and trajectories printed.
 
 Every phase that fails raises, so the script exits non-zero; it also
 exits non-zero without a CUDA device.  The line before the last is a
@@ -45,6 +78,10 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CFG = os.path.join(ROOT, "tests", "data", "dsa_nonrel.toml")
+BASELINE = os.path.join(ROOT, "configs", "baseline.toml")
+ELECTRONS = os.path.join(ROOT, "examples", "03_electron_synch_ic.toml")
+PHASES = ("k1", "flags", "hist", "f32", "science", "electrons", "f64",
+          "shipped")
 LANES = 65_536
 WINDOW = 64
 DRAIN_CAP = 512
@@ -58,6 +95,37 @@ MAX_DIVERGENT = 1e-3
 TALLY_RTOL = 1e-4                          # f32 atomics in any order
 # K2/K3 against their plain versions: f32 sums in another order
 HIST_TOL = 1e-4                            # of max |psd|
+# the science variant (scripts/flagship_baseline.py --dsa
+# --pcuts-per-decade 4 --max-helix-steps 200000 --n-pts-mult 4)
+SCIENCE_PCUTS_PER_DECADE = 4
+SCIENCE_CAP = 200_000
+SCIENCE_PTS_MULT = 4
+# the f64 paths' cuts: pcut segments kept, and examples/03's helix cap
+F64_PCUTS = 4
+ELECTRON_CAP = 2_000
+# the flags phase: the electrons' flat received-energy pool [erg per
+# zone], and the top of their momentum range [log10 m c], where the
+# radiative loss of a step exceeds a float32 ulp of the momentum
+RECV_PER_ZONE = 3.0e-7
+E_TOP = 9.0
+# JAX CPU run of the shipped baseline (1 iteration, --f32, XLA engine),
+# for comparison with the port's counts
+SHIPPED_JAX_PUSHES, SHIPPED_JAX_TRAJECTORIES = 980_000, 196
+# the H100 SXM's published peaks: HBM bytes/s and the
+# float32 rate outside the tensor cores, which bound_ms also applies to
+# K1's integer operations
+HBM_BYTES_S = 3.35e12
+F32_OPS_S = 67e12
+# K1's operations per helix step, counted from csrc/mega_step.cu on the
+# flagship's branches: two threefry2x32 blocks (~230 integer ops), the
+# eight uniforms (~32), the zone search (~28), ~8 hypot (~64), the frame
+# transform, escapes and scattering (~75), the movement with one
+# reflection try (~35), the PSD bins and tallies (~60) and the
+# downstream logic (~30)
+K1_OPS_PER_PUSH = 560
+# bytes of one lane's state K1 reads (80) and writes (68)
+K1_STATE_BYTES = 148
+HIST_RECORD_BYTES = 16                     # cell, lo, hi, w
 
 
 def fail(msg: str) -> None:
@@ -72,7 +140,14 @@ def card_line() -> str:
     return out[0].strip()
 
 
-def flagship_population(eng, setup, cfg, dev):
+def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """The least time [ms] the card could take: bytes over the memory
+    rate or operations over the float32 rate, whichever is larger."""
+    t_b, t_o = n_bytes / HBM_BYTES_S * 1e3, n_ops / F32_OPS_S * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def flagship_population(setup, cfg, dev):
     """bench.py's drain population: the injected distribution tiled to
     LANES lanes, keyed from seed 0."""
     import numpy as np
@@ -93,6 +168,59 @@ def flagship_population(eng, setup, cfg, dev):
         cfg.xn_per_fine, setup.x_grid_stop, rng.key(0), dev)
 
 
+def flag_population(cfg, setup, i_ion, dev, seed=0):
+    """LANES lanes that reach every flag branch within one window, as
+    tests/torch_flag_cases.py places them: a quarter upstream within
+    0.01 r_g0 (times the species' mass over the protons') of the shock
+    moving with the flow (pool donation or
+    receipt on the crossing), a quarter within 1e-4 r_g0 downstream
+    moving upstream at 3 m c (the no-DSA reflection), half beyond the
+    grid end (custom eps_B) with the PRP 1 to 3% ahead (the retro walk)
+    at 3-30 m c (electrons up to 10^E_TOP m c).  Acceleration times sit
+    around a tcut, an eighth past the age limit; the last step size is a
+    fine step in the lane's zone."""
+    import numpy as np
+    import torch
+
+    from montecarloscattering_jl_tpu_torch.ops import rng, state as stt
+    from montecarloscattering_jl_tpu_torch.utils import constants as K
+
+    g = np.random.default_rng(seed)
+    s = cfg.species[i_ion]
+    mc = s.mass * K.C_CGS
+    prof = setup.profile
+    n = LANES // 4
+    rg0, x_stop = cfg.rg0, setup.x_grid_stop
+    x = np.concatenate([-1.0e-2 * rg0 * (s.mass / cfg.species[0].mass)
+                        * g.random(n),
+                        1.0e-4 * rg0 * g.random(n),
+                        x_stop * (1.0 + 0.5 * g.random(2 * n))])
+    ptot = np.concatenate([
+        0.05 * mc * (1.0 + g.random(n)), 3.0 * mc * np.ones(n),
+        mc * 10.0 ** g.uniform(0.5, E_TOP if s.is_electron else 1.5,
+                               2 * n)])
+    mu = np.concatenate([g.uniform(-1, 1, n), -0.9 + 0.1 * g.random(n),
+                         0.5 + 0.5 * g.random(2 * n)])
+    ig = (np.searchsorted(setup.x_grid_cm, x, side="right") - 1).astype(
+        np.int32)
+    tc = np.asarray(cfg.tcuts)
+    slot = g.integers(0, len(tc) - 1, LANES)
+    acct = tc[slot] * g.uniform(0.3, 1.2, LANES)
+    acct[-n // 2:] = 1.1 * cfg.age_max
+    dw = x > 0.0
+    st = stt.init_state(
+        np.ones(LANES), ptot, ptot * mu, x, ig, prof.ux_sk[ig],
+        cfg.xn_per_fine, x_stop, rng.key(seed), dev, downstream=dw,
+        inj=dw & (x > x_stop), acctime=acct, tcut=slot.astype(np.int32))
+    prp = np.where(x > x_stop, x * g.uniform(1.01, 1.03, LANES), x_stop)
+    gamma = np.hypot(ptot / mc, 1.0)
+    t_step = (2.0 * np.pi * gamma * mc / (abs(s.charge) * prof.btot[ig])
+              / cfg.xn_per_fine)
+    st.prp_x = torch.from_numpy(prp).to(dev)
+    st.t_step = torch.from_numpy(t_step).to(dev, torch.float32)
+    return st, float(ptot.max())
+
+
 def clone_state(st):
     import dataclasses
     return dataclasses.replace(st, **{
@@ -105,7 +233,7 @@ def compare_lanes(a, b) -> dict:
     import torch
     out = {}
     same = torch.ones_like(a.status, dtype=torch.bool)
-    for name in ("status", "reason", "nsteps", "flags"):
+    for name in ("status", "reason", "nsteps", "flags", "tcut"):
         eq = getattr(a, name) == getattr(b, name)
         out[f"mismatch_{name}"] = int((~eq).sum())
         same &= eq
@@ -143,25 +271,34 @@ def time_launches(fn, prepared) -> float:
     return start.elapsed_time(end) / (len(prepared) - 1)
 
 
-def kernel_vs_twin(dev) -> dict:
+# the finalized tallies K1 and the twin must agree on, as totals
+TALLY_FIELDS = ("psd", "therm_psd", "pxx_flux", "pxz_flux", "energy_flux",
+                "num_crossings", "px_esc_up", "en_esc_up", "sum_p_dw",
+                "sum_ke_dw", "weight_coupled", "spectra_coupled",
+                "energy_pool", "retro_entries", "energy_received",
+                "energy_radiated")
+
+
+def compare_totals(tag, fk, ftw) -> dict:
+    """Totals of every finalized tally, K1 (fk) against the twin (ftw);
+    fails beyond TALLY_RTOL."""
+    out = {}
+    for name in TALLY_FIELDS:
+        a = float(getattr(fk, name).double().sum())
+        c = float(getattr(ftw, name).double().sum())
+        out[name] = c
+        if abs(a - c) > TALLY_RTOL * max(abs(c), 1e-300) and (a or c):
+            fail(f"{tag} {name}: K1 {a!r} twin {c!r}")
+    return out
+
+
+def hold_k1(tag, tabs, st0, fresh_tal) -> dict:
+    """K1 against its twin from the same state: one WINDOW-step launch
+    (per-lane fields, tally totals, both timed: plain, kernel, kernel,
+    plain), then a drain to DRAIN_CAP steps."""
     import torch
 
-    from montecarloscattering_jl_tpu_torch.engine.run import TransportEngine
-    from montecarloscattering_jl_tpu_torch.engine.setup import build_setup
     from montecarloscattering_jl_tpu_torch.ops import mega, state as stt
-    from montecarloscattering_jl_tpu_torch.utils import load_config
-
-    cfg = load_config(CFG)
-    setup = build_setup(cfg)
-    eng = TransportEngine(setup, device=dev)
-    grids = eng.segment_grids(setup.profile)
-    sc = eng.segment_scalars(0, 2, setup.profile.bmag2)
-    ss = eng.step_static(0)
-    mega.check_supported(ss)
-    tabs = mega.mega_tables(grids, sc, ss, dev)
-    st0 = flagship_population(eng, setup, cfg, dev)
-    b = setup.bins
-    fresh_tal = lambda: stt.make_tallies(setup.nb, b.n_mom, b.n_theta, dev)
 
     # ---- one 64-step launch from the same state -------------------------
     s_k, t_k = clone_state(st0), fresh_tal()
@@ -171,19 +308,17 @@ def kernel_vs_twin(dev) -> dict:
     mega.step_twin(s_t, tabs, t_t, WINDOW, 10_000)
     torch.cuda.synchronize()
     lanes = compare_lanes(s_k, s_t)
-    print("window per-lane:", json.dumps(lanes))
+    print(f"{tag} window per-lane:", json.dumps(lanes))
     if lanes["divergent_lanes"] > MAX_DIVERGENT * LANES:
-        fail(f"window: {lanes['divergent_lanes']} lanes diverge")
+        fail(f"{tag} window: {lanes['divergent_lanes']} lanes diverge")
     if lanes["float_lanes_over_bound"] > MAX_DIVERGENT * LANES:
-        fail(f"window: {lanes['float_lanes_over_bound']} float fields "
-             f"beyond {ULP_BOUND:.3g} relative")
+        fail(f"{tag} window: {lanes['float_lanes_over_bound']} float "
+             f"fields beyond {ULP_BOUND:.3g} relative")
     psd_err = float((t_k.psd_diff - t_t.psd_diff).abs().max())
-    psd_tot = float(t_t.psd_diff.abs().sum())
-    rel = abs(float(t_k.psd_diff.double().abs().sum()) - psd_tot) / psd_tot
-    print(f"window psd: max_abs_err={psd_err:.6e} total |psd| "
-          f"rel_err={rel:.3e}")
-    if rel > TALLY_RTOL:
-        fail(f"window psd totals differ by {rel:.3e}")
+    win = compare_totals(f"{tag} window", stt.finalize_tallies(t_k),
+                         stt.finalize_tallies(t_t))
+    print(f"{tag} window psd: max_abs_err={psd_err:.6e}; twin totals "
+          f"{json.dumps(win)}")
     pushes_w = int((s_t.nsteps - st0.nsteps).sum())
 
     def k1_window(s, t):
@@ -199,10 +334,10 @@ def kernel_vs_twin(dev) -> dict:
     k1b = time_launches(k1_window, prep(11))
     tw2 = time_launches(twin_window, prep(2))
     k1_ms, tw_ms = (k1a + k1b) / 2, (tw1 + tw2) / 2
-    print(f"window {WINDOW} steps x {LANES} lanes ({pushes_w} pushes): "
-          f"K1 {k1a:.4f} / {k1b:.4f} ms ({pushes_w / k1_ms / 1e3:.1f} "
-          f"M pushes/s), twin {tw1:.2f} / {tw2:.2f} ms "
-          f"({pushes_w / tw_ms / 1e3:.3f} M pushes/s)")
+    print(f"{tag} window {WINDOW} steps x {LANES} lanes ({pushes_w} "
+          f"pushes): K1 {k1a:.4f} / {k1b:.4f} ms "
+          f"({pushes_w / k1_ms / 1e3:.1f} M pushes/s), twin {tw1:.2f} / "
+          f"{tw2:.2f} ms ({pushes_w / tw_ms / 1e3:.3f} M pushes/s)")
 
     # ---- a full drain (helix cap lowered) ------------------------------
     res = {}
@@ -224,27 +359,157 @@ def kernel_vs_twin(dev) -> dict:
     (sk, fk, dk), (stw, ftw, dtw) = res["k1"], res["twin"]
     ck = torch.bincount(sk.status, minlength=3).tolist()
     ct = torch.bincount(stw.status, minlength=3).tolist()
+    rk = torch.bincount(sk.reason, minlength=5).tolist()
     nk, nt = int(sk.nsteps.sum()), int(stw.nsteps.sum())
     div = compare_lanes(sk, stw)["divergent_lanes"]
-    print(f"drain status K1 {ck} twin {ct}; nsteps K1 {nk} twin {nt}; "
-          f"divergent lanes {div}")
+    print(f"{tag} drain status K1 {ck} twin {ct}; reasons K1 {rk}; nsteps "
+          f"K1 {nk} twin {nt}; divergent lanes {div}")
     if div > MAX_DIVERGENT * LANES:
-        fail(f"drain: {div} lanes diverge")
+        fail(f"{tag} drain: {div} lanes diverge")
     if any(abs(x - y) > div for x, y in zip(ck, ct)):
-        fail("drain status counts differ beyond the divergent lanes")
+        fail(f"{tag} drain status counts differ beyond the divergent lanes")
     if abs(nk - nt) > div * DRAIN_CAP:
-        fail("drain step totals differ beyond the divergent lanes")
-    for name in ("psd", "therm_psd", "pxx_flux", "pxz_flux", "energy_flux",
-                 "num_crossings", "px_esc_up", "en_esc_up", "sum_p_dw",
-                 "sum_ke_dw"):
-        a = float(getattr(fk, name).double().sum())
-        c = float(getattr(ftw, name).double().sum())
-        if abs(a - c) > TALLY_RTOL * max(abs(c), 1e-300) and (a or c):
-            fail(f"drain {name}: K1 {a!r} twin {c!r}")
-    print(f"drain to {DRAIN_CAP}-step cap: K1 {dk:.3f} s "
+        fail(f"{tag} drain step totals differ beyond the divergent lanes")
+    drained = compare_totals(f"{tag} drain", fk, ftw)
+    print(f"{tag} drain to {DRAIN_CAP}-step cap: K1 {dk:.3f} s "
           f"({nk / dk / 1e6:.2f} M pushes/s), twin {dtw:.3f} s "
-          f"({nt / dtw / 1e6:.3f} M pushes/s)")
-    return dict(max_abs_err=psd_err, ms=k1_ms, plain_ms=tw_ms)
+          f"({nt / dtw / 1e6:.3f} M pushes/s); twin totals "
+          f"{json.dumps(drained)}")
+    return dict(max_abs_err=psd_err, ms=k1_ms, plain_ms=tw_ms,
+                pushes=pushes_w, window=win, drain=drained,
+                reasons=rk)
+
+
+def kernel_vs_twin(dev) -> dict:
+    """K1 against its twin on the flagship population (phase k1), with
+    the bound of its window."""
+    from montecarloscattering_jl_tpu_torch.engine.run import TransportEngine
+    from montecarloscattering_jl_tpu_torch.engine.setup import build_setup
+    from montecarloscattering_jl_tpu_torch.ops import mega, state as stt
+    from montecarloscattering_jl_tpu_torch.utils import load_config
+
+    cfg = load_config(CFG)
+    setup = build_setup(cfg)
+    eng = TransportEngine(setup, device=dev)
+    grids = eng.segment_grids(setup.profile)
+    sc = eng.segment_scalars(0, 2, setup.profile.bmag2)
+    ss = eng.step_static(0)
+    mega.check_supported(ss)
+    tabs = mega.mega_tables(grids, sc, ss, dev)
+    st0 = flagship_population(setup, cfg, dev)
+    b = setup.bins
+    fresh_tal = lambda: stt.make_tallies(setup.nb, b.n_mom, b.n_theta, dev)
+    out = hold_k1("flagship", tabs, st0, fresh_tal)
+    psd_bytes = fresh_tal().psd_diff.numel() * 4
+    out["bound_ms"], out["bound_by"] = bound(
+        LANES * K1_STATE_BYTES + 2 * psd_bytes,
+        out["pushes"] * K1_OPS_PER_PUSH)
+    print(f"flagship window bound: {out['bound_ms']:.4f} ms "
+          f"({out['bound_by']})")
+    return out
+
+
+def load_variant(path: str, replace=(), **fields):
+    """A config file with text replacements, loaded through a temporary
+    copy, then with `fields` set on the RunConfig."""
+    from montecarloscattering_jl_tpu_torch.utils import load_config
+
+    text = open(path).read()
+    for old, new in replace:
+        if old not in text:
+            fail(f"{path}: {old!r} not found")
+        text = text.replace(old, new)
+    with tempfile.TemporaryDirectory() as d:
+        p = os.path.join(d, os.path.basename(path))
+        with open(p, "w") as f:
+            f.write(text)
+        cfg = load_config(p)
+    for k, v in fields.items():
+        setattr(cfg, k, v)
+    return cfg
+
+
+def science_variant(cfg) -> None:
+    """Scattering, DSA and smoothing on, the geometric pcut ladder and
+    the larger particle counts of the science runs, in place."""
+    from montecarloscattering_jl_tpu_torch.utils.config import (
+        auto_pcut_ladder, check_pcuts)
+
+    cfg.dont_scatter = cfg.dont_dsa = False
+    cfg.do_smoothing = True
+    cfg.pcuts = auto_pcut_ladder(cfg.pcuts[0], SCIENCE_PCUTS_PER_DECADE,
+                                 cfg.emax, cfg.emax_per_aa, cfg.pmax)
+    check_pcuts(cfg.pcuts, cfg.emax, cfg.emax_per_aa, cfg.pmax)
+    cfg.n_pts_inj *= SCIENCE_PTS_MULT
+    cfg.n_pts_pcut *= SCIENCE_PTS_MULT
+    cfg.n_pts_pcut_hi *= SCIENCE_PTS_MULT
+
+
+FLAG_CASES = (("protons", 0, True, ("do_tcuts", "do_retro",
+                                    "use_custom_eps_b",
+                                    "do_energy_transfer")),
+              ("electrons", 1, True, ("do_rad_losses", "do_retro",
+                                      "do_tcuts", "use_custom_eps_b",
+                                      "do_energy_transfer")),
+              ("protons-shipped", 0, False, ("dont_scatter", "dont_dsa",
+                                             "do_tcuts", "do_retro")))
+
+
+def kernel_vs_twin_flags(dev) -> dict:
+    """K1 against its twin with the static-flag branches on (phase
+    flags): the baseline (electron density 1) at the science variant's
+    switches for protons and electrons, and at the shipped switches for
+    protons, on flag_population's lanes."""
+    import numpy as np
+
+    from montecarloscattering_jl_tpu_torch.engine.run import (
+        TransportEngine, populate_eps_target)
+    from montecarloscattering_jl_tpu_torch.engine.setup import build_setup
+    from montecarloscattering_jl_tpu_torch.ops import mega, state as stt
+
+    out = {}
+    for tag, i_ion, science, want in FLAG_CASES:
+        cfg = load_variant(BASELINE, replace=[("DENZ_ION = [1.0, 0.0]",
+                                               "DENZ_ION = [1.0, 1.0]")])
+        if science:
+            science_variant(cfg)
+        setup = build_setup(cfg)
+        eng = TransportEngine(setup, device=dev)
+        prof = setup.profile
+        eps = populate_eps_target(cfg.energy_transfer_frac, cfg.u0,
+                                  cfg.gamma0, setup.u2, setup.gamma2, prof)
+        grids = eng.segment_grids(prof, eps_target=eps,
+                                  recv_pool=np.full(setup.nb, RECV_PER_ZONE))
+        st0, p_top = flag_population(cfg, setup, i_ion, dev)
+        # a pcut above every lane: the window saves none of them
+        i_pcut = next(i for i, p in enumerate(cfg.pcuts) if p > 2.0 * p_top)
+        sc = eng.segment_scalars(i_ion, i_pcut, prof.bmag2)
+        ss = eng.step_static(i_ion)
+        off = [f for f in want if not getattr(ss, f)]
+        if off:
+            fail(f"flags {tag}: {off} are off in the config")
+        mega.check_supported(ss)
+        tabs = mega.mega_tables(grids, sc, ss, dev)
+        b = setup.bins
+        fresh_tal = lambda: stt.make_tallies(
+            setup.nb, b.n_mom, b.n_theta, dev,
+            n_tcut_slots=eng.n_tcut_slots)
+        r = out[tag] = hold_k1(f"flags {tag}", tabs, st0, fresh_tal)
+        w, d = r["window"], r["drain"]
+        fired = {
+            "tcut weight": d["weight_coupled"] if "do_tcuts" in want
+            and i_ion == 0 else 1.0,
+            "pool": d["energy_pool"] if "do_energy_transfer" in want
+            and i_ion == 0 else 1.0,
+            "received": d["energy_received"] if i_ion == 1 else 1.0,
+            "radiated": w["energy_radiated"] if i_ion == 1 else 1.0,
+            "retro entries": d["retro_entries"] if science and i_ion == 0
+            else 1.0,
+            "no-scatter exits": r["reasons"][1] if not science else 1.0}
+        dead = [k for k, v in fired.items() if not v > 0]
+        if dead:
+            fail(f"flags {tag}: no {dead} (the branch did not fire)")
+    return out
 
 
 def expected_files(cfg):
@@ -299,33 +564,40 @@ def slope_of(res) -> tuple[float, float]:
     return slope, -(3 * setup.r_comp / (setup.r_comp - 1) - 2)
 
 
-def main_path(dev, p_dtype, n_itrs: int, x_spec: bool) -> dict:
-    """One driven run of the flagship config; counts of every kernel's
-    launches set to 0 just before it and read just after."""
+def drive(cfg, dev, p_dtype, tag: str, cap: int = 0) -> tuple:
+    """One driven run through ``engine.driver.run``, the helix cap of
+    both engines set to `cap` for it when given; counts of every
+    kernel's launches set to 0 just before it and read just after.
+    Checks the engine each drain took, the output file set and the
+    reductions; returns (result, counts, wall seconds, files with their
+    line counts)."""
     import numpy as np
     import torch
 
     from montecarloscattering_jl_tpu_torch.engine.driver import run
     from montecarloscattering_jl_tpu_torch.ops import hist, mega
-    from montecarloscattering_jl_tpu_torch.utils import load_config
+    from montecarloscattering_jl_tpu_torch.ops import step as xla_step
 
-    cfg = load_config(CFG)
-    cfg.n_itrs = n_itrs
-    cfg.do_smoothing = True
-    cfg.n_pts_inj = cfg.n_pts_pcut = cfg.n_pts_pcut_hi = LANES
-    if x_spec:
-        cfg.x_spec = [-0.5 * cfg.rg0, 0.5 * cfg.rg0]
-    tag = f"{str(p_dtype).replace('torch.', '')} path"
-    with tempfile.TemporaryDirectory() as out:
-        mega.LAUNCHES = mega.TWIN_CALLS = 0
-        hist.LAUNCHES = hist.BAND_LAUNCHES = hist.PLAIN_CALLS = 0
-        t0 = time.perf_counter()
-        res = run(cfg, device=dev, out_dir=out, p_dtype=p_dtype)
-        wall = time.perf_counter() - t0
-        counts = dict(k1=mega.LAUNCHES, twin=mega.TWIN_CALLS,
-                      k2=hist.LAUNCHES, k3=hist.BAND_LAUNCHES,
-                      hist_plain=hist.PLAIN_CALLS)
-        written = sorted(os.listdir(out))
+    caps = (mega.MAX_HELIX_STEPS, xla_step.MAX_HELIX_STEPS)
+    if cap:
+        mega.MAX_HELIX_STEPS = xla_step.MAX_HELIX_STEPS = cap
+    try:
+        with tempfile.TemporaryDirectory() as out:
+            mega.LAUNCHES = mega.TWIN_CALLS = 0
+            hist.LAUNCHES = hist.BAND_LAUNCHES = hist.PLAIN_CALLS = 0
+            t0 = time.perf_counter()
+            res = run(cfg, device=dev, out_dir=out, p_dtype=p_dtype)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = dict(k1=mega.LAUNCHES, twin=mega.TWIN_CALLS,
+                          k2=hist.LAUNCHES, k3=hist.BAND_LAUNCHES,
+                          hist_plain=hist.PLAIN_CALLS)
+            written = {}
+            for name in sorted(os.listdir(out)):
+                with open(os.path.join(out, name), "rb") as f:
+                    written[name] = sum(1 for _ in f)
+    finally:
+        mega.MAX_HELIX_STEPS, xla_step.MAX_HELIX_STEPS = caps
     phases = {k: round(v, 3) for k, v in res.timers.totals.items()}
     print(f"{tag}: {len(res.iterations)} iterations, "
           f"{res.n_trajectories} trajectories, {res.n_pushes} pushes in "
@@ -340,16 +612,64 @@ def main_path(dev, p_dtype, n_itrs: int, x_spec: bool) -> dict:
     missing = [f for f in expected_files(cfg) if f not in written]
     if missing:
         fail(f"{tag}: output files missing: {missing} (got {written})")
-    slope, expect = slope_of(res)
-    print(f"{tag}: iteration 1 downstream slope {slope:.4f} (expected "
-          f"{expect:.4f} +- 0.45)")
-    if not math.isfinite(slope) or abs(slope - expect) > 0.45:
-        fail(f"{tag}: slope {slope} vs {expect}")
     for itr in res.iterations:
         for f in itr.ion_finals:
             if not (np.isfinite(f.dndp_cr).all()
                     and np.isfinite(f.p_psd_par).all()):
                 fail(f"{tag}: non-finite reductions")
+    return res, counts, wall, written
+
+
+def species_report(tag, res) -> list:
+    """Per species of iteration 1: exit reasons, tcut weights, pool,
+    received and radiated energy, retro entries, pushes and
+    trajectories, printed as JSON; returns the list."""
+    import numpy as np
+
+    it = res.iterations[0]
+    rows = []
+    for i_ion, f in enumerate(it.ion_finals):
+        rc = [int(v) for v in f.reason_counts]
+        wc = it.tallies.weight_coupled
+        row = dict(
+            species=i_ion, exits=dict(downstream=rc[1], pmax_feb=rc[2],
+                                      age=rc[3], radiated=rc[4]),
+            tcut_weight=float(wc[:, i_ion].sum()) if wc is not None else 0.0,
+            pool_erg=float(np.sum(it.tallies.energy_pool))
+            if i_ion == 0 else None,
+            received_erg=f.energy_received, radiated_erg=f.energy_radiated,
+            retro_entries=f.retro_entries, pushes=f.n_pushes,
+            trajectories=f.n_trajectories)
+        rows.append(row)
+        print(f"{tag} species {i_ion}: {json.dumps(row)}")
+    setup = res.setup
+    print(f"{tag}: r_comp {setup.r_comp:.4f} against r_RH "
+          f"{setup.r_rh:.4f}")
+    return rows
+
+
+def main_path(dev, p_dtype, n_itrs: int, x_spec: bool) -> dict:
+    """The flagship config driven through one engine (phases f32, f64):
+    the slope of iteration 1, and the detector spectra with x_spec."""
+    import torch
+
+    from montecarloscattering_jl_tpu_torch.utils import load_config
+
+    cfg = load_config(CFG)
+    cfg.n_itrs = n_itrs
+    cfg.do_smoothing = True
+    cfg.n_pts_inj = cfg.n_pts_pcut = cfg.n_pts_pcut_hi = LANES
+    if x_spec:
+        cfg.x_spec = [-0.5 * cfg.rg0, 0.5 * cfg.rg0]
+    if p_dtype == torch.float64:
+        cfg.pcuts = cfg.pcuts[:F64_PCUTS]
+    tag = f"{str(p_dtype).replace('torch.', '')} path"
+    res, counts, _, _ = drive(cfg, dev, p_dtype, tag)
+    slope, expect = slope_of(res)
+    print(f"{tag}: iteration 1 downstream slope {slope:.4f} (expected "
+          f"{expect:.4f} +- 0.45)")
+    if not math.isfinite(slope) or abs(slope - expect) > 0.45:
+        fail(f"{tag}: slope {slope} vs {expect}")
     if x_spec:
         fi = res.iterations[0].ion_finals[0]
         tot = [(float(fi.spectra_sf[:, i].sum()),
@@ -361,8 +681,89 @@ def main_path(dev, p_dtype, n_itrs: int, x_spec: bool) -> dict:
     return counts
 
 
-def main() -> int:
+def science_path(dev) -> dict:
+    """The baseline's science variant on K1 at float32, 1 iteration
+    (phase science)."""
     import torch
+
+    cfg = load_variant(BASELINE, n_itrs=1)
+    science_variant(cfg)
+    print(f"science: {len(cfg.pcuts)} pcuts, {cfg.n_pts_inj} / "
+          f"{cfg.n_pts_pcut} / {cfg.n_pts_pcut_hi} particles, helix cap "
+          f"{SCIENCE_CAP}")
+    res, counts, wall, written = drive(cfg, dev, torch.float32, "science",
+                                       cap=SCIENCE_CAP)
+    print(f"science: coupled CSV lines: weights "
+          f"{written['mc_coupled_weights.csv']}, spectra "
+          f"{written['mc_coupled_spectra.csv']}")
+    rows = species_report("science", res)
+    p = rows[0]
+    if not (p["tcut_weight"] > 0
+            and (p["exits"]["age"] + p["retro_entries"]) > 0):
+        fail(f"science: a proton-side branch did not fire: {p}")
+    # the pool: a proton donates at its first crossing from upstream, in
+    # the upstream plasma frame, where the baseline's thermal protons
+    # have gamma - 1 ~ 2e-8, below a float32 ulp of gamma: the donation
+    # rounds to 0 on K1 as in the reference's megakernel (the flags
+    # phase and the electrons phase show it at representable energies)
+    print(f"science: ion pool {p['pool_erg']!r} erg (float32 momenta)")
+    return dict(counts=counts, wall=wall, pushes=res.n_pushes,
+                trajectories=res.n_trajectories, species=rows)
+
+
+def electron_path(dev) -> dict:
+    """examples/03 with photon production off and the baseline's
+    energy-transfer fraction, at float64, cut (phase electrons): the
+    ions' pool, the electrons' receipt and radiative loss on the driven
+    path."""
+    import torch
+
+    cfg = load_variant(ELECTRONS, replace=[
+        ("calculate-photon-production = true",
+         "calculate-photon-production = false"),
+        ("energy-transfer-frac = 0.0", "energy-transfer-frac = 0.1")],
+        n_itrs=1)
+    cfg.pcuts = cfg.pcuts[:F64_PCUTS]
+    res, counts, wall, _ = drive(cfg, dev, torch.float64, "electrons",
+                                 cap=ELECTRON_CAP)
+    rows = species_report("electrons", res)
+    p, e = rows
+    if not (p["pool_erg"] > 0 and e["received_erg"] > 0
+            and e["radiated_erg"] > 0):
+        fail(f"electrons: pool, receipt or radiative loss missing: {rows}")
+    return dict(counts=counts, wall=wall, species=rows)
+
+
+def shipped_path(dev) -> dict:
+    """configs/baseline.toml as shipped at float64 on the XLA engine, 1
+    iteration (phase shipped)."""
+    import torch
+
+    cfg = load_variant(BASELINE, n_itrs=1)
+    res, counts, wall, written = drive(cfg, dev, torch.float64, "shipped")
+    print(f"shipped: {res.n_pushes} pushes and {res.n_trajectories} "
+          f"trajectories (the JAX package on the CPU, --f32: "
+          f"{SHIPPED_JAX_PUSHES} and {SHIPPED_JAX_TRAJECTORIES}); coupled "
+          f"CSV lines: weights {written['mc_coupled_weights.csv']}, "
+          f"spectra {written['mc_coupled_spectra.csv']}")
+    species_report("shipped", res)
+    return dict(counts=counts, wall=wall, pushes=res.n_pushes,
+                trajectories=res.n_trajectories)
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    import torch
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of " + ",".join(PHASES))
+    args = ap.parse_args(argv)
+    phases = args.phases.split(",")
+    unknown = [p for p in phases if p not in PHASES]
+    if unknown:
+        print(f"chip_smoke: unknown phases {unknown}", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -387,42 +788,66 @@ def main() -> int:
     print(f"build (nvcc, in parallel): {time.perf_counter() - t0:.2f} s "
           f"({', '.join(p.name for p in libs.values())})")
 
-    k1 = kernel_vs_twin(dev)
-    hp = hist_phase(dev)
-    c32 = main_path(dev, torch.float32, n_itrs=2, x_spec=False)
-    c64 = main_path(dev, torch.float64, n_itrs=1, x_spec=True)
-    src = "montecarloscattering_jl_tpu_torch/csrc/"
-    k2, k3, k4 = (hp["K2 (69,632 records)"], hp["K3 band=2048"],
-                  hp["K4 = K2 (2^16 records)"])
-    print(json.dumps({"kernels": [
-        {"name": "K1 mega_step", "route": "cuda",
-         "source": src + "mega_step.cu",
-         "replaces": "montecarloscattering_jl_tpu/ops/pallas_step.py:225",
-         "launches": c32["k1"], "max_abs_err": k1["max_abs_err"],
-         "ms": k1["ms"], "plain_ms": k1["plain_ms"]},
-        {"name": "K2 psd_scatter", "route": "cuda",
-         "source": src + "psd_hist.cu",
-         "replaces": "montecarloscattering_jl_tpu/ops/pallas_hist.py:149",
-         "launches": c64["k2"], "max_abs_err": k2["max_abs_err"],
-         "ms": k2["ms"], "plain_ms": k2["plain_ms"]},
-        {"name": "K3 psd_scatter_band", "route": "cuda",
-         "source": src + "psd_hist.cu",
-         "replaces": "scripts/probe_hist.py:97",
-         "launches": c64["k3"], "max_abs_err": k3["max_abs_err"],
-         "ms": k3["ms"], "plain_ms": k3["plain_ms"],
-         "note": "probe kernel, off the main path; timed at band 2,048"},
-        {"name": "K4 = K2 psd_scatter", "route": "cuda",
-         "source": src + "psd_hist.cu",
-         "replaces": "scripts/probe_hist.py:173",
-         "launches": c64["k2"], "max_abs_err": k4["max_abs_err"],
-         "ms": k4["ms"], "plain_ms": k4["plain_ms"],
-         "note": "runs K2's kernel at P4's 2^16 records"}]}))
+    done = {}
+    for phase, fn in (("k1", kernel_vs_twin), ("flags", kernel_vs_twin_flags),
+                      ("hist", hist_phase),
+                      ("f32", lambda d: main_path(d, torch.float32, 2,
+                                                  False)),
+                      ("science", science_path), ("electrons", electron_path),
+                      ("f64", lambda d: main_path(d, torch.float64, 1, True)),
+                      ("shipped", shipped_path)):
+        if phase in phases:
+            t0 = time.perf_counter()
+            done[phase] = fn(dev)
+            print(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
+    if set(phases) == set(PHASES):
+        print(json.dumps({"kernels": kernel_records(done)}))
     print(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def kernel_records(done) -> list:
+    """The kernels line: every kernel with its main-path launches (K1 on
+    the flagship f32 and the science paths, K2 on the f64 flagship,
+    shipped and electron paths), its error against its plain version,
+    its time, its plain version's, its bound and the library call's."""
+    src = "montecarloscattering_jl_tpu_torch/csrc/"
+    hp, k1 = done["hist"], done["k1"]
+    k2, k3, k4 = (hp["K2 (69,632 records)"], hp["K3 band=2048"],
+                  hp["K4 = K2 (2^16 records)"])
+    k1_launches = done["f32"]["k1"] + done["science"]["counts"]["k1"]
+    k2_launches = (done["f64"]["k2"] + done["shipped"]["counts"]["k2"]
+                   + done["electrons"]["counts"]["k2"])
+    rec = lambda r: dict(max_abs_err=r["max_abs_err"], ms=r["ms"],
+                         plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                         bound_by=r["bound_by"],
+                         library_ms=r.get("library_ms"))
+    return [
+        {"name": "K1 mega_step", "route": "cuda",
+         "source": src + "mega_step.cu",
+         "replaces": "montecarloscattering_jl_tpu/ops/pallas_step.py:225",
+         "launches": k1_launches, **rec(k1),
+         "note": "timed on the flagship's 64-step window at 65,536 "
+                 "lanes; no single PyTorch call computes a helix step"},
+        {"name": "K2 psd_scatter", "route": "cuda",
+         "source": src + "psd_hist.cu",
+         "replaces": "montecarloscattering_jl_tpu/ops/pallas_hist.py:149",
+         "launches": k2_launches, **rec(k2)},
+        {"name": "K3 psd_scatter_band", "route": "cuda",
+         "source": src + "psd_hist.cu",
+         "replaces": "scripts/probe_hist.py:97",
+         "launches": done["f64"]["k3"], **rec(k3),
+         "note": "probe kernel, off the main path; timed at band 2,048; "
+                 "its band filter has no single PyTorch call"},
+        {"name": "K4 = K2 psd_scatter", "route": "cuda",
+         "source": src + "psd_hist.cu",
+         "replaces": "scripts/probe_hist.py:173",
+         "launches": k2_launches, **rec(k4),
+         "note": "runs K2's kernel at P4's 2^16 records"}]
 
 
 if __name__ == "__main__":

@@ -18,6 +18,17 @@
 // per warp, and only the PSD difference array deposited straight into
 // global memory by f32 atomicAdd.
 //
+// The static flags of the megakernel's cfg (no-scatter, no-DSA,
+// radiative losses, the retro walk, tcuts, energy transfer, custom
+// eps_B) are runtime bits of si[SI_FLAGS], uniform across a launch.
+// Their tallies go to global memory by f64 atomicAdd: the ion pool as a
+// (lo, hi+1) difference pair into pool_diff, the tcut crossings into
+// weight_coupled / spectra_coupled at the lane's final momentum bin.
+// The tcut times and the received-energy prefix are read by index in
+// f64, eps_target in f32; the acceleration time stays f64.  The port's
+// own counters (retro entries, received and radiated energy) are
+// per-thread f64 sums reduced per warp, like the escape sums.
+//
 // Numerics: momenta and fields f32, positions / PRP / acceleration time
 // f64.  Build with -fmad=false (and never --use_fast_math) so every
 // a*b+c rounds twice, as the twin's separate torch ops do; hypot is
@@ -31,7 +42,7 @@
 #define BLOCK 128
 
 enum { ACTIVE = 0, SAVED = 1, FINISHED = 2 };
-enum { R_DOWNSTREAM = 1, R_UPSTREAM_PMAX = 2, R_AGE = 3 };
+enum { R_DOWNSTREAM = 1, R_UPSTREAM_PMAX = 2, R_AGE = 3, R_RADIATED = 4 };
 enum { FL_DW = 1, FL_INJ = 2, FL_RETRO = 4, FL_JRET = 8 };
 
 // f32 scalar vector (ops/mega.py SF_*)
@@ -41,14 +52,21 @@ enum {
   SF_ETA3, SF_XN_COARSE, SF_XN_FINE, SF_CMAX_COARSE, SF_CMAX_FINE,
   SF_TWO_PI, SF_PI, SF_PSD_MOM_MIN, SF_LOG_PMIN, SF_THETA_MIN,
   SF_LOG_TMIN, SF_COS_FINE, SF_DCOS, SF_INV_LN10, SF_SPIKE, SF_THREE,
-  SF_ONE, SF_TINY30, SF_TINY37, SF_E_REL, N_SF
+  SF_ONE, SF_TINY30, SF_TINY37, SF_E_REL, SF_B_CMBZ, SF_EWF, SF_RAD,
+  SF_B_DW, SF_GSF_DW, SF_GEF_DW, SF_UX_DW, SF_TEN, N_SF
 };
 // f64 scalar vector (SD_*)
 enum { SD_FEB_UP, SD_FEB_DW, SD_X_STOP, SD_AGE_MAX, N_SD };
 // int vector (SI_*)
 enum {
   SI_NB, SI_I_GRID_FEB, SI_N_MOM, SI_N_THETA, SI_BPD_MOM, SI_BPD_THETA,
-  SI_IS_ELECTRON, N_SI
+  SI_IS_ELECTRON, SI_I_SHOCK, SI_N_TCUT, SI_FLAGS, N_SI
+};
+// bits of si[SI_FLAGS] (ops/mega.py FLAG_*)
+enum {
+  FLAG_DONT_SCATTER = 1, FLAG_DONT_DSA = 2, FLAG_RAD_LOSSES = 4,
+  FLAG_RETRO = 8, FLAG_TCUTS = 16, FLAG_ENERGY_TRANSFER = 32,
+  FLAG_CUSTOM_EPS_B = 64
 };
 
 __device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
@@ -108,6 +126,24 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
+// radiation_loss (ops/scattering.py): explicit step, implicit where it
+// would overshoot
+__device__ __forceinline__ float rad_loss(float rad, float bsq, float p,
+                                          float dt) {
+  const float dlnp = rad * bsq * p * dt;
+  return dlnp > 1e-2f ? p / (1.0f + dlnp) : p * (1.0f - dlnp);
+}
+
+// the megakernel's momentum bin (get_psd_bins.jl:16-39)
+__device__ __forceinline__ int mom_bin(float p, float tiny37, float inv_ln10,
+                                       float log_pmin, float bpd_mom,
+                                       float psd_mom_min, int n_mom) {
+  const float lp = logf(fmaxp(p, tiny37)) * inv_ln10 - log_pmin;
+  int ipb = (int)floorf(lp * bpd_mom) + 1;
+  if (p < psd_mom_min) ipb = 0;
+  return clampi(ipb, 0, n_mom);
+}
+
 // index of the last boundary <= x, -1 below the grid
 __device__ __forceinline__ int zone_of(const double* xg, int nb, double x) {
   int lo = 0, hi = nb;  // first index with xg[i] > x
@@ -139,14 +175,20 @@ mega_step_kernel(float* __restrict__ w_g, float* __restrict__ pb_g,
                  double* __restrict__ prp_g, double* __restrict__ acct_g,
                  int* __restrict__ status_g, int* __restrict__ reason_g,
                  int* __restrict__ nsteps_g, int* __restrict__ flags_g,
+                 int* __restrict__ tcut_g,
                  const int* __restrict__ key0_g,
                  const int* __restrict__ key1_g,
                  const double* __restrict__ xg_g,
                  const float* __restrict__ zf_g,
                  const float* __restrict__ sf_g,
                  const double* __restrict__ sd_g,
-                 const int* __restrict__ si_g, float* __restrict__ psd_g,
+                 const int* __restrict__ si_g,
+                 const double* __restrict__ tc_g,
+                 const float* __restrict__ et_g,
+                 const double* __restrict__ rp_g, float* __restrict__ psd_g,
                  double* __restrict__ flux_g, double* __restrict__ esc_g,
+                 double* __restrict__ pool_g, double* __restrict__ wc_g,
+                 double* __restrict__ sc_g, double* __restrict__ cnt_g,
                  int* __restrict__ n_active_g, int n, int n_steps,
                  int max_helix) {
   __shared__ double xg[ZMAX];
@@ -161,6 +203,16 @@ mega_step_kernel(float* __restrict__ w_g, float* __restrict__ pb_g,
   const float bpd_mom = (float)si_g[SI_BPD_MOM];
   const float bpd_theta = (float)si_g[SI_BPD_THETA];
   const bool is_el = si_g[SI_IS_ELECTRON] != 0;
+  const int i_shock = si_g[SI_I_SHOCK];
+  const int n_tc = si_g[SI_N_TCUT];
+  const int fl = si_g[SI_FLAGS];
+  const bool dont_scatter = (fl & FLAG_DONT_SCATTER) != 0;
+  const bool dont_dsa = (fl & FLAG_DONT_DSA) != 0;
+  const bool rad_on = (fl & FLAG_RAD_LOSSES) != 0 && is_el;
+  const bool do_retro = (fl & FLAG_RETRO) != 0;
+  const bool do_tcuts = (fl & FLAG_TCUTS) != 0;
+  const bool xfer_on = (fl & FLAG_ENERGY_TRANSFER) != 0;
+  const bool eps_b = (fl & FLAG_CUSTOM_EPS_B) != 0;
 
   for (int z = threadIdx.x; z < nb; z += blockDim.x) {
     xg[z] = xg_g[z];
@@ -192,10 +244,15 @@ mega_step_kernel(float* __restrict__ w_g, float* __restrict__ pb_g,
   const float three = sf_g[SF_THREE], one = sf_g[SF_ONE];
   const float tiny30 = sf_g[SF_TINY30], tiny37 = sf_g[SF_TINY37];
   const float e_rel = sf_g[SF_E_REL];
+  const float b_cmbz = sf_g[SF_B_CMBZ], ewf = sf_g[SF_EWF];
+  const float rad = sf_g[SF_RAD], b_dw = sf_g[SF_B_DW];
+  const float gsf_dw = sf_g[SF_GSF_DW], gef_dw = sf_g[SF_GEF_DW];
+  const float ux_dw = sf_g[SF_UX_DW], ten = sf_g[SF_TEN];
   const double feb_up = sd_g[SD_FEB_UP], feb_dw = sd_g[SD_FEB_DW];
   const double x_stop = sd_g[SD_X_STOP], age_max = sd_g[SD_AGE_MAX];
 
   double s_px = 0.0, s_en = 0.0, s_p = 0.0, s_ke = 0.0;
+  double s_retro = 0.0, s_recv = 0.0, s_rad = 0.0;
   int live = 0;
 
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -206,11 +263,12 @@ mega_step_kernel(float* __restrict__ w_g, float* __restrict__ pb_g,
     double x = x_g[i], prp = prp_g[i], acct = acct_g[i];
     int status = ACTIVE, reason = reason_g[i], nsteps = nsteps_g[i];
     int flags = flags_g[i];
+    int tcut = tcut_g[i];
     const uint32_t k0 = (uint32_t)key0_g[i], k1 = (uint32_t)key1_g[i];
 
     for (int s = 0; s < n_steps; ++s) {
       if (status != ACTIVE) break;
-      const bool retro = (flags & FL_RETRO) != 0;
+      bool retro = (flags & FL_RETRO) != 0;
       const bool jret = (flags & FL_JRET) != 0;
       bool dwf = (flags & FL_DW) != 0;
       bool injf = (flags & FL_INJ) != 0;
@@ -234,7 +292,9 @@ mega_step_kernel(float* __restrict__ w_g, float* __restrict__ pb_g,
       const int ig = zone_of(xg, nb, x);
       const int igc = ig < 0 ? 0 : ig;
       const float ux = zux[igc], gsf = zgsf[igc], gef = zgef[igc];
-      const float bmag = zb[igc];
+      float bmag = zb[igc];
+      if (eps_b && x > x_stop)
+        bmag = b_dw * sqrtf((float)(x_stop / fmax(x, x_stop)));
       const float gden = inv_q / bmag;
 
       float ptot = hyp(pb, pperp);
@@ -255,6 +315,13 @@ mega_step_kernel(float* __restrict__ w_g, float* __restrict__ pb_g,
       ptot = hyp(pb, pperp);
       gamma_pf = hyp(ptot / mc, one);
       if (do_b3) uxp = ux;
+
+      // downstream escape with scattering off
+      if (dont_scatter && do_b3 && x > (double)(10.0f * (pperp * c * gden))) {
+        status = FINISHED;
+        reason = R_DOWNSTREAM;
+        do_b3 = false;
+      }
 
       // pmax escape (both frames)
       {
@@ -279,8 +346,30 @@ mega_step_kernel(float* __restrict__ w_g, float* __restrict__ pb_g,
         do_b3 = false;
       }
 
+      // synchrotron + inverse-Compton losses
+      if (rad_on) {
+        const float b_cmb = b_cmbz * gef;
+        const float p_lost =
+            rad_loss(rad, bmag * bmag + b_cmb * b_cmb, ptot, tstep);
+        const bool dead = do_b3 && (p_lost <= 0.0f);
+        if (do_b3) {
+          const float scale = p_lost / fmaxp(ptot, tiny30);
+          pb = pb * scale;
+          pperp = pperp * scale;
+        }
+        ptot = hyp(pb, pperp);
+        const float gamma_in = gamma_pf;
+        gamma_pf = hyp(ptot / mc, one);
+        if (do_b3) s_rad += (double)((gamma_in - gamma_pf) * e0 * w_lane);
+        if (dead) {
+          status = FINISHED;
+          reason = R_RADIATED;
+          do_b3 = false;
+        }
+      }
+
       // pitch-angle scattering (parallel: no phase adjustment)
-      if (do_b3) {
+      if (do_b3 && !dont_scatter) {
         const float cos_max = (xnp == xn_coarse) ? cmax_coarse : cmax_fine;
         const float safe_pt = fmaxp(ptot, tiny30);
         const float cos_old = pb / safe_pt;
@@ -300,9 +389,16 @@ mega_step_kernel(float* __restrict__ w_g, float* __restrict__ pb_g,
           (is_el && ptot < pe_crit) ? gamma_e_crit : gamma_pf;
       const float gyro_period = two_pi * g_eff * mc * gden;
 
-      // acctime (downstream only), pcut save-out
+      // acctime (downstream only), tcuts, pcut save-out
       const bool adding = do_b3 && dwf;
       if (adding) acct = acct + (double)(tstep * gef);
+      bool fire = false;
+      int fire_slot = 0;
+      if (do_tcuts && adding && tcut < n_tc && acct >= tc_g[tcut]) {
+        fire = true;
+        fire_slot = clampi(tcut, 0, n_tc - 1);
+        tcut = tcut + 1;
+      }
       if (adding && ptot > pcut) {
         status = SAVED;
         if (x >= prp) prp = x * 1.1;
@@ -332,8 +428,8 @@ mega_step_kernel(float* __restrict__ w_g, float* __restrict__ pb_g,
               gsf * (pb_m * tstep / (gamma_pf * m) + ux * tstep);
           const double x_try = x_old + (double)dx;
           const bool cross_up = (x_try <= 0.0) && (x_old > 0.0) && !injf &&
-                                (inj_frac < 1.0f);
-          const bool fail = u_inj[kk] > inj_frac;
+                                (dont_dsa || inj_frac < 1.0f);
+          const bool fail = dont_dsa || u_inj[kk] > inj_frac;
           const bool refl = !done && cross_up && fail;
           const bool accept = !done && !refl;
           if (accept) {
@@ -402,10 +498,8 @@ mega_step_kernel(float* __restrict__ w_g, float* __restrict__ pb_g,
         }
 
         // psd bins (get_psd_bins.jl:16-39, 73-97)
-        const float lp = logf(fmaxp(pt_sk, tiny37)) * inv_ln10 - log_pmin;
-        int ipb = (int)floorf(lp * bpd_mom) + 1;
-        if (pt_sk < psd_mom_min) ipb = 0;
-        ipb = clampi(ipb, 0, n_mom);
+        const int ipb = mom_bin(pt_sk, tiny37, inv_ln10, log_pmin, bpd_mom,
+                                psd_mom_min, n_mom);
         const float p_cos = clampf(-px_sk / fmaxp(pt_sk, tiny37), -1.0f, 1.0f);
         const int jlin = n_theta - (int)floorf((p_cos + 1.0f) / dcos);
         const float theta = acosf(p_cos);
@@ -428,6 +522,43 @@ mega_step_kernel(float* __restrict__ w_g, float* __restrict__ pb_g,
         s_px += (double)(-px_sk * w_lane * g0u0);
       }
 
+      // ion <-> electron energy transfer (particle_loop.jl:652-723)
+      if (xfer_on) {
+        const int lo_c = clampi(lo_z, 0, nb - 1);
+        const int hi_t = min(clampi(hi_z, 0, nb - 1), i_shock);
+        const bool xfer = crossed && !injf && (x_old <= 0.0) && (hi_t >= lo_c);
+        float g_f;
+        if (is_el) {
+          const float gain = (float)(rp_g[hi_t + 1] - rp_g[lo_c]) * ewf;
+          const bool takes = xfer && (gain > 0.0f);
+          g_f = takes ? gamma_pf + gain / e0 : gamma_pf;
+          if (takes) s_recv += (double)((g_f - gamma_pf) * e0 * w_lane);
+        } else {
+          const float eps_stop = et_g[hi_t];
+          const float eps_start = et_g[igc];
+          g_f = 1.0f + (gamma_pf - 1.0f) * (1.0f - eps_stop) /
+                           fmaxp(1.0f - eps_start, tiny30);
+          const bool donate = xfer && (eps_stop > 0.0f);
+          g_f = donate ? fmaxp(g_f, 1.0f) : gamma_pf;
+          if (donate) {
+            const float n_range = (float)(hi_t - lo_c + 1);
+            const float inc =
+                (gamma_pf - g_f) * e0 * w_lane / fmaxp(n_range, 1.0f);
+            atomicAdd(&pool_g[lo_c], (double)inc);
+            atomicAdd(&pool_g[hi_t + 1], -(double)inc);
+          }
+        }
+        float scale = 1.0f;
+        if (xfer && g_f != gamma_pf)
+          scale = sqrtf(fmaxp(g_f * g_f - 1.0f, 0.0f)) /
+                  fmaxp(sqrtf(fmaxp(gamma_pf * gamma_pf - 1.0f, 0.0f)),
+                        tiny30);
+        pb = pb * scale;
+        pperp = pperp * scale;
+        ptot = hyp(pb, pperp);
+        gamma_pf = hyp(ptot / mc, one);
+      }
+
       // ---- downstream logic ------------------------------------------
       bool jret_new = false;
       float v_fac;
@@ -445,7 +576,9 @@ mega_step_kernel(float* __restrict__ w_g, float* __restrict__ pb_g,
       const bool past_end = do_ret && (x >= x_stop);
       const bool just_end = past_end && (x_old < x_stop);
       if (just_end) {
-        const float r_g2 = ptot * c * inv_q / bmag2;
+        float r_g2 = ptot * c;
+        if (eps_b) r_g2 = r_g2 * sqrtf((float)(x_stop / fmax(x, x_stop)));
+        r_g2 = r_g2 * inv_q / bmag2;
         const float l_diff2 = eta3 * r_g2 * ptot / (m * gamma_pf * u2);
         prp = x + (double)(3.0f * l_diff2);
       }
@@ -460,8 +593,14 @@ mega_step_kernel(float* __restrict__ w_g, float* __restrict__ pb_g,
         if (no_ret) {
           status = FINISHED;
           reason = R_DOWNSTREAM;
+        } else if (do_retro) {
+          // enter the backward walk at the PRP
+          retro = true;
+          s_retro += 1.0;
+          phi = u[4] * two_pi;
+          x = prp;
         } else {
-          // analytic return (the do_retro=false branch)
+          // analytic return
           const float span = u2 + vt;
           const float vmu = u2 - span * sqrtf(u[3]);
           const float mu = clampf(vmu / fmaxp(vt, tiny30), -1.0f, 1.0f);
@@ -504,6 +643,57 @@ mega_step_kernel(float* __restrict__ w_g, float* __restrict__ pb_g,
         s_ke += (double)((gamma_pf - 1.0f) * e0 * w_lane);
       }
 
+      // ---- the retro walk (prob_return.jl:217-344), of every lane in
+      // retro mode now, those that entered it this step included
+      if (do_retro && retro) {
+        float b2 = b_dw;
+        if (eps_b) b2 = b2 * sqrtf((float)(x_stop / fmax(x, x_stop)));
+        const float gden_r = inv_q / b2;
+        const float ptot_r = hyp(pb, pperp);
+        const float gamma_r = hyp(ptot_r / mc, one);
+        const float t_fac = two_pi * mc * gden_r / ten;
+        const float t_step_r = t_fac * gamma_r;
+        const float dx_r = gsf_dw * (pb * t_fac / m + (-ux_dw) * t_step_r);
+        const double x_try = x + (double)dx_r;
+        acct = acct + (double)(t_step_r * gef_dw);
+        if (do_tcuts && tcut < n_tc && acct >= tc_g[tcut]) {
+          fire = true;
+          fire_slot = clampi(tcut, 0, n_tc - 1);
+          tcut = tcut + 1;
+        }
+        const float phi_las = two_pi * u[0];
+        const float mu_las = 2.0f * u[1] - 1.0f;
+        float p_new = ptot_r;
+        if (rad_on) {
+          const float b_cmb = b_cmbz * gef_dw;
+          p_new = rad_loss(rad, b2 * b2 + b_cmb * b_cmb, ptot_r, t_step_r);
+          s_rad += (double)((gamma_r - hyp(p_new / mc, one)) * e0 * w_lane);
+        }
+        const bool dead_r = p_new <= 0.0f;
+        const float pb_n = p_new * mu_las;
+        const float pperp_n = sqrtf(fmaxp(p_new * p_new - pb_n * pb_n, 0.0f));
+        const bool returned = !dead_r && (x_try < prp);
+        x = returned ? prp : x_try;
+        pb = pb_n;
+        pperp = pperp_n;
+        phi = phi_las;
+        if (dead_r) {
+          status = FINISHED;
+          reason = R_RADIATED;
+        }
+        if (returned || dead_r) retro = false;
+        if (returned) jret_new = true;
+      }
+
+      // the coupled weight and spectrum of the step's tcut crossing,
+      // binned at the lane's final momentum (tcut_track!, cuts.jl:149-162)
+      if (fire) {
+        const int ip_pf = mom_bin(hyp(pb, pperp), tiny37, inv_ln10, log_pmin,
+                                  bpd_mom, psd_mom_min, n_mom);
+        atomicAdd(&sc_g[ip_pf * n_tc + fire_slot], (double)w_lane);
+        atomicAdd(&wc_g[fire_slot], (double)w_lane);
+      }
+
       // helix cap
       nsteps = nsteps + 1;
       if (status == ACTIVE && nsteps >= max_helix) {
@@ -528,6 +718,7 @@ mega_step_kernel(float* __restrict__ w_g, float* __restrict__ pb_g,
     reason_g[i] = reason;
     nsteps_g[i] = nsteps;
     flags_g[i] = flags;
+    tcut_g[i] = tcut;
     live = status == ACTIVE ? 1 : 0;
   }
 
@@ -540,12 +731,18 @@ mega_step_kernel(float* __restrict__ w_g, float* __restrict__ pb_g,
   s_en = warp_sum(s_en);
   s_p = warp_sum(s_p);
   s_ke = warp_sum(s_ke);
+  s_retro = warp_sum(s_retro);
+  s_recv = warp_sum(s_recv);
+  s_rad = warp_sum(s_rad);
   live = warp_sum_i(live);
   if ((threadIdx.x & 31) == 0) {
     if (s_px != 0.0) atomicAdd(&esc_g[0], s_px);
     if (s_en != 0.0) atomicAdd(&esc_g[1], s_en);
     if (s_p != 0.0) atomicAdd(&esc_g[2], s_p);
     if (s_ke != 0.0) atomicAdd(&esc_g[3], s_ke);
+    if (s_retro != 0.0) atomicAdd(&cnt_g[0], s_retro);
+    if (s_recv != 0.0) atomicAdd(&cnt_g[1], s_recv);
+    if (s_rad != 0.0) atomicAdd(&cnt_g[2], s_rad);
     if (live) atomicAdd(n_active_g, live);
   }
 }
@@ -553,15 +750,17 @@ mega_step_kernel(float* __restrict__ w_g, float* __restrict__ pb_g,
 extern "C" int mcs_mega_launch(
     float* w, float* pb, float* pperp, float* phi, float* uxp, float* xnp,
     float* tstep, double* x, double* prp, double* acct, int* status,
-    int* reason, int* nsteps, int* flags, const int* key0, const int* key1,
-    const double* xg, const float* zf, const float* sf, const double* sd,
-    const int* si, float* psd, double* flux, double* esc, int* n_active,
-    int n, int n_steps, int max_helix, void* stream) {
+    int* reason, int* nsteps, int* flags, int* tcut, const int* key0,
+    const int* key1, const double* xg, const float* zf, const float* sf,
+    const double* sd, const int* si, const double* tc, const float* et,
+    const double* rp, float* psd, double* flux, double* esc, double* pool,
+    double* wc, double* sc, double* cnt, int* n_active, int n, int n_steps,
+    int max_helix, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   const int grid = (n + BLOCK - 1) / BLOCK;
   mega_step_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
       w, pb, pperp, phi, uxp, xnp, tstep, x, prp, acct, status, reason,
-      nsteps, flags, key0, key1, xg, zf, sf, sd, si, psd, flux, esc,
-      n_active, n, n_steps, max_helix);
+      nsteps, flags, tcut, key0, key1, xg, zf, sf, sd, si, tc, et, rp, psd,
+      flux, esc, pool, wc, sc, cnt, n_active, n, n_steps, max_helix);
   return (int)cudaGetLastError();
 }

@@ -48,6 +48,11 @@ class IonFinal:
     spectra_pf: np.ndarray
     n_pushes: int
     n_trajectories: int
+    # the port's own counters (engine/run.py IonResult)
+    reason_counts: np.ndarray = None
+    retro_entries: float = 0.0
+    energy_received: float = 0.0
+    energy_radiated: float = 0.0
 
 
 @dataclass
@@ -117,7 +122,10 @@ def ion_finalize(setup: RunSetup, res: IonResult, prof, i_ion: int,
         energy_density_psd=e_dens, d2n_ef=d2n_ef, esc=res.esc, psd=psd,
         therm_psd=therm, num_crossings=res.num_crossings,
         spectra_sf=res.spectra_sf, spectra_pf=res.spectra_pf,
-        n_pushes=res.n_pushes, n_trajectories=res.n_trajectories)
+        n_pushes=res.n_pushes, n_trajectories=res.n_trajectories,
+        reason_counts=res.reason_counts, retro_entries=res.retro_entries,
+        energy_received=res.energy_received,
+        energy_radiated=res.energy_radiated)
 
 
 def run(cfg: RunConfig | str, device, out_dir: str | None = None,
@@ -155,7 +163,7 @@ def run(cfg: RunConfig | str, device, out_dir: str | None = None,
 
     for i_iter in range(cfg.n_itrs):
         log.info("iteration %d/%d", i_iter + 1, cfg.n_itrs)
-        it = engine.new_iteration_tallies()
+        it = engine.new_iteration_tallies(prof)
         ion_finals = []
         for i_ion in range(cfg.n_ions):
             with timers.phase("transport"):

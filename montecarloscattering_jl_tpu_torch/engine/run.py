@@ -17,6 +17,12 @@ engines drain a segment, chosen as the JAX package chooses them
 
 Keys are derived as the JAX package derives them, so both packages hand
 every lane the same random stream on either engine.
+
+The ion -> electron energy transfer follows the JAX package's plumbing
+(run.py:186-208, 658-669, 717-750): ``new_iteration_tallies(prof)``
+fills the electrons' heating target ``eps_target``, the ions' pool
+accumulates into ``it.energy_pool``, and a later species (the electrons)
+reads its prefix sum from the segment grids.
 """
 
 from __future__ import annotations
@@ -59,6 +65,13 @@ class IonResult:
     spectra_pf: np.ndarray
     n_pushes: int = 0
     n_trajectories: int = 0
+    # the port's own counters: FINISHED lanes by exit reason (index 1-4,
+    # stt.R_*), entries into the retro walk, energy [erg, weighted] the
+    # electrons received from the pool and radiated
+    reason_counts: np.ndarray = None
+    retro_entries: float = 0.0
+    energy_received: float = 0.0
+    energy_radiated: float = 0.0
 
 
 @dataclass
@@ -72,6 +85,13 @@ class IterationTallies:
     energy_esc_upstream: float = 0.0
     sum_p_downstream: float = 0.0
     sum_ke_downstream: float = 0.0
+    weight_coupled: np.ndarray = None    # [n_tcut_slots, n_ions]
+    spectra_coupled: np.ndarray = None   # [n_mom+1, n_tcut_slots, n_ions]
+    # ion -> electron energy pool [erg per zone], filled by ion species
+    # and consumed by electrons later in the same iteration
+    # (main_loops.jl:83-84,164)
+    energy_pool: np.ndarray = None
+    eps_target: np.ndarray = None
 
 
 @dataclass
@@ -95,22 +115,36 @@ class TransportEngine:
         if self.batch_size > 8192:
             self.batch_size = _round_up(self.batch_size, 4096)
         self.base_key = rng.key(cfg.random_seed)
+        self.n_tcut_slots = max(len(cfg.tcuts), 1)
 
     # -- per-segment input builders -----------------------------------------
 
-    def segment_grids(self, prof) -> stt.SegmentGrids:
-        dev = self.device
+    def segment_grids(self, prof, eps_target=None,
+                      recv_pool=None) -> stt.SegmentGrids:
+        """The zone fields, detector positions, tcut times (+inf padded
+        to n_tcut_slots), the electron heating target and the prefix
+        sum of the received-energy pool (run.py:186-208)."""
+        cfg, nb, dev = self.setup.cfg, self.setup.nb, self.device
         f = lambda a: torch.as_tensor(np.asarray(a, np.float64)).to(
             dev, self.p_dtype)
-        x_spec = self.setup.cfg.x_spec or [0.0]
+        d = lambda a: torch.tensor(np.asarray(a, np.float64),
+                                   dtype=stt.X_DTYPE, device=dev)
+        x_spec = cfg.x_spec or [0.0]
+        tcuts = np.full(self.n_tcut_slots, np.inf)
+        tcuts[:len(cfg.tcuts)] = cfg.tcuts
+        if eps_target is None:
+            eps_target = np.zeros(nb)
+        prefix = np.zeros(nb + 1)
+        if recv_pool is not None:
+            prefix[1:] = np.cumsum(recv_pool)
         return stt.SegmentGrids(
             x_grid=torch.as_tensor(self.setup.x_grid_cm,
                                    dtype=stt.X_DTYPE).to(dev),
             ux=f(prof.ux_sk), uz=f(prof.uz_sk), utot=f(prof.utot),
             gamma_sf=f(prof.gamma_sf), gamma_ef=f(prof.gamma_ef),
             btot=f(prof.btot), b_cos=f(np.cos(prof.theta)),
-            b_sin=f(np.sin(prof.theta)),
-            x_spec=torch.tensor(x_spec, dtype=stt.X_DTYPE, device=dev))
+            b_sin=f(np.sin(prof.theta)), x_spec=d(x_spec), tcuts=d(tcuts),
+            eps_target=f(eps_target), recv_prefix=d(prefix))
 
     def segment_scalars(self, i_ion: int, i_pcut: int, bmag2: float
                         ) -> stt.SegmentScalars:
@@ -172,7 +206,8 @@ class TransportEngine:
             mega.check_supported(ss)
         else:
             xla_step.check_supported(ss)
-        grids = self.segment_grids(prof)
+        grids = self.segment_grids(prof, eps_target=it.eps_target,
+                                   recv_pool=it.energy_pool)
         ion_key = rng.fold_in(rng.fold_in(self.base_key, i_iter), i_ion)
 
         # injected population (main_loops.jl:126-153), host rng keyed
@@ -199,7 +234,9 @@ class TransportEngine:
             p_dtype=self.p_dtype)
 
         tal = stt.make_tallies(nb, bins.n_mom, bins.n_theta, dev,
-                               n_xspec=ss.n_xspec)
+                               n_xspec=ss.n_xspec,
+                               n_tcut_slots=self.n_tcut_slots)
+        reasons = torch.zeros(5, dtype=torch.int64, device=dev)
         esc = EscapeTallies.zeros(bins.n_mom, bins.n_theta, dev)
         p_pcut_hi = pcut_hi_momentum(cfg.energy_pcut_hi, s.mass)
         pushes = 0
@@ -217,6 +254,11 @@ class TransportEngine:
                 xla_step.run_segment(
                     state, tal, xla_step.step_tables(grids, sc, ss, dev))
             finish_particles(state, esc, grids, sc, ss)
+            # exits of this segment by reason (the split leaves only
+            # ACTIVE lanes and reason-0 padding)
+            reasons += torch.bincount(
+                torch.where(state.status == stt.FINISHED, state.reason,
+                            0).long(), minlength=5)[:5]
             pushes += int(state.nsteps.sum(dtype=torch.int64))
             n_target = (cfg.n_pts_pcut if cfg.pcuts[i_pcut] < p_pcut_hi
                         else cfg.n_pts_pcut_hi)
@@ -236,6 +278,12 @@ class TransportEngine:
         it.energy_esc_upstream += float(fin.en_esc_up)
         it.sum_p_downstream += float(fin.sum_p_dw) * s.number_density
         it.sum_ke_downstream += float(fin.sum_ke_dw) * s.number_density
+        if cfg.do_tcuts:
+            it.weight_coupled[:, i_ion] += fin.weight_coupled.cpu().numpy()
+            it.spectra_coupled[:, :, i_ion] += (
+                fin.spectra_coupled.cpu().numpy())
+        if it.energy_pool is not None and not ss.is_electron:
+            it.energy_pool += fin.energy_pool.cpu().numpy()
         self.n_pushes_total += pushes
         self.n_trajectories_total += trajectories
         return IonResult(
@@ -243,12 +291,47 @@ class TransportEngine:
             num_crossings=fin.num_crossings.cpu().numpy(),
             esc=esc.to_numpy(), spectra_sf=fin.spectra_sf.cpu().numpy(),
             spectra_pf=fin.spectra_pf.cpu().numpy(), n_pushes=pushes,
-            n_trajectories=trajectories)
+            n_trajectories=trajectories,
+            reason_counts=reasons.cpu().numpy(),
+            retro_entries=float(fin.retro_entries),
+            energy_received=float(fin.energy_received),
+            energy_radiated=float(fin.energy_radiated))
 
-    def new_iteration_tallies(self) -> IterationTallies:
-        nb = self.setup.nb
-        return IterationTallies(pxx_flux=np.zeros(nb), pxz_flux=np.zeros(nb),
-                                energy_flux=np.zeros(nb))
+    def new_iteration_tallies(self, prof=None) -> IterationTallies:
+        """Zeroed per-iteration accumulators (main_loops.jl:56-87), with
+        the electrons' heating target when energy transfer is on
+        (run.py:717-733)."""
+        cfg, nb = self.setup.cfg, self.setup.nb
+        n_mom = self.setup.bins.n_mom
+        eps = np.zeros(nb)
+        if cfg.energy_transfer_frac > 0 and prof is not None:
+            eps = populate_eps_target(
+                cfg.energy_transfer_frac, cfg.u0, cfg.gamma0,
+                self.setup.u2, self.setup.gamma2, prof)
+        return IterationTallies(
+            pxx_flux=np.zeros(nb), pxz_flux=np.zeros(nb),
+            energy_flux=np.zeros(nb),
+            weight_coupled=np.zeros((self.n_tcut_slots, cfg.n_ions)),
+            spectra_coupled=np.zeros((n_mom + 1, self.n_tcut_slots,
+                                      cfg.n_ions)),
+            energy_pool=np.zeros(nb), eps_target=eps)
+
+
+def populate_eps_target(energy_transfer_frac: float, u0: float,
+                        gamma0: float, u2: float, gamma2: float,
+                        prof) -> np.ndarray:
+    """Electron energy-transfer target fraction per zone
+    (populate_eps_target!, iter_init.jl:1-15): eps ~ (z - 1) scaled so
+    the full compression reaches energy_transfer_frac (Ardaneh+ 2015)."""
+    beta0 = u0 / K.C_CGS
+    beta2 = u2 / K.C_CGS
+    z_max = gamma0 * beta0 / (gamma2 * beta2)
+    prefac = energy_transfer_frac / max(z_max - 1.0, 1e-30)
+    eps = np.zeros(len(prof.ux_sk))
+    moving = prof.ux_sk != u0
+    z_curr = gamma0 * u0 / (prof.gamma_sf * prof.ux_sk)
+    eps[moving] = prefac * (z_curr[moving] - 1.0)
+    return eps
 
 
 def pmax_cutoff(cfg: RunConfig, mass: float) -> float:

@@ -14,6 +14,12 @@ module holds:
   or the helix-cap bound on launches is reached (pallas_step.py:1650).
 * ``check_supported``: the static-flag gate of this kernel.
 
+Every static flag of the megakernel's cfg runs but the custom f(r_g)
+law: no-scatter, no-DSA, radiative losses, the retro walk, tcuts, the
+energy transfer and custom eps_B, as bits of the packed int vector
+(FLAG_*), with the tcut times, eps_target and the received-energy
+prefix as tables read by index (no bf16 splits or one-hot gathers).
+
 Arithmetic follows the megakernel: momenta, fields and segment scalars
 in float32, with one change of contract taken from the XLA engine:
 positions, PRP and acceleration time are float64 (no double-single
@@ -39,13 +45,15 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..utils.constants import C_CGS
+from ..utils.constants import C_CGS, RAD_LOSS_FAC
 from ..utils.params import (
     ALL_FLUX_SPIKE_AWAY, E_REL_PT, MAX_HELIX_STEPS)
 from . import build, rng
+from .scattering import radiation_loss
 from .transforms import hyp
-from .state import (ACTIVE, FINISHED, FL_DW, FL_INJ, FL_JRET, FL_RETRO,
-                    R_AGE, R_DOWNSTREAM, R_UPSTREAM_PMAX, SAVED,
+from .state import (ACTIVE, C_RAD, C_RECV, C_RETRO, FINISHED, FL_DW, FL_INJ,
+                    FL_JRET, FL_RETRO, N_COUNTS, R_AGE, R_DOWNSTREAM,
+                    R_RADIATED, R_UPSTREAM_PMAX, SAVED,
                     ParticleState, SegmentGrids, SegmentScalars,
                     StepStatic, Tallies, check_deferred_flags)
 
@@ -63,15 +71,25 @@ TWIN_CALLS = 0
  SF_ETA3, SF_XN_COARSE, SF_XN_FINE, SF_CMAX_COARSE, SF_CMAX_FINE,
  SF_TWO_PI, SF_PI, SF_PSD_MOM_MIN, SF_LOG_PMIN, SF_THETA_MIN,
  SF_LOG_TMIN, SF_COS_FINE, SF_DCOS, SF_INV_LN10, SF_SPIKE, SF_THREE,
- SF_ONE, SF_TINY30, SF_TINY37, SF_E_REL) = range(34)
-N_SF = 34
+ SF_ONE, SF_TINY30, SF_TINY37, SF_E_REL, SF_B_CMBZ, SF_EWF, SF_RAD,
+ SF_B_DW, SF_GSF_DW, SF_GEF_DW, SF_UX_DW, SF_TEN) = range(42)
+N_SF = 42
 # f64 scalar vector `sd`
 SD_FEB_UP, SD_FEB_DW, SD_X_STOP, SD_AGE_MAX = range(4)
 N_SD = 4
 # int vector `si`
 (SI_NB, SI_I_GRID_FEB, SI_N_MOM, SI_N_THETA, SI_BPD_MOM, SI_BPD_THETA,
- SI_IS_ELECTRON) = range(7)
-N_SI = 7
+ SI_IS_ELECTRON, SI_I_SHOCK, SI_N_TCUT, SI_FLAGS) = range(10)
+N_SI = 10
+# bits of si[SI_FLAGS]: the static flags of the megakernel's cfg
+(FLAG_DONT_SCATTER, FLAG_DONT_DSA, FLAG_RAD_LOSSES, FLAG_RETRO, FLAG_TCUTS,
+ FLAG_ENERGY_TRANSFER, FLAG_CUSTOM_EPS_B) = (1, 2, 4, 8, 16, 32, 64)
+_FLAG_NAMES = (("dont_scatter", FLAG_DONT_SCATTER),
+               ("dont_dsa", FLAG_DONT_DSA),
+               ("do_rad_losses", FLAG_RAD_LOSSES), ("do_retro", FLAG_RETRO),
+               ("do_tcuts", FLAG_TCUTS),
+               ("do_energy_transfer", FLAG_ENERGY_TRANSFER),
+               ("use_custom_eps_b", FLAG_CUSTOM_EPS_B))
 
 _N_REFLECT_TRIES = 2
 _U_BLOCK = 64          # steps of uniforms the twin draws at once
@@ -82,8 +100,8 @@ def check_supported(ss: StepStatic) -> None:
     megakernel itself rejects (megakernel_supported,
     pallas_step.py:1206-1239: oblique fields, x_spec detectors, more
     zones than the table holds; float64 momenta are the engine
-    selection's business, engine/run.py), or one with a static flag
-    whose branch this port has not written yet."""
+    selection's business, engine/run.py), or the custom f(r_g) law,
+    which this port has not written yet."""
     if not ss.parallel or ss.n_xspec != 0:
         raise NotImplementedError(
             "oblique fields and x_spec detectors run on the XLA engine "
@@ -96,13 +114,17 @@ def check_supported(ss: StepStatic) -> None:
 
 @dataclass
 class MegaTables:
-    """Device inputs of one segment: zone table and packed scalars."""
+    """Device inputs of one segment: zone and energy-transfer tables,
+    tcut times and packed scalars."""
 
     xg: torch.Tensor     # [nb] f64 boundaries
     zf: torch.Tensor     # [4, nb] f32: ux, gamma_sf, gamma_ef, btot
     sf: torch.Tensor     # [N_SF] f32
     sd: torch.Tensor     # [N_SD] f64
     si: torch.Tensor     # [N_SI] int32
+    tc: torch.Tensor     # [n_tcut_slots] f64 tcut times, +inf padded
+    et: torch.Tensor     # [nb] f32 eps_target
+    rp: torch.Tensor     # [nb+1] f64 recv_prefix
     nb: int
     i_grid_feb: int
     n_mom: int
@@ -110,18 +132,26 @@ class MegaTables:
     bins_per_dec_mom: int
     bins_per_dec_theta: int
     is_electron: bool
+    i_shock: int
+    flags: int           # FLAG_* bits
+
+    def on(self, flag: int) -> bool:
+        return bool(self.flags & flag)
 
 
 def mega_tables(grids: SegmentGrids, sc: SegmentScalars, ss: StepStatic,
                 device) -> MegaTables:
     """Pack the segment's grids and scalars the way the megakernel's
-    _mega_scf/_scvec do (pallas_step.py:1341-1369): derived scalars are
-    computed in float32 from float32 operands."""
+    _mega_scf/_scvec/_mega_prep do (pallas_step.py:1300-1369): derived
+    scalars are computed in float32 from float32 operands.  The tcut
+    times and the received-energy prefix stay float64, as the XLA
+    engine keeps them; eps_target is float32."""
     dev = torch.device(device)
     f = np.float32
     m = f(sc.m)
     c = f(C_CGS)
     eta = f(ss.eta_mfp)
+    nb = ss.nb
     sf = np.zeros(N_SF, np.float32)
     sf[SF_M] = m
     sf[SF_MC] = m * c
@@ -159,23 +189,40 @@ def mega_tables(grids: SegmentGrids, sc: SegmentScalars, ss: StepStatic,
     sf[SF_TINY30] = 1e-30
     sf[SF_TINY37] = 1e-37
     sf[SF_E_REL] = E_REL_PT
+    sf[SF_B_CMBZ] = sc.b_cmbz
+    sf[SF_EWF] = ss.electron_weight_fac
+    sf[SF_RAD] = RAD_LOSS_FAC
+    host = lambda a: float(a[nb - 2])
+    sf[SF_B_DW] = host(grids.btot)
+    sf[SF_GSF_DW] = host(grids.gamma_sf)
+    sf[SF_GEF_DW] = host(grids.gamma_ef)
+    sf[SF_UX_DW] = host(grids.ux)
+    sf[SF_TEN] = 10.0
     sd = np.array([sc.feb_up, sc.feb_dw, sc.x_grid_stop,
                    sc.age_max if sc.age_max > 0 else 3.0e38], np.float64)
-    si = np.array([ss.nb, ss.i_grid_feb, ss.n_mom, ss.n_theta,
+    flags = 0
+    for name, bit in _FLAG_NAMES:
+        if getattr(ss, name):
+            flags |= bit
+    tc = grids.tcuts.to(dev, torch.float64).contiguous()
+    si = np.array([nb, ss.i_grid_feb, ss.n_mom, ss.n_theta,
                    ss.bins_per_dec_mom, ss.bins_per_dec_theta,
-                   int(ss.is_electron)], np.int32)
-    nb = ss.nb
+                   int(ss.is_electron), ss.i_shock, tc.shape[0], flags],
+                  np.int32)
     zf = torch.stack([grids.ux[:nb], grids.gamma_sf[:nb],
                       grids.gamma_ef[:nb], grids.btot[:nb]]).to(
                           dev, torch.float32).contiguous()
     return MegaTables(
         xg=grids.x_grid[:nb].to(dev, torch.float64).contiguous(), zf=zf,
         sf=torch.from_numpy(sf).to(dev), sd=torch.from_numpy(sd).to(dev),
-        si=torch.from_numpy(si).to(dev), nb=nb, i_grid_feb=ss.i_grid_feb,
+        si=torch.from_numpy(si).to(dev), tc=tc,
+        et=grids.eps_target[:nb].to(dev, torch.float32).contiguous(),
+        rp=grids.recv_prefix[:nb + 1].to(dev, torch.float64).contiguous(),
+        nb=nb, i_grid_feb=ss.i_grid_feb,
         n_mom=ss.n_mom, n_theta=ss.n_theta,
         bins_per_dec_mom=ss.bins_per_dec_mom,
         bins_per_dec_theta=ss.bins_per_dec_theta,
-        is_electron=bool(ss.is_electron))
+        is_electron=bool(ss.is_electron), i_shock=ss.i_shock, flags=flags)
 
 
 def floor_mod(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -187,6 +234,15 @@ def floor_mod(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def _zone(xg: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Index of the last boundary <= x (int64), -1 below the grid."""
     return torch.searchsorted(xg, x.contiguous(), right=True) - 1
+
+
+def _mom_bin(p, tb: MegaTables, k):
+    """The megakernel's momentum bin (get_psd_bins.jl:16-39) in f32."""
+    lp = torch.log(torch.maximum(p, k(SF_TINY37))) * k(SF_INV_LN10) \
+        - k(SF_LOG_PMIN)
+    ipb = torch.floor(lp * float(tb.bins_per_dec_mom)).to(torch.int32) + 1
+    ipb = torch.where(p < k(SF_PSD_MOM_MIN), 0, ipb)
+    return ipb.clamp(0, tb.n_mom)
 
 
 def step_twin(st: ParticleState, tb: MegaTables, tl: Tallies,
@@ -205,29 +261,48 @@ def step_twin(st: ParticleState, tb: MegaTables, tl: Tallies,
     xn_coarse, xn_fine = k(SF_XN_COARSE), k(SF_XN_FINE)
     cmax_coarse, cmax_fine = k(SF_CMAX_COARSE), k(SF_CMAX_FINE)
     two_pi, pi = k(SF_TWO_PI), k(SF_PI)
-    psd_mom_min, log_pmin = k(SF_PSD_MOM_MIN), k(SF_LOG_PMIN)
     theta_min, log_tmin = k(SF_THETA_MIN), k(SF_LOG_TMIN)
     cos_fine, dcos, inv_ln10 = k(SF_COS_FINE), k(SF_DCOS), k(SF_INV_LN10)
     spike_away, three, one = k(SF_SPIKE), k(SF_THREE), k(SF_ONE)
     tiny30, tiny37, e_rel = k(SF_TINY30), k(SF_TINY37), k(SF_E_REL)
+    b_cmbz, ewf, rad = k(SF_B_CMBZ), k(SF_EWF), k(SF_RAD)
+    b_dw, gsf_dw, gef_dw = k(SF_B_DW), k(SF_GSF_DW), k(SF_GEF_DW)
+    ux_dw, ten = k(SF_UX_DW), k(SF_TEN)
     feb_up, feb_dw = tb.sd[SD_FEB_UP], tb.sd[SD_FEB_DW]
     x_stop, age_max = tb.sd[SD_X_STOP], tb.sd[SD_AGE_MAX]
     nb, nz = tb.nb, tb.nb + 1
     is_el = tb.is_electron
+    dont_scatter, dont_dsa = tb.on(FLAG_DONT_SCATTER), tb.on(FLAG_DONT_DSA)
+    rad_on = tb.on(FLAG_RAD_LOSSES) and is_el
+    do_retro, do_tcuts = tb.on(FLAG_RETRO), tb.on(FLAG_TCUTS)
+    xfer_on, eps_b = tb.on(FLAG_ENERGY_TRANSFER), tb.on(FLAG_CUSTOM_EPS_B)
+    n_tc = tb.tc.shape[0]
     xg = tb.xg
     zux, zgsf, zgef, zb = tb.zf[0], tb.zf[1], tb.zf[2], tb.zf[3]
     psd_flat = tl.psd_diff.view(-1)
     flux_flat = tl.flux_diff.view(-1)
-    i32 = torch.int32
+    i32, f64 = torch.int32, torch.float64
+    inf = torch.tensor(float("inf"), dtype=f64, device=st.x.device)
+
+    def decay(x):
+        """sqrt(x_stop / max(x, x_stop)), the ratio in f64, the root in
+        f32 (the custom eps_B field beyond the grid end)."""
+        return torch.sqrt((x_stop / torch.maximum(x, x_stop)).float())
+
+    def tcut_time(idx):
+        return torch.where(idx < n_tc, tb.tc[idx.clamp(0, n_tc - 1).long()],
+                           inf)
 
     w_lane = st.weight
     pb, pperp, phi = st.pb, st.pperp, st.phi
     uxp, xnp, tstep = st.ux_prev, st.xn_per, st.t_step
     prp, x, acct = st.prp_x, st.x, st.acctime
     status, reason, nsteps, flags = st.status, st.reason, st.nsteps, st.flags
+    tcut = st.tcut
 
-    # the reflection at the shock can only fire with inj_frac < 1
-    reflect = float(inj_frac) < 1.0
+    # the reflection at the shock can only fire with inj_frac < 1 or
+    # with DSA off
+    reflect = float(inj_frac) < 1.0 or dont_dsa
     nsteps0 = nsteps.clone()
     for s in range(n_steps):
         act = status == ACTIVE
@@ -253,6 +328,8 @@ def step_twin(st: ParticleState, tb: MegaTables, tl: Tallies,
         ig = _zone(xg, x)
         igc = ig.clamp(min=0)
         ux, gsf, gef, bmag = zux[igc], zgsf[igc], zgef[igc], zb[igc]
+        if eps_b:
+            bmag = torch.where(x > x_stop, b_dw * decay(x), bmag)
         gden = inv_q / bmag
 
         ptot = hyp(pb, pperp)
@@ -271,6 +348,13 @@ def step_twin(st: ParticleState, tb: MegaTables, tl: Tallies,
         ptot = hyp(pb, pperp)
         gamma_pf = hyp(ptot / mc, one)
         uxp = torch.where(do_b3, ux, uxp)
+
+        if dont_scatter:
+            # downstream escape with scattering off
+            esc_ns = do_b3 & (x > 10.0 * (pperp * c * gden))
+            status = torch.where(esc_ns, FINISHED, status)
+            reason = torch.where(esc_ns, R_DOWNSTREAM, reason)
+            do_b3 = do_b3 & ~esc_ns
 
         # pmax escape (both frames)
         px_sk0 = gsf * (pb + gamma_pf * m * ux)
@@ -292,20 +376,40 @@ def step_twin(st: ParticleState, tb: MegaTables, tl: Tallies,
         reason = torch.where(esc_age, R_AGE, reason)
         do_b3 = do_b3 & ~esc_age
 
-        # pitch-angle scattering (parallel: no phase adjustment)
-        cos_max = torch.where(xnp == xn_coarse, cmax_coarse, cmax_fine)
-        safe_pt = torch.maximum(ptot, tiny30)
-        cos_old = pb / safe_pt
-        sin_old = pperp / safe_pt
-        cos_dt = 1.0 - u[0] * (1.0 - cos_max)
-        sin_dt = torch.sqrt(torch.clamp(1.0 - cos_dt * cos_dt, min=0.0))
-        phi_sc = u[1] * two_pi - pi
-        cos_new = torch.clamp(cos_old * cos_dt
-                              + sin_old * sin_dt * torch.cos(phi_sc),
-                              -1.0, 1.0)
-        sin_new = torch.sqrt(torch.clamp(1.0 - cos_new * cos_new, min=0.0))
-        pb = torch.where(do_b3, ptot * cos_new, pb)
-        pperp = torch.where(do_b3, ptot * sin_new, pperp)
+        if rad_on:
+            # synchrotron + inverse-Compton losses
+            b_cmb = b_cmbz * gef
+            bsq = bmag * bmag + b_cmb * b_cmb
+            p_lost = radiation_loss(bsq, ptot, tstep, rad)
+            dead = do_b3 & (p_lost <= 0.0)
+            scale = torch.where(do_b3, p_lost / torch.maximum(ptot, tiny30),
+                                one)
+            pb = pb * scale
+            pperp = pperp * scale
+            ptot = hyp(pb, pperp)
+            gamma_in, gamma_pf = gamma_pf, hyp(ptot / mc, one)
+            tl.counts[C_RAD] += torch.where(
+                do_b3, (gamma_in - gamma_pf) * e0 * w_lane, 0.0).to(f64).sum()
+            status = torch.where(dead, FINISHED, status)
+            reason = torch.where(dead, R_RADIATED, reason)
+            do_b3 = do_b3 & ~dead
+
+        if not dont_scatter:
+            # pitch-angle scattering (parallel: no phase adjustment)
+            cos_max = torch.where(xnp == xn_coarse, cmax_coarse, cmax_fine)
+            safe_pt = torch.maximum(ptot, tiny30)
+            cos_old = pb / safe_pt
+            sin_old = pperp / safe_pt
+            cos_dt = 1.0 - u[0] * (1.0 - cos_max)
+            sin_dt = torch.sqrt(torch.clamp(1.0 - cos_dt * cos_dt, min=0.0))
+            phi_sc = u[1] * two_pi - pi
+            cos_new = torch.clamp(cos_old * cos_dt
+                                  + sin_old * sin_dt * torch.cos(phi_sc),
+                                  -1.0, 1.0)
+            sin_new = torch.sqrt(torch.clamp(1.0 - cos_new * cos_new,
+                                             min=0.0))
+            pb = torch.where(do_b3, ptot * cos_new, pb)
+            pperp = torch.where(do_b3, ptot * sin_new, pperp)
 
         # gyro period / t_step
         if is_el:
@@ -314,10 +418,15 @@ def step_twin(st: ParticleState, tb: MegaTables, tl: Tallies,
             g_eff = gamma_pf
         gyro_period = two_pi * g_eff * mc * gden
 
-        # acctime (downstream only), pcut save-out
+        # acctime (downstream only), tcuts, pcut save-out
         adding = do_b3 & dwf
-        acct = acct + torch.where(adding, tstep * gef, 0.0).to(
-            torch.float64)
+        acct = acct + torch.where(adding, tstep * gef, 0.0).to(f64)
+        fire = torch.zeros_like(adding)
+        fire_slot = torch.zeros_like(tcut)
+        if do_tcuts:
+            fire = adding & (acct >= tcut_time(tcut))
+            fire_slot = tcut.clamp(0, n_tc - 1)
+            tcut = torch.where(fire, tcut + 1, tcut)
         save = adding & (ptot > pcut)
         status = torch.where(save, SAVED, status)
         prp = torch.where(save & (x >= prp), x * 1.1, prp)
@@ -345,11 +454,12 @@ def step_twin(st: ParticleState, tb: MegaTables, tl: Tallies,
         for kk in range(_N_REFLECT_TRIES if reflect else 0):
             phi_try = floor_mod(phi_m + torch.div(two_pi, xnp), two_pi)
             dx = gsf * (pb_m * tstep / (gamma_pf * m) + ux * tstep)
-            x_try = x_old + dx.to(torch.float64)
-            cross_up = ((x_try <= 0.0) & (x_old > 0.0) & ~injf
-                        & (inj_frac < 1.0))
-            fail = u_inj[kk] > inj_frac
-            refl = ~done & cross_up & fail
+            x_try = x_old + dx.to(f64)
+            cross_up = (x_try <= 0.0) & (x_old > 0.0) & ~injf
+            if not dont_dsa:
+                cross_up = cross_up & (inj_frac < 1.0) & (u_inj[kk]
+                                                          > inj_frac)
+            refl = ~done & cross_up
             accept = ~done & ~refl
             dx_acc = torch.where(accept, dx, dx_acc)
             phi_fin = torch.where(accept, phi_try, phi_fin)
@@ -363,7 +473,7 @@ def step_twin(st: ParticleState, tb: MegaTables, tl: Tallies,
         phi_fin = torch.where(done, phi_fin, phi_try)
         pb = torch.where(moving, pb_m, pb)
         phi = torch.where(moving, phi_fin, phi)
-        x = x + torch.where(moving, dx_acc, 0.0).to(torch.float64)
+        x = x + torch.where(moving, dx_acc, 0.0).to(f64)
 
         first_dw = moving & (x_old < 0.0) & (x >= 0.0)
         dwf = dwf | first_dw
@@ -393,10 +503,9 @@ def step_twin(st: ParticleState, tb: MegaTables, tl: Tallies,
         lo_z = torch.where(~moved_down & injf,
                            torch.clamp(lo_z, min=tb.i_grid_feb + 1), lo_z)
         crossed = moving & (hi_z >= lo_z)
+        lo_c = lo_z.clamp(0, nb - 1)
+        hi_c = hi_z.clamp(0, nb - 1)
         if bool(crossed.any()):      # deposit only when some lane crossed
-            lo_c = lo_z.clamp(0, nb - 1)
-            hi_c = hi_z.clamp(0, nb - 1)
-
             sign = torch.where(moved_down, 1.0, -1.0).to(torch.float32)
             on = crossed.to(torch.float32)
             v_pxx = sign * px_sk * w_lane * g0u0 * on
@@ -405,11 +514,7 @@ def step_twin(st: ParticleState, tb: MegaTables, tl: Tallies,
             v_n = (crossed & ~injf).to(torch.float32)
 
             # psd bins (get_psd_bins.jl:16-39, 73-97)
-            lp = (torch.log(torch.maximum(pt_sk, tiny37)) * inv_ln10
-                  - log_pmin)
-            ipb = torch.floor(lp * float(tb.bins_per_dec_mom)).to(i32) + 1
-            ipb = torch.where(pt_sk < psd_mom_min, 0, ipb)
-            ipb = ipb.clamp(0, tb.n_mom)
+            ipb = _mom_bin(pt_sk, tb, k)
             p_cos = torch.clamp(-px_sk / torch.maximum(pt_sk, tiny37),
                                 -1.0, 1.0)
             jlin = tb.n_theta - torch.floor((p_cos + 1.0) / dcos).to(i32)
@@ -430,7 +535,7 @@ def step_twin(st: ParticleState, tb: MegaTables, tl: Tallies,
             psd_flat.index_put_(
                 (torch.cat([base + lo_c, base + hi_c + 1]),),
                 torch.cat([psd_w, -psd_w]), accumulate=True)
-            vals = torch.stack([v_pxx, v_pxz, v_en, v_n]).to(torch.float64)
+            vals = torch.stack([v_pxx, v_pxz, v_en, v_n]).to(f64)
             vals = torch.where(crossed, vals, 0.0)
             ch = (torch.arange(4, device=x.device) * nz)[:, None]
             flux_flat.index_put_(
@@ -443,9 +548,42 @@ def step_twin(st: ParticleState, tb: MegaTables, tl: Tallies,
         esc_cross = moving & injf & (x < feb_up) & (x_old >= feb_up)
         if bool(esc_cross.any()):
             tl.esc[1] += torch.where(esc_cross, e_add * g0u0, 0.0).to(
-                torch.float64).sum()
+                f64).sum()
             tl.esc[0] += torch.where(esc_cross, -px_sk * w_lane * g0u0,
-                                     0.0).to(torch.float64).sum()
+                                     0.0).to(f64).sum()
+
+        if xfer_on:
+            # ion <-> electron energy transfer (particle_loop.jl:652-723)
+            hi_t = torch.clamp(hi_c, max=tb.i_shock)
+            xfer = crossed & ~injf & (x_old <= 0.0) & (hi_t >= lo_c)
+            if is_el:
+                gain = (tb.rp[hi_t + 1] - tb.rp[lo_c]).float() * ewf
+                takes = xfer & (gain > 0.0)
+                g_f = torch.where(takes, gamma_pf + gain / e0, gamma_pf)
+                tl.counts[C_RECV] += torch.where(
+                    takes, (g_f - gamma_pf) * e0 * w_lane, 0.0).to(f64).sum()
+            else:
+                eps_stop = tb.et[hi_t]
+                eps_start = tb.et[igc]
+                g_f = 1.0 + (gamma_pf - 1.0) * (1.0 - eps_stop) \
+                    / torch.maximum(1.0 - eps_start, tiny30)
+                donate = xfer & (eps_stop > 0.0)
+                g_f = torch.where(donate, torch.clamp(g_f, min=1.0),
+                                  gamma_pf)
+                n_range = (hi_t - lo_c + 1).to(torch.float32)
+                inc = torch.where(donate, (gamma_pf - g_f) * e0 * w_lane
+                                  / torch.clamp(n_range, min=1.0), 0.0)
+                tl.pool_diff.index_put_(
+                    (torch.cat([lo_c, hi_t + 1]),),
+                    torch.cat([inc, -inc]).to(f64), accumulate=True)
+            scale = (torch.sqrt(torch.clamp(g_f * g_f - 1.0, min=0.0))
+                     / torch.maximum(torch.sqrt(torch.clamp(
+                         gamma_pf * gamma_pf - 1.0, min=0.0)), tiny30))
+            scale = torch.where(xfer & (g_f != gamma_pf), scale, one)
+            pb = pb * scale
+            pperp = pperp * scale
+            ptot = hyp(pb, pperp)
+            gamma_pf = hyp(ptot / mc, one)
 
         # ---- downstream logic -------------------------------------------
         jret_new = torch.zeros_like(jret)
@@ -461,15 +599,17 @@ def step_twin(st: ParticleState, tb: MegaTables, tl: Tallies,
 
         esc_feb_dw = moving & (feb_dw > 0.0) & (x > feb_dw)
         esc_far = (moving & ~esc_feb_dw & (x > 1.1 * prp)
-                   & (x > (6.91 * l_diff).to(torch.float64)))
+                   & (x > (6.91 * l_diff).to(f64)))
         do_ret = moving & ~esc_feb_dw & ~esc_far
 
         past_end = do_ret & (x >= x_stop)
         just_end = past_end & (x_old < x_stop)
-        r_g2 = ptot * c * inv_q / bmag2
+        r_g2 = ptot * c
+        if eps_b:
+            r_g2 = r_g2 * decay(x)
+        r_g2 = r_g2 * inv_q / bmag2
         l_diff2 = eta3 * r_g2 * ptot / (m * gamma_pf * u2)
-        prp = torch.where(just_end, x + (3.0 * l_diff2).to(torch.float64),
-                          prp)
+        prp = torch.where(just_end, x + (3.0 * l_diff2).to(f64), prp)
 
         crossed_prp = past_end & ~just_end & (x_old < prp) & (x >= prp)
         if bool(crossed_prp.any()):  # the PRP test and the return
@@ -480,18 +620,23 @@ def step_twin(st: ParticleState, tb: MegaTables, tl: Tallies,
             status = torch.where(no_ret, FINISHED, status)
             reason = torch.where(no_ret, R_DOWNSTREAM, reason)
             returns = crossed_prp & ~no_ret
-            # analytic return (the do_retro=False branch)
-            span = u2 + vt
-            vmu = u2 - span * torch.sqrt(u[3])
-            mu = torch.clamp(vmu / torch.maximum(vt, tiny30), -1.0, 1.0)
-            pb_ret = ptot * mu
-            pperp_ret = torch.sqrt(torch.clamp(ptot * ptot - pb_ret * pb_ret,
-                                               min=0.0))
-            pb = torch.where(returns, pb_ret, pb)
-            pperp = torch.where(returns, pperp_ret, pperp)
+            if do_retro:
+                # enter the backward walk at the PRP
+                retro = retro | returns
+                tl.counts[C_RETRO] += returns.sum().to(f64)
+            else:
+                # the analytic return
+                span = u2 + vt
+                vmu = u2 - span * torch.sqrt(u[3])
+                mu = torch.clamp(vmu / torch.maximum(vt, tiny30), -1.0, 1.0)
+                pb_ret = ptot * mu
+                pperp_ret = torch.sqrt(torch.clamp(
+                    ptot * ptot - pb_ret * pb_ret, min=0.0))
+                pb = torch.where(returns, pb_ret, pb)
+                pperp = torch.where(returns, pperp_ret, pperp)
+                jret_new = jret_new | returns
             phi = torch.where(returns, u[4] * two_pi, phi)
             x = torch.where(returns, prp, x)
-            jret_new = jret_new | returns
 
         if is_el:
             idle = past_end & ~just_end & ~crossed_prp
@@ -499,13 +644,13 @@ def step_twin(st: ParticleState, tb: MegaTables, tl: Tallies,
                      & (nsteps % 1000 == 0))
             r_g = ptot * c * gden
             l_d = eta3 * r_g * ptot / (m * gamma_pf * u2)
-            far = x > (2.0e3 * l_d).to(torch.float64)
+            far = x > (2.0e3 * l_d).to(f64)
             ratio = pcut_prev / torch.maximum(ptot, tiny30)
             r2 = ratio * ratio
             p5 = ratio * (r2 * r2)
             shrink = torch.where(
                 far, 0.8 * x,
-                torch.minimum(prp, x_stop + (l_d * p5).to(torch.float64)))
+                torch.minimum(prp, x_stop + (l_d * p5).to(f64)))
             prp = torch.where(check, shrink, prp)
 
         esc = esc_feb_dw | esc_far
@@ -519,9 +664,65 @@ def step_twin(st: ParticleState, tb: MegaTables, tl: Tallies,
             vel = torch.where((gamma_pf - 1.0) >= e_rel, vel / gamma_pf,
                               vel)
             tl.esc[2] += torch.where(esc_dw, ptot / three * vel * w_lane,
-                                     0.0).to(torch.float64).sum()
+                                     0.0).to(f64).sum()
             tl.esc[3] += torch.where(esc_dw, (gamma_pf - 1.0) * e0 * w_lane,
-                                     0.0).to(torch.float64).sum()
+                                     0.0).to(f64).sum()
+
+        if do_retro:
+            # ---- the retro walk (prob_return.jl:217-344), of every lane
+            # in retro mode now, those that entered it this step included
+            in_retro = act & retro
+            b2 = b_dw * decay(x) if eps_b else b_dw
+            gden_r = inv_q / b2
+            ptot_r = hyp(pb, pperp)
+            gamma_r = hyp(ptot_r / mc, one)
+            t_fac = two_pi * mc * gden_r / ten
+            t_step_r = t_fac * gamma_r
+            dx_r = gsf_dw * (pb * t_fac / m + (-ux_dw) * t_step_r)
+            x_try = x + dx_r.to(f64)
+            acct = acct + torch.where(in_retro, t_step_r * gef_dw,
+                                      0.0).to(f64)
+            if do_tcuts:
+                # tcut tracking continues during the replay
+                fire_r = in_retro & (acct >= tcut_time(tcut))
+                fire_slot = torch.where(fire_r, tcut.clamp(0, n_tc - 1),
+                                        fire_slot)
+                fire = fire | fire_r
+                tcut = torch.where(fire_r, tcut + 1, tcut)
+            phi_las = two_pi * u[0]
+            mu_las = 2.0 * u[1] - 1.0
+            p_new = ptot_r
+            if rad_on:
+                b_cmb = b_cmbz * gef_dw
+                p_new = radiation_loss(b2 * b2 + b_cmb * b_cmb, ptot_r,
+                                       t_step_r, rad)
+                tl.counts[C_RAD] += torch.where(
+                    in_retro, (gamma_r - hyp(p_new / mc, one)) * e0 * w_lane,
+                    0.0).to(f64).sum()
+            dead_r = in_retro & (p_new <= 0.0)
+            pb_n = p_new * mu_las
+            pperp_n = torch.sqrt(torch.clamp(p_new * p_new - pb_n * pb_n,
+                                             min=0.0))
+            returned = in_retro & ~dead_r & (x_try < prp)
+            x = torch.where(in_retro, torch.where(returned, prp, x_try), x)
+            pb = torch.where(in_retro, pb_n, pb)
+            pperp = torch.where(in_retro, pperp_n, pperp)
+            phi = torch.where(in_retro, phi_las, phi)
+            status = torch.where(dead_r, FINISHED, status)
+            reason = torch.where(dead_r, R_RADIATED, reason)
+            retro = retro & ~(returned | dead_r)
+            jret_new = jret_new | returned
+
+        if do_tcuts and bool(fire.any()):
+            # the coupled weight and spectrum of the step's tcut crossings,
+            # binned at the lane's final momentum (tcut_track!,
+            # cuts.jl:149-162)
+            ip_pf = _mom_bin(hyp(pb, pperp), tb, k).long()
+            wv = torch.where(fire, w_lane, 0.0).to(f64)
+            slot = fire_slot.long()
+            tl.spectra_coupled.view(-1).index_put_(
+                (ip_pf * n_tc + slot,), wv, accumulate=True)
+            tl.weight_coupled.index_put_((slot,), wv, accumulate=True)
 
         # helix cap
         nsteps = nsteps + act.to(i32)
@@ -546,6 +747,7 @@ def step_twin(st: ParticleState, tb: MegaTables, tl: Tallies,
     st.prp_x.copy_(prp)
     st.x.copy_(x)
     st.acctime.copy_(acct)
+    st.tcut.copy_(tcut)
     st.status.copy_(status)
     st.reason.copy_(reason)
     st.nsteps.copy_(nsteps)
@@ -565,7 +767,7 @@ def _lib():
     if _LIB is None:
         lib = build.library("mega_step")
         fn = lib.mcs_mega_launch
-        fn.argtypes = [ctypes.c_void_p] * 25 + [ctypes.c_int] * 3 + [
+        fn.argtypes = [ctypes.c_void_p] * 33 + [ctypes.c_int] * 3 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _LIB = lib
@@ -580,7 +782,7 @@ _STATE_SPEC = (
     ("prp_x", torch.float64), ("acctime", torch.float64),
     ("status", torch.int32), ("reason", torch.int32),
     ("nsteps", torch.int32), ("flags", torch.int32),
-    ("key0", torch.int32), ("key1", torch.int32),
+    ("tcut", torch.int32), ("key0", torch.int32), ("key1", torch.int32),
 )
 
 
@@ -595,15 +797,24 @@ def _check(st: ParticleState, tb: MegaTables, tl: Tallies) -> None:
                              f"on {dev}, got {a.dtype} {tuple(a.shape)} "
                              f"on {a.device}")
     nz = tb.nb + 1
+    n_tc = tb.tc.shape[0]
     want = (("xg", tb.xg, torch.float64, (tb.nb,)),
             ("zf", tb.zf, torch.float32, (4, tb.nb)),
             ("sf", tb.sf, torch.float32, (N_SF,)),
             ("sd", tb.sd, torch.float64, (N_SD,)),
             ("si", tb.si, torch.int32, (N_SI,)),
+            ("tc", tb.tc, torch.float64, (n_tc,)),
+            ("et", tb.et, torch.float32, (tb.nb,)),
+            ("rp", tb.rp, torch.float64, (nz,)),
             ("psd_diff", tl.psd_diff, torch.float32,
              ((tb.n_mom + 1) * 2 * (tb.n_theta + 1), nz)),
             ("flux_diff", tl.flux_diff, torch.float64, (4, nz)),
-            ("esc", tl.esc, torch.float64, (4,)))
+            ("esc", tl.esc, torch.float64, (4,)),
+            ("pool_diff", tl.pool_diff, torch.float64, (nz,)),
+            ("weight_coupled", tl.weight_coupled, torch.float64, (n_tc,)),
+            ("spectra_coupled", tl.spectra_coupled, torch.float64,
+             (tb.n_mom + 1, n_tc)),
+            ("counts", tl.counts, torch.float64, (N_COUNTS,)))
     for name, a, dt, shape in want:
         if a.dtype != dt or tuple(a.shape) != shape or a.device != dev \
                 or not a.is_contiguous():
@@ -622,9 +833,11 @@ def k1_launch(st: ParticleState, tb: MegaTables, tl: Tallies,
     n_active = torch.zeros(1, dtype=torch.int32, device=st.weight.device)
     ptr = lambda a: ctypes.c_void_p(a.data_ptr())
     args = [ptr(getattr(st, name)) for name, _ in _STATE_SPEC]
-    args += [ptr(tb.xg), ptr(tb.zf), ptr(tb.sf), ptr(tb.sd), ptr(tb.si)]
+    args += [ptr(tb.xg), ptr(tb.zf), ptr(tb.sf), ptr(tb.sd), ptr(tb.si),
+             ptr(tb.tc), ptr(tb.et), ptr(tb.rp)]
     args += [ptr(tl.psd_diff), ptr(tl.flux_diff), ptr(tl.esc),
-             ptr(n_active)]
+             ptr(tl.pool_diff), ptr(tl.weight_coupled),
+             ptr(tl.spectra_coupled), ptr(tl.counts), ptr(n_active)]
     stream = torch.cuda.current_stream(st.weight.device).cuda_stream
     err = _lib().mcs_mega_launch(*args, ctypes.c_int(n), ctypes.c_int(n_steps),
                                  ctypes.c_int(max_helix),

@@ -5,7 +5,8 @@ Counterpart of the JAX package's ops/scattering.py ``scattering``
 sphere whose largest angle is set by the mean free path lambda =
 eta * r_g, with the electron constant-MFP regime below ``pe_crit``.
 The custom f(r_g) law stays deferred (ROADMAP.md item 1): callers pass
-the fixed ``cos_max``.
+the fixed ``cos_max``.  Also ``radiation_loss``, the electrons'
+synchrotron + inverse-Compton loss of one step.
 
 The uniforms arrive as float32 (the XLA engine's stream, rng.py), and
 the scattering phase is formed in float32 before it meets the momenta,
@@ -37,11 +38,8 @@ def scattering(u1, u2, pb, pperp, ptot, gamma_pf, gyro_denom,
     momentum dtype; `cos_max` broadcasts against the lanes.  The gyro
     phase is left as it is: its Ellison+ (1990) adjustment is observable
     only in oblique fields, which are not ported (ROADMAP.md item 2)."""
-    if is_electron:
-        g_eff = torch.where(ptot < pe_crit, gamma_e_crit, gamma_pf)
-    else:
-        g_eff = gamma_pf
-    gyro_period = 2.0 * math.pi * g_eff * mc * gyro_denom
+    period = gyro_period(ptot, gamma_pf, gyro_denom, is_electron, pe_crit,
+                         gamma_e_crit, mc)
 
     # the guard in the momentum dtype: 1e-300 is 0 in float32, as the
     # reference's weakly typed constant is
@@ -60,4 +58,26 @@ def scattering(u1, u2, pb, pperp, ptot, gamma_pf, gyro_denom,
                           + sin_old * sin_dt * torch.cos(phi_scat),
                           -1.0, 1.0)
     sin_new = torch.sqrt(torch.clamp(1.0 - cos_new * cos_new, min=0.0))
-    return ScatterResult(gyro_period, ptot * cos_new, ptot * sin_new)
+    return ScatterResult(period, ptot * cos_new, ptot * sin_new)
+
+
+def gyro_period(ptot, gamma_pf, gyro_denom, is_electron: bool, pe_crit,
+                gamma_e_crit, mc):
+    """The gyro period [s], with the electrons' constant-MFP Lorentz
+    factor below ``pe_crit`` (scattering.jl:39-45)."""
+    if is_electron:
+        g_eff = torch.where(ptot < pe_crit, gamma_e_crit, gamma_pf)
+    else:
+        g_eff = gamma_pf
+    return 2.0 * math.pi * g_eff * mc * gyro_denom
+
+
+def radiation_loss(b_sq, p, dt, rad_loss_fac):
+    """Synchrotron + inverse-Compton momentum loss over one step
+    (particle_loop.jl:578-592; ops/scattering.py:92-100 of the JAX
+    package): d(ln p) = rad_loss_fac * B_eff^2 * p * dt, integrated
+    implicitly where the explicit step would overshoot.  `rad_loss_fac`
+    is constants.RAD_LOSS_FAC (a Python float or a 0-dim tensor of the
+    momentum dtype)."""
+    dlnp = rad_loss_fac * b_sq * p * dt
+    return torch.where(dlnp > 1.0e-2, p / (1.0 + dlnp), p * (1.0 - dlnp))

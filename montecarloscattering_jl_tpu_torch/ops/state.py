@@ -12,7 +12,7 @@ and acceleration time are float64 by contract; momenta are float32 on
 K1's path and float64 on the XLA engine's (ops/step.py) by default.
 The XLA engine's record buffer (``rec``, ``step_phase``) has no
 counterpart: both engines deposit every crossing straight into the full
-difference arrays.
+difference arrays, and the pool and tcut tallies likewise.
 
 ``from_jax_numpy`` / ``to_numpy`` carry state, tallies, grids and
 scalars across from the JAX package (given as NumPy arrays, the key as
@@ -37,9 +37,14 @@ FINISHED = 2   # left the system; `reason` holds the exit reason
 R_DOWNSTREAM = 1
 R_UPSTREAM_PMAX = 2
 R_AGE = 3
+R_RADIATED = 4
 
 # flag bits of the `flags` plane (pallas_step.py:107)
 FL_DW, FL_INJ, FL_RETRO, FL_JRET = 1, 2, 4, 8
+
+# slots of Tallies.counts, the port's own diagnostics
+C_RETRO, C_RECV, C_RAD = 0, 1, 2
+N_COUNTS = 3
 _FLAG_FIELDS = (("downstream", FL_DW), ("inj", FL_INJ),
                 ("retro", FL_RETRO), ("just_returned", FL_JRET))
 
@@ -176,7 +181,16 @@ class Tallies:
       thermal (kind 1) histograms on one (ip, kind, jt) cell axis;
     * esc [4] f64: px_esc_up, en_esc_up, sum_p_dw, sum_ke_dw;
     * spectra_sf, spectra_pf [n_mom+1, max(n_xspec, 1)] f64: the x_spec
-      detector spectra in the shock and plasma frames."""
+      detector spectra in the shock and plasma frames;
+    * pool_diff [nb+1] f64: the ions' donated energy [erg] in difference
+      form (do_energy_transfer);
+    * weight_coupled [n_tcut_slots] and spectra_coupled [n_mom+1,
+      n_tcut_slots] f64: the weight crossing each tcut, and its
+      plasma-frame momentum spectrum (do_tcuts);
+    * counts [N_COUNTS] f64, the port's own: entries into the retro walk
+      (C_RETRO), the energy [erg, weighted] electrons received from the
+      pool (C_RECV) and the energy they radiated (C_RAD), each lane's
+      change of gamma in its momentum dtype times m c^2 and its weight."""
 
     flux_diff: torch.Tensor
     psd_diff: torch.Tensor
@@ -184,6 +198,10 @@ class Tallies:
     n_mom: int
     spectra_sf: torch.Tensor
     spectra_pf: torch.Tensor
+    pool_diff: torch.Tensor
+    weight_coupled: torch.Tensor
+    spectra_coupled: torch.Tensor
+    counts: torch.Tensor
 
     ESC_FIELDS = ("px_esc_up", "en_esc_up", "sum_p_dw", "sum_ke_dw")
 
@@ -198,13 +216,16 @@ class Tallies:
             esc=torch.tensor([float(f[k]) for k in cls.ESC_FIELDS],
                              dtype=torch.float64, device=dev),
             n_mom=int(np.asarray(f["spectra_sf"]).shape[0]) - 1,
-            spectra_sf=f64(f["spectra_sf"]), spectra_pf=f64(f["spectra_pf"]))
+            spectra_sf=f64(f["spectra_sf"]), spectra_pf=f64(f["spectra_pf"]),
+            pool_diff=f64(f["pool_diff"]),
+            weight_coupled=f64(f["weight_coupled"]),
+            spectra_coupled=f64(f["spectra_coupled"]),
+            counts=torch.zeros(N_COUNTS, dtype=torch.float64, device=dev))
 
     def to_numpy(self) -> dict:
-        out = {"flux_diff": self.flux_diff.cpu().numpy(),
-               "psd_diff": self.psd_diff.cpu().numpy(),
-               "spectra_sf": self.spectra_sf.cpu().numpy(),
-               "spectra_pf": self.spectra_pf.cpu().numpy()}
+        out = {k: getattr(self, k).cpu().numpy()
+               for k in ("flux_diff", "psd_diff", "spectra_sf", "spectra_pf",
+                         "pool_diff", "weight_coupled", "spectra_coupled")}
         esc = self.esc.cpu().numpy()
         for i, k in enumerate(self.ESC_FIELDS):
             out[k] = esc[i]
@@ -212,7 +233,7 @@ class Tallies:
 
 
 def make_tallies(nb: int, n_mom: int, n_theta: int, device,
-                 n_xspec: int = 0) -> Tallies:
+                 n_xspec: int = 0, n_tcut_slots: int = 1) -> Tallies:
     dev = torch.device(device)
     f64 = lambda *s: torch.zeros(s, dtype=torch.float64, device=dev)
     return Tallies(
@@ -221,7 +242,11 @@ def make_tallies(nb: int, n_mom: int, n_theta: int, device,
                              dtype=torch.float32, device=dev),
         esc=f64(4), n_mom=n_mom,
         spectra_sf=f64(n_mom + 1, max(n_xspec, 1)),
-        spectra_pf=f64(n_mom + 1, max(n_xspec, 1)))
+        spectra_pf=f64(n_mom + 1, max(n_xspec, 1)),
+        pool_diff=f64(nb + 1),
+        weight_coupled=f64(max(n_tcut_slots, 1)),
+        spectra_coupled=f64(n_mom + 1, max(n_tcut_slots, 1)),
+        counts=f64(N_COUNTS))
 
 
 @dataclass
@@ -240,6 +265,12 @@ class FinalTallies:
     sum_ke_dw: torch.Tensor
     spectra_sf: torch.Tensor     # [n_mom+1, max(n_xspec, 1)]
     spectra_pf: torch.Tensor
+    weight_coupled: torch.Tensor     # [n_tcut_slots]
+    spectra_coupled: torch.Tensor    # [n_mom+1, n_tcut_slots]
+    energy_pool: torch.Tensor        # [nb]
+    retro_entries: torch.Tensor      # 0-dim
+    energy_received: torch.Tensor    # 0-dim
+    energy_radiated: torch.Tensor    # 0-dim
 
 
 def finalize_tallies(t: Tallies) -> FinalTallies:
@@ -255,14 +286,22 @@ def finalize_tallies(t: Tallies) -> FinalTallies:
         num_crossings=flux[3], psd=psd[0], therm_psd=psd[1],
         px_esc_up=t.esc[0], en_esc_up=t.esc[1],
         sum_p_dw=t.esc[2], sum_ke_dw=t.esc[3],
-        spectra_sf=t.spectra_sf, spectra_pf=t.spectra_pf)
+        spectra_sf=t.spectra_sf, spectra_pf=t.spectra_pf,
+        weight_coupled=t.weight_coupled, spectra_coupled=t.spectra_coupled,
+        energy_pool=torch.cumsum(t.pool_diff, dim=0)[:-1],
+        retro_entries=t.counts[C_RETRO], energy_received=t.counts[C_RECV],
+        energy_radiated=t.counts[C_RAD])
 
 
 @dataclass
 class SegmentGrids:
     """Per-boundary arrays (length nb) on the device: positions f64,
     fields in the momentum dtype; ``x_spec`` holds the detector
-    positions [max(n_xspec, 1)] in f64."""
+    positions [max(n_xspec, 1)] in f64, ``tcuts`` the tcut times
+    [n_tcut_slots] in f64 (padded with +inf), ``eps_target`` the
+    electron heating target [nb] in the momentum dtype and
+    ``recv_prefix`` the prefix sum of the received-energy pool [nb+1]
+    in f64 (ops/step.py:92-96 of the JAX package)."""
 
     x_grid: torch.Tensor
     ux: torch.Tensor
@@ -274,6 +313,11 @@ class SegmentGrids:
     b_cos: torch.Tensor
     b_sin: torch.Tensor
     x_spec: torch.Tensor
+    tcuts: torch.Tensor
+    eps_target: torch.Tensor
+    recv_prefix: torch.Tensor
+
+    _F64 = ("x_grid", "x_spec", "tcuts", "recv_prefix")
 
     @classmethod
     def from_jax_numpy(cls, f: dict, device="cpu",
@@ -281,7 +325,7 @@ class SegmentGrids:
         dev = torch.device(device)
         kw = {}
         for fl in fields(cls):
-            dt = X_DTYPE if fl.name in ("x_grid", "x_spec") else p_dtype
+            dt = X_DTYPE if fl.name in cls._F64 else p_dtype
             kw[fl.name] = torch.from_numpy(np.array(f[fl.name])).to(dev, dt)
         return cls(**kw)
 
@@ -363,29 +407,12 @@ class StepStatic:
         return cls(**{fl.name: getattr(ss, fl.name) for fl in fields(cls)})
 
 
-# static flags whose branches neither engine has yet, with the ROADMAP
-# item that adds them
-_DEFERRED = (
-    ("do_rad_losses", "radiative losses"),
-    ("do_retro", "the retro-time walk"),
-    ("do_tcuts", "tcut tracking"),
-    ("do_energy_transfer", "ion-electron energy transfer"),
-    ("use_custom_eps_b", "the custom eps_B field decay"),
-    ("dont_scatter", "the no-scatter switch"),
-    ("dont_dsa", "the no-DSA switch"),
-)
-_DEFERRED_ITEM = ("ROADMAP.md item 1: the deferred static flags of "
-                 "helix_step and K1 (configs/baseline.toml slice)")
-
-
 def check_deferred_flags(ss: StepStatic) -> None:
-    """Raise NotImplementedError for a static flag whose branch the port
-    has not written yet, on either transport engine."""
-    for name, what in _DEFERRED:
-        if getattr(ss, name):
-            raise NotImplementedError(
-                f"{name}: {what} is not ported yet ({_DEFERRED_ITEM})")
-    if ss.frg_rg0_cm > 0.0:
+    """Raise NotImplementedError for the one static branch neither
+    transport engine has yet: the custom f(r_g) mean-free-path law
+    (ops/step.py:333-345, pallas_step.py:432-439 of the JAX package),
+    reached by every lane that scatters when ``frg_rg0_cm > 0``."""
+    if ss.frg_rg0_cm > 0.0 and not ss.dont_scatter:
         raise NotImplementedError(
-            f"frg_rg0_cm > 0: the custom f(r_g) law is not ported yet "
-            f"({_DEFERRED_ITEM})")
+            "frg_rg0_cm > 0: the custom f(r_g) law is not ported yet "
+            "(ROADMAP.md item 1)")

@@ -1,28 +1,31 @@
 """The XLA engine's transport step and drain, in plain PyTorch.
 
 Counterpart of the JAX package's ops/step.py: ``helix_step`` (step.py:
-198-684, with ``_downstream_logic``, :902-1003) advances every lane of
-a ParticleState by one helix step as masked lane-parallel updates, and
-``run_segment`` (:724-785) repeats it until no lane is ACTIVE.  This is
-the engine of every config K1 does not run (engine/run.py): float64
-momenta -- the CLI's default -- and x_spec detectors.  The JAX package
-computes this step outside any Pallas kernel, so plain torch is its
-counterpart; the one kernel on the path is the PSD deposit, K2
-(ops/hist.py), launched once a step.
+198-684, with ``_downstream_logic``, :902-1003, and ``_retro_step``,
+:1006-1091) advances every lane of a ParticleState by one helix step as
+masked lane-parallel updates, and ``run_segment`` (:724-785) repeats it
+until no lane is ACTIVE.  This is the engine of every config K1 does not
+run (engine/run.py): float64 momenta -- the CLI's default -- and x_spec
+detectors.  The JAX package computes this step outside any Pallas
+kernel, so plain torch is its counterpart; the one kernel on the path is
+the PSD deposit, K2 (ops/hist.py), launched once a step.
 
 Branches: the parallel-field step (theta_B = 0, the only geometry the
-config admits) for K1's flag set, plus the x_spec detector spectra
-(:612-637) and the analytic PRP return (:965-982).  The deferred
-branches (radiative losses, the retro walk, tcuts, energy transfer,
-custom eps_B, f(r_g), no-scatter, no-DSA) raise through
-``check_supported``; so no lane is ever in retro mode here.
+config admits) with every static flag of the reference but the custom
+f(r_g) law (``check_supported`` raises for it): the x_spec detector
+spectra (:612-637), the custom eps_B far-field decay (:228-235,
+:937-940), the no-scatter escape (:277-281), radiative losses
+(:309-322), tcut firing with the coupled tallies (:370-387), the no-DSA
+reflection (:434-435), the ion -> electron energy transfer (:568-600),
+and the PRP return, analytic (:965-982) or by the retro walk (:956-963
+and ``_retro_step``).
 
 What differs from the JAX engine, on purpose:
 
 * Tallies are deposited every step, straight into the difference
-  arrays -- (cell, lo, hi, w) to K2, the four flux channels and the
-  detector spectra by ``index_add_`` in float64 -- with no chunked
-  record buffer and no flush.  Sums run in another order.
+  arrays -- (cell, lo, hi, w) to K2, the flux channels, detector
+  spectra, pool and tcut tallies by one float64 ``index_add_`` -- with
+  no chunked record buffer and no flush.  Sums run in another order.
 * The zone gather is an index gather and the zone lookup a
   ``searchsorted``; the JAX step's one-hot contraction and
   compare-and-sum give the same values exactly.
@@ -44,30 +47,38 @@ from dataclasses import dataclass
 import torch
 
 from ..models.psd_bins import psd_bin_angle, psd_bin_momentum
-from ..utils.constants import C_CGS
+from ..utils.constants import C_CGS, RAD_LOSS_FAC
 from ..utils.params import ALL_FLUX_SPIKE_AWAY, E_REL_PT, MAX_HELIX_STEPS
 from . import hist, rng
 from .mega import floor_mod
-from .scattering import scattering
-from .state import (ACTIVE, FINISHED, FL_DW, FL_INJ, FL_JRET, FL_RETRO,
-                    R_AGE, R_DOWNSTREAM, R_UPSTREAM_PMAX, SAVED, X_DTYPE,
-                    ParticleState, SegmentGrids, SegmentScalars,
-                    StepStatic, Tallies, check_deferred_flags)
+from .scattering import gyro_period, radiation_loss, scattering
+from .state import (ACTIVE, C_RAD, C_RECV, C_RETRO, FINISHED, FL_DW, FL_INJ,
+                    FL_JRET, FL_RETRO, R_AGE, R_DOWNSTREAM, R_RADIATED,
+                    R_UPSTREAM_PMAX, SAVED, X_DTYPE, ParticleState,
+                    SegmentGrids, SegmentScalars, StepStatic, Tallies,
+                    check_deferred_flags)
 from .transforms import (hyp, transform_p_ps_parallel,
                          transform_p_psp_parallel)
 
 SYNC_EVERY = 64    # steps between the drain's host checks for ACTIVE lanes
 
-# uniform slots (step.py:66-74)
+# uniform slots (step.py:66-74); the retro walk's large-angle scatter
+# reuses the scattering slots (retro lanes do not scatter)
 _U_SCAT1, _U_SCAT2, _U_PRET, _U_RET_MU, _U_RET_PHI = 0, 1, 2, 3, 4
+_U_RETRO_PHI, _U_RETRO_MU = 0, 1
 _U_REFL_INJ = (5, 6)
 _U_REFL_PHI = (7, 3)
 _N_REFLECT_TRIES = 2
+_XN_RETRO = 10.0   # steps per gyro period of the retro walk
+
+# the tallies one index_add_ of a step deposits into, in buffer order
+_DEPOSIT_TARGETS = ("flux_diff", "spectra_sf", "spectra_pf", "pool_diff",
+                    "weight_coupled", "spectra_coupled", "counts")
 
 
 def check_supported(ss: StepStatic) -> None:
     """Raise NotImplementedError for a config this engine does not run
-    yet: an oblique field, or a deferred static flag."""
+    yet: an oblique field, or the custom f(r_g) law."""
     if not ss.parallel:
         raise NotImplementedError(
             "oblique fields: the general frame transforms are not ported "
@@ -85,9 +96,12 @@ class StepTables:
     gamma_ef: torch.Tensor
     btot: torch.Tensor
     x_spec: torch.Tensor      # [n_xspec] f64 detector positions
+    tcuts: torch.Tensor       # [n_tcut_slots] f64, padded with +inf
+    eps_target: torch.Tensor  # [nb] momentum dtype
+    recv_prefix: torch.Tensor  # [nb+1] f64
     k: dict                   # 0-dim tensors (momentum dtype or f64)
     ss: StepStatic
-    reflect: bool             # inj_frac < 1: the shock reflection is live
+    reflect: bool             # inj_frac < 1 or no-DSA: the shock reflects
     age_cut: bool             # age_max > 0
     feb_dw_on: bool           # feb_dw > 0
 
@@ -102,13 +116,18 @@ def step_tables(grids: SegmentGrids, sc: SegmentScalars, ss: StepStatic,
     d = lambda v: torch.tensor(v, dtype=X_DTYPE, device=dev)
     m = p(sc.m)
     mc = m * C_CGS
+    nb = ss.nb
+    f = lambda a: a[:nb].to(dev, pdt).contiguous()
+    ux, gsf, gef, btot = (f(grids.ux), f(grids.gamma_sf),
+                          f(grids.gamma_ef), f(grids.btot))
     k = dict(
         m=m, mc=mc, e0=mc * C_CGS, two_m=2.0 * m, abs_charge=p(sc.abs_charge),
         qb2=p(sc.abs_charge) * p(sc.bmag2), pcut=p(sc.pcut),
         pcut_prev=p(sc.pcut_prev), pmax=p(sc.pmax_cutoff), u2=p(sc.u2),
         g0u0=p(sc.gamma0_u0), pe_crit=p(sc.pe_crit),
         gamma_e_crit=p(sc.gamma_e_crit), inj_frac=p(sc.inj_frac),
-        one=p(1.0), three=p(3.0), c=p(C_CGS), two_pi=p(2.0 * math.pi),
+        b_cmbz=p(sc.b_cmbz), one=p(1.0), three=p(3.0), ten=p(_XN_RETRO),
+        c=p(C_CGS), two_pi=p(2.0 * math.pi),
         spike=p(ALL_FLUX_SPIKE_AWAY), tiny=p(1.0e-300), tiny30=p(1.0e-30),
         cmax_coarse=p(math.cos(math.sqrt(
             12.0 * math.pi / (ss.xn_per_coarse * ss.eta_mfp)))),
@@ -116,16 +135,19 @@ def step_tables(grids: SegmentGrids, sc: SegmentScalars, ss: StepStatic,
             12.0 * math.pi / (ss.xn_per_fine * ss.eta_mfp)))),
         xn_coarse=p(ss.xn_per_coarse), xn_fine=p(ss.xn_per_fine),
         feb_up=d(sc.feb_up), feb_dw=d(sc.feb_dw), x_stop=d(sc.x_grid_stop),
-        age_max=d(sc.age_max))
-    nb = ss.nb
-    f = lambda a: a[:nb].to(dev, pdt).contiguous()
+        age_max=d(sc.age_max),
+        # the downstream-most zone, where the retro walk runs
+        ux_dw=ux[nb - 2], gsf_dw=gsf[nb - 2], gef_dw=gef[nb - 2],
+        b_dw=btot[nb - 2])
     return StepTables(
         x_grid=grids.x_grid[:nb].to(dev, X_DTYPE).contiguous(),
-        ux=f(grids.ux), gamma_sf=f(grids.gamma_sf),
-        gamma_ef=f(grids.gamma_ef), btot=f(grids.btot),
+        ux=ux, gamma_sf=gsf, gamma_ef=gef, btot=btot,
         x_spec=grids.x_spec[:ss.n_xspec].to(dev, X_DTYPE).contiguous(),
-        k=k, ss=ss, reflect=sc.inj_frac < 1.0, age_cut=sc.age_max > 0,
-        feb_dw_on=sc.feb_dw > 0.0)
+        tcuts=grids.tcuts.to(dev, X_DTYPE).contiguous(),
+        eps_target=f(grids.eps_target),
+        recv_prefix=grids.recv_prefix[:nb + 1].to(dev, X_DTYPE).contiguous(),
+        k=k, ss=ss, reflect=sc.inj_frac < 1.0 or ss.dont_dsa,
+        age_cut=sc.age_max > 0, feb_dw_on=sc.feb_dw > 0.0)
 
 
 def _zone(x_grid: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -134,12 +156,19 @@ def _zone(x_grid: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.searchsorted(x_grid, x.contiguous(), right=True) - 1
 
 
+def _custom_eps_b_decay(x: torch.Tensor, k: dict, pdt) -> torch.Tensor:
+    """sqrt(x_stop / max(x, x_stop)) in the momentum dtype: the
+    Blandford-McKee field decay beyond the grid end
+    (particle_loop.jl:206-209)."""
+    return torch.sqrt(k["x_stop"] / torch.maximum(x, k["x_stop"])).to(pdt)
+
+
 def helix_step(st: ParticleState, tl: Tallies, tb: StepTables,
                u: torch.Tensor, max_helix: int) -> None:
-    """Advance every ACTIVE lane of `st` by one helix step, in place, and
-    deposit its tallies into `tl` in place.  `u` [8, B] holds the lanes'
-    float32 uniforms of this step (rng.lane_uniforms_xla at the lanes'
-    step counts)."""
+    """Advance every ACTIVE lane of `st` by one helix (or retro) step, in
+    place, and deposit its tallies into `tl` in place.  `u` [8, B] holds
+    the lanes' float32 uniforms of this step (rng.lane_uniforms_xla at
+    the lanes' step counts)."""
     ss, k = tb.ss, tb.k
     m, mc, e0, u2 = k["m"], k["mc"], k["e0"], k["u2"]
     one, tiny = k["one"], k["tiny"]
@@ -148,18 +177,31 @@ def helix_step(st: ParticleState, tl: Tallies, tb: StepTables,
     nb, nz = ss.nb, ss.nb + 1
     pdt = st.pb.dtype
     f64 = X_DTYPE
+    deps = {}       # tally name -> [(flat index, value, on)]
+
+    def dep(name, idx, val, on):
+        deps.setdefault(name, []).append((idx.reshape(-1).long(),
+                                          val.reshape(-1).to(f64),
+                                          on.reshape(-1)))
 
     status, reason, flags = st.status, st.reason, st.flags
     weight, x_old = st.weight, st.x
     act = status == ACTIVE
+    retro_old = (flags & FL_RETRO) != 0
     dw_old = (flags & FL_DW) != 0
     inj_old = (flags & FL_INJ) != 0
-    do_b3 = act & ((flags & FL_JRET) == 0)
+    norm = act & ~retro_old
+    do_b3 = norm & ((flags & FL_JRET) == 0)
 
     # ---- zone fields (an exact index gather) -----------------------------
     ig = st.igrid.long()
     ux, gsf = tb.ux[ig], tb.gamma_sf[ig]
     gef, bmag = tb.gamma_ef[ig], tb.btot[ig]
+    if ss.use_custom_eps_b:
+        # Blandford-McKee decay beyond the grid end
+        bmag = torch.where(x_old > k["x_stop"],
+                           k["b_dw"] * _custom_eps_b_decay(x_old, k, pdt),
+                           bmag)
     gyro_denom = torch.div(one, k["abs_charge"] * bmag)
 
     pb, pperp, phi = st.pb, st.pperp, st.phi
@@ -178,6 +220,13 @@ def helix_step(st: ParticleState, tl: Tallies, tb: StepTables,
     gamma_pf = hyp(ptot / mc, one)
     ux_prev = torch.where(do_b3, ux, st.ux_prev)
 
+    if ss.dont_scatter:
+        # downstream escape with scattering off (particle_loop.jl:252-259)
+        esc_ns = do_b3 & (x_old > 10.0 * (pperp * c * gyro_denom))
+        status = torch.where(esc_ns, FINISHED, status)
+        reason = torch.where(esc_ns, R_DOWNSTREAM, reason)
+        do_b3 = do_b3 & ~esc_ns
+
     ptot_sk0, _, _ = transform_p_ps_parallel(pb, pperp, gamma_pf, ux, gsf,
                                              m, c)
     esc_pmax = do_b3 & (ptot > k["pmax"]) & (ptot_sk0 > k["pmax"])
@@ -192,30 +241,63 @@ def helix_step(st: ParticleState, tl: Tallies, tb: StepTables,
         reason = torch.where(esc_age, R_AGE, reason)
         do_b3 = do_b3 & ~esc_age
 
-    cos_max = torch.where(st.xn_per == k["xn_coarse"], k["cmax_coarse"],
-                          k["cmax_fine"])
-    res = scattering(u[_U_SCAT1], u[_U_SCAT2], pb, pperp, ptot, gamma_pf,
-                     gyro_denom, ss.is_electron, k["pe_crit"],
-                     k["gamma_e_crit"], mc, cos_max)
-    pb = torch.where(do_b3, res.pb, pb)
-    pperp = torch.where(do_b3, res.pperp, pperp)
-    gyro_period = res.gyro_period
+    if ss.do_rad_losses and ss.is_electron:
+        # synchrotron + inverse-Compton losses (particle_loop.jl:301-334)
+        b_cmb = k["b_cmbz"] * gef
+        p_lost = radiation_loss(bmag * bmag + b_cmb * b_cmb, ptot,
+                                st.t_step, RAD_LOSS_FAC)
+        dead = do_b3 & (p_lost <= 0.0)
+        scale = torch.where(do_b3, p_lost / torch.maximum(ptot, tiny), one)
+        pb = pb * scale
+        pperp = pperp * scale
+        ptot = hyp(pb, pperp)
+        gamma_in, gamma_pf = gamma_pf, hyp(ptot / mc, one)
+        dep("counts", torch.full_like(status, C_RAD),
+            (gamma_in - gamma_pf) * e0 * weight, do_b3)
+        status = torch.where(dead, FINISHED, status)
+        reason = torch.where(dead, R_RADIATED, reason)
+        do_b3 = do_b3 & ~dead
 
-    # acceleration time and pcut save-out, downstream lanes only
+    if ss.dont_scatter:
+        period = gyro_period(ptot, gamma_pf, gyro_denom, ss.is_electron,
+                             k["pe_crit"], k["gamma_e_crit"], mc)
+    else:
+        cos_max = torch.where(st.xn_per == k["xn_coarse"],
+                              k["cmax_coarse"], k["cmax_fine"])
+        res = scattering(u[_U_SCAT1], u[_U_SCAT2], pb, pperp, ptot,
+                         gamma_pf, gyro_denom, ss.is_electron,
+                         k["pe_crit"], k["gamma_e_crit"], mc, cos_max)
+        pb = torch.where(do_b3, res.pb, pb)
+        pperp = torch.where(do_b3, res.pperp, pperp)
+        period = res.gyro_period
+
+    # acceleration time, tcuts and pcut save-out, downstream lanes only
     adding = do_b3 & dw_old
     acct = st.acctime + torch.where(adding, (st.t_step * gef).to(f64), 0.0)
+    tcut = st.tcut
+    n_slots = tb.tcuts.shape[0]
+    if ss.do_tcuts:
+        # tcut_track! (cuts.jl:149-162): the weight crossing each tcut,
+        # and its plasma-frame momentum spectrum
+        slot = tcut.clamp(0, n_slots - 1).long()
+        fire = adding & (tcut < n_slots) & (acct >= tb.tcuts[slot])
+        ip_pf = psd_bin_momentum(ptot, ss.psd_mom_min, ss.bins_per_dec_mom,
+                                 ss.n_mom).long()
+        dep("weight_coupled", slot, weight, fire)
+        dep("spectra_coupled", ip_pf * n_slots + slot, weight, fire)
+        tcut = torch.where(fire, tcut + 1, tcut)
     save = adding & (ptot > k["pcut"])
     status = torch.where(save, SAVED, status)
     prp_x = torch.where(save & (x_old >= st.prp_x), x_old * 1.1, st.prp_x)
 
     r_g_tot = ptot * c * gyro_denom
-    xn_per = torch.where(act & (status == ACTIVE),
+    xn_per = torch.where(norm & (status == ACTIVE),
                          torch.where(x_old > r_g_tot, k["xn_coarse"],
                                      k["xn_fine"]), st.xn_per)
 
     # ---- Code Block 2: movement -------------------------------------------
-    moving = status == ACTIVE
-    t_step = gyro_period / xn_per
+    moving = (status == ACTIVE) & ~retro_old
+    t_step = period / xn_per
     m_gpf = gamma_pf * m
     dphi = torch.div(k["two_pi"], xn_per)
 
@@ -226,15 +308,16 @@ def helix_step(st: ParticleState, tl: Tallies, tb: StepTables,
 
     pb_m, phi_m = pb, phi
     if tb.reflect:
-        # reflection at the shock when the injection test fails
-        # (no_DSA_loop, particle_loop.jl:510-571)
+        # reflection at the shock when DSA is off or the injection test
+        # fails (no_DSA_loop, particle_loop.jl:510-571)
         done = ~moving
         x_new, phi_fin = x_old, phi
         for kk in range(_N_REFLECT_TRIES):
             phi_try, x_try = move(pb_m, phi_m)
             cross_up = (x_try <= 0.0) & (x_old > 0.0) & ~inj_old
-            refl = ~done & cross_up & (u[_U_REFL_INJ[kk]].to(pdt)
-                                       > k["inj_frac"])
+            fail = (cross_up if ss.dont_dsa else
+                    cross_up & (u[_U_REFL_INJ[kk]].to(pdt) > k["inj_frac"]))
+            refl = ~done & fail
             accept = ~done & ~refl
             x_new = torch.where(accept, x_try, x_new)
             phi_fin = torch.where(accept, phi_try, phi_fin)
@@ -290,11 +373,11 @@ def helix_step(st: ParticleState, tl: Tallies, tb: StepTables,
     vals = torch.stack([sign * px_sk * weight * g0u0 * on,
                         pz_sk.abs() * weight * g0u0 * on,
                         sign * e_add * g0u0 * on,
-                        (crossed & ~inj).to(pdt)]).to(f64)
+                        (crossed & ~inj).to(pdt)])
     ch = (torch.arange(4, device=vals.device) * nz)[:, None]
-    dep_idx = [(ch + lo_c).reshape(-1), (ch + hi_c + 1).reshape(-1)]
-    dep_val = [vals.reshape(-1), -vals.reshape(-1)]
-    dep_on = [crossed.expand(4, -1).reshape(-1)] * 2
+    on4 = crossed.expand(4, -1)
+    dep("flux_diff", ch + lo_c, vals, on4)
+    dep("flux_diff", ch + hi_c + 1, -vals, on4)
 
     ip_sk = psd_bin_momentum(pt_sk, ss.psd_mom_min, ss.bins_per_dec_mom,
                              ss.n_mom)
@@ -304,6 +387,42 @@ def helix_step(st: ParticleState, tl: Tallies, tb: StepTables,
     cell = (ip_sk * 2 + (~inj).to(torch.int32)) * (ss.n_theta + 1) + jt_sk
     hist.psd_scatter(tl.psd_diff, cell, lo_c.to(torch.int32),
                      hi_c.to(torch.int32), psd_w)
+
+    if ss.do_energy_transfer:
+        # ion -> electron energy transfer on upstream pre-injection zone
+        # crossings (particle_loop.jl:652-723): ions donate into the pool
+        # by the eps_target schedule, electrons take the pooled energy of
+        # the crossed range
+        hi_t = torch.clamp(hi_c, max=ss.i_shock)
+        xfer = (crossed & ~inj & (x_old <= 0.0) & (hi_t >= lo_c)
+                & (status == ACTIVE))
+        gamma_now = hyp(hyp(pb, pperp) / mc, one)
+        if not ss.is_electron:
+            eps_stop = tb.eps_target[hi_t.clamp(0, nb - 1)]
+            eps_start = tb.eps_target[ig]
+            g_f = 1.0 + (gamma_now - 1.0) * (1.0 - eps_stop) \
+                / torch.maximum(1.0 - eps_start, k["tiny30"])
+            donate = xfer & (eps_stop > 0.0)
+            g_f = torch.where(donate, torch.clamp(g_f, min=1.0), gamma_now)
+            n_range = (hi_t - lo_c + 1).to(pdt)
+            inc = (gamma_now - g_f) * e0 * weight / torch.clamp(n_range,
+                                                                min=1.0)
+            dep("pool_diff", lo_c.clamp(0, nb), inc, donate)
+            dep("pool_diff", (hi_t + 1).clamp(0, nb), -inc, donate)
+        else:
+            gain = (tb.recv_prefix[(hi_t + 1).clamp(0, nb)]
+                    - tb.recv_prefix[lo_c.clamp(0, nb)]).to(pdt) \
+                * ss.electron_weight_fac
+            takes = xfer & (gain > 0.0)
+            g_f = torch.where(takes, gamma_now + gain / e0, gamma_now)
+            dep("counts", torch.full_like(lo_c, C_RECV),
+                (g_f - gamma_now) * e0 * weight, takes)
+        scale = torch.sqrt(torch.clamp(g_f * g_f - 1.0, min=0.0)) \
+            / torch.maximum(torch.sqrt(torch.clamp(
+                gamma_now * gamma_now - 1.0, min=0.0)), k["tiny30"])
+        scale = torch.where(xfer & (g_f != gamma_now), scale, one)
+        pb = pb * scale
+        pperp = pperp * scale
 
     # escaping flux at the upstream FEB (all_flux.jl:153-159)
     esc_cross = (moving & inj & (x_new < k["feb_up"])
@@ -324,15 +443,11 @@ def helix_step(st: ParticleState, tl: Tallies, tb: StepTables,
         hit = moving & (((x_old < xs) & (x_new >= xs))
                         | ((x_new <= xs) & (x_old > xs)))      # [nx, B]
         det = torch.arange(ss.n_xspec, device=hit.device)[:, None]
-        n_sp = tl.spectra_sf.numel()
         nx = tl.spectra_sf.shape[1]
-        dep_idx += [(4 * nz + ip_sk.long() * nx + det).reshape(-1),
-                    (4 * nz + n_sp + ip_pf.long() * nx + det).reshape(-1)]
-        dep_val += [(weight * pt_o_px_sk).to(f64).expand_as(hit).reshape(-1),
-                    (weight * pt_o_px_pf * f_weight).to(f64).expand_as(
-                        hit).reshape(-1)]
-        dep_on += [hit.reshape(-1)] * 2
-    _deposit(tl, dep_idx, dep_val, dep_on, 4 * nz)
+        dep("spectra_sf", ip_sk.long() * nx + det,
+            (weight * pt_o_px_sk).expand_as(hit), hit)
+        dep("spectra_pf", ip_pf.long() * nx + det,
+            (weight * pt_o_px_pf * f_weight).expand_as(hit), hit)
 
     # ---- downstream escape / return (particle_loop.jl:453-495) -----------
     if ss.is_electron:
@@ -353,7 +468,12 @@ def helix_step(st: ParticleState, tl: Tallies, tb: StepTables,
     do_ret = moving & ~esc_feb_dw & ~esc_far
     past_end = do_ret & (x_new >= k["x_stop"])
     just_end = past_end & (x_old < k["x_stop"])
-    r_g2 = torch.div(ptot * c, k["qb2"])
+    # PRP three diffusion lengths on, in the downstream field
+    # (prob_return.jl:59-85)
+    r_g2 = ptot * c
+    if ss.use_custom_eps_b:
+        r_g2 = r_g2 * _custom_eps_b_decay(x_new, k, pdt)
+    r_g2 = torch.div(r_g2, k["qb2"])
     l_diff2 = (eta3 * r_g2 * ptot / (m * gamma_pf * u2)).to(f64)
     prp_x = torch.where(just_end, x_new + 3.0 * l_diff2, prp_x)
 
@@ -363,18 +483,28 @@ def helix_step(st: ParticleState, tl: Tallies, tb: StepTables,
     no_ret = crossed_prp & ((vt < u2) | (u[_U_PRET] > q_ret * q_ret))
     status = torch.where(no_ret, FINISHED, status)
     reason = torch.where(no_ret, R_DOWNSTREAM, reason)
-    # the analytic return: back on the plane with a flux-weighted inward
-    # pitch, P(mu) ~ |v mu - u2| (step.py:965-982)
     returns = crossed_prp & ~no_ret
-    vmu = u2 - (u2 + vt) * torch.sqrt(u[_U_RET_MU])
-    mu = torch.clamp(vmu / torch.maximum(vt, tiny), -1.0, 1.0)
-    pb_ret = ptot * mu
-    pperp_ret = torch.sqrt(torch.clamp(ptot * ptot - pb_ret * pb_ret,
-                                       min=0.0))
-    pb = torch.where(returns, pb_ret, pb)
-    pperp = torch.where(returns, pperp_ret, pperp)
     phi = torch.where(returns, (u[_U_RET_PHI] * 2.0 * math.pi).to(pdt), phi)
     x_new = torch.where(returns, prp_x, x_new)
+    if ss.do_retro:
+        # enter the explicit backward walk at the PRP
+        # (retro_time, prob_return.jl:249-252)
+        retro = retro_old | returns
+        just_ret = torch.zeros_like(returns)
+        dep("counts", torch.full_like(lo_c, C_RETRO), torch.ones_like(weight),
+            returns)
+    else:
+        # the analytic return: back on the plane with a flux-weighted
+        # inward pitch, P(mu) ~ |v mu - u2| (step.py:965-982)
+        vmu = u2 - (u2 + vt) * torch.sqrt(u[_U_RET_MU])
+        mu = torch.clamp(vmu / torch.maximum(vt, tiny), -1.0, 1.0)
+        pb_ret = ptot * mu
+        pperp_ret = torch.sqrt(torch.clamp(ptot * ptot - pb_ret * pb_ret,
+                                           min=0.0))
+        pb = torch.where(returns, pb_ret, pb)
+        pperp = torch.where(returns, pperp_ret, pperp)
+        retro = retro_old
+        just_ret = returns
 
     if ss.is_electron:
         # electron PRP shrink heuristics (prob_return.jl:142-164)
@@ -403,6 +533,13 @@ def helix_step(st: ParticleState, tl: Tallies, tb: StepTables,
                         0.0).to(f64).sum()
     tl.esc.add_(torch.stack([-px_up, en_up, p_dw, ke_dw]))
 
+    if ss.do_retro:
+        (status, reason, x_new, pb, pperp, phi, acct, tcut, retro,
+         just_ret) = _retro_step(act & retro_old, st, tb, u, dep, status,
+                                 reason, x_new, prp_x, pb, pperp, phi,
+                                 acct, tcut, retro, just_ret)
+    _deposit(tl, deps)
+
     # helix cap (particle_loop.jl:162-165)
     nsteps = st.nsteps + act.to(torch.int32)
     capped = (status == ACTIVE) & (nsteps >= max_helix)
@@ -418,33 +555,106 @@ def helix_step(st: ParticleState, tl: Tallies, tb: StepTables,
     st.xn_per.copy_(xn_per)
     st.prp_x.copy_(prp_x)
     st.acctime.copy_(acct)
+    st.tcut.copy_(tcut)
     st.status.copy_(status)
     st.reason.copy_(reason)
     st.nsteps.copy_(nsteps)
     st.t_step.copy_(torch.where(moving, t_step, st.t_step))
     st.flags.copy_(downstream.to(torch.int32) * FL_DW
                    | inj.to(torch.int32) * FL_INJ
-                   | (flags & FL_RETRO)
-                   | returns.to(torch.int32) * FL_JRET)
+                   | retro.to(torch.int32) * FL_RETRO
+                   | just_ret.to(torch.int32) * FL_JRET)
 
 
-def _deposit(tl: Tallies, idx, val, on, n_flux: int) -> None:
-    """One float64 index_add_ of the step's flux and detector entries
-    into a scratch buffer laid out [flux_diff | spectra_sf | spectra_pf
-    | one slot per entry], then the real part into the tallies.  An
-    entry that is off (its lane crossed nothing) goes to its own slot:
-    it adds nothing to a tally, and on a CUDA device it does not queue
-    on the atomics of the few slots the lanes share."""
-    idx, val, on = torch.cat(idx), torch.cat(val), torch.cat(on)
-    n_sp = tl.spectra_sf.numel()
-    n_real = n_flux + 2 * n_sp
+def _retro_step(in_retro, st, tb, u, dep, status, reason, x_new, prp_x,
+                pb, pperp, phi, acct, tcut, retro, just_ret):
+    """One step of the backward 'retrodictive' walk of the lanes in retro
+    mode at the step's start (retro_time, prob_return.jl:217-344;
+    ``_retro_step``, step.py:1006-1091): the reversed downstream flow of
+    the last zone, large-angle scattering, radiative losses and tcut
+    tracking, until the lane is back at its PRP."""
+    ss, k = tb.ss, tb.k
+    m = k["m"]
+    c = C_CGS
+    pdt = pb.dtype
+    x = st.x
+
+    b2 = k["b_dw"]
+    if ss.use_custom_eps_b:
+        b2 = b2 * _custom_eps_b_decay(x, k, pdt)
+    gden = torch.div(k["one"], k["abs_charge"] * b2)
+    ptot = hyp(pb, pperp)
+    gamma_pf = hyp(ptot / (m * c), k["one"])
+    t_fac = k["two_pi"] * m * c * gden / k["ten"]
+    t_step = t_fac * gamma_pf
+    dx = k["gsf_dw"] * (pb * t_fac / m + (-k["ux_dw"]) * t_step)
+    x_try = x + dx.to(X_DTYPE)
+    acct_new = acct + (t_step * k["gef_dw"]).to(X_DTYPE)
+
+    # tcut tracking continues during the replay (prob_return.jl:297-304)
+    if ss.do_tcuts:
+        n_slots = tb.tcuts.shape[0]
+        slot = tcut.clamp(0, n_slots - 1).long()
+        fire = in_retro & (tcut < n_slots) & (acct_new >= tb.tcuts[slot])
+        ip_pf = psd_bin_momentum(ptot, ss.psd_mom_min, ss.bins_per_dec_mom,
+                                 ss.n_mom).long()
+        dep("weight_coupled", slot, st.weight, fire)
+        dep("spectra_coupled", ip_pf * n_slots + slot, st.weight, fire)
+        tcut = torch.where(fire, tcut + 1, tcut)
+
+    # large-angle scattering: full randomization (prob_return.jl:306-311)
+    phi_las = (2.0 * math.pi * u[_U_RETRO_PHI]).to(pdt)
+    mu_las = 2.0 * u[_U_RETRO_MU] - 1.0
+    p_new = ptot
+    if ss.do_rad_losses and ss.is_electron:
+        b_cmb = k["b_cmbz"] * k["gef_dw"]
+        p_new = radiation_loss(b2 * b2 + b_cmb * b_cmb, ptot, t_step,
+                               RAD_LOSS_FAC)
+        dep("counts", torch.full_like(tcut, C_RAD),
+            (gamma_pf - hyp(p_new / (m * c), k["one"])) * k["e0"]
+            * st.weight, in_retro)
+    dead = in_retro & (p_new <= 0.0)
+    pb_new = (p_new * mu_las).to(pdt)
+    pperp_new = torch.sqrt(torch.clamp(p_new * p_new - pb_new * pb_new,
+                                       min=0.0))
+    returned = in_retro & ~dead & (x_try < prp_x)
+
+    x_new = torch.where(in_retro, torch.where(returned, prp_x, x_try), x_new)
+    pb = torch.where(in_retro, pb_new, pb)
+    pperp = torch.where(in_retro, pperp_new, pperp)
+    phi = torch.where(in_retro, phi_las, phi)
+    acct = torch.where(in_retro, acct_new, acct)
+    status = torch.where(dead, FINISHED, status)
+    reason = torch.where(dead, R_RADIATED, reason)
+    retro = retro & ~(returned | dead)
+    just_ret = just_ret | returned
+    return (status, reason, x_new, pb, pperp, phi, acct, tcut, retro,
+            just_ret)
+
+
+def _deposit(tl: Tallies, deps: dict) -> None:
+    """One float64 index_add_ of the step's entries into a scratch buffer
+    laid out [the tallies of _DEPOSIT_TARGETS that the step feeds | one
+    slot per entry], then each tally's part into it.  An entry that is
+    off (its lane crossed or fired nothing) goes to its own slot: it adds
+    nothing to a tally, and on a CUDA device it does not queue on the
+    atomics of the few slots the lanes share."""
+    names = [n for n in _DEPOSIT_TARGETS if n in deps]
+    offs, n_real = [], 0
+    for n in names:
+        offs.append(n_real)
+        n_real += getattr(tl, n).numel()
+    idx = torch.cat([i + o for n, o in zip(names, offs)
+                     for i, _, _ in deps[n]])
+    val = torch.cat([v for n in names for _, v, _ in deps[n]])
+    on = torch.cat([a for n in names for _, _, a in deps[n]])
     own = n_real + torch.arange(idx.shape[0], device=idx.device)
     buf = torch.zeros(n_real + idx.shape[0], dtype=torch.float64,
                       device=idx.device)
     buf.index_add_(0, torch.where(on, idx, own), torch.where(on, val, 0.0))
-    tl.flux_diff.view(-1).add_(buf[:n_flux])
-    tl.spectra_sf.view(-1).add_(buf[n_flux:n_flux + n_sp])
-    tl.spectra_pf.view(-1).add_(buf[n_flux + n_sp:n_real])
+    for n, o in zip(names, offs):
+        t = getattr(tl, n)
+        t.view(-1).add_(buf[o:o + t.numel()])
 
 
 def _block(st: ParticleState, tl: Tallies, tb: StepTables, n: int,

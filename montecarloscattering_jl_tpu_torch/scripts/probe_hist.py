@@ -17,7 +17,13 @@ beside its plain version (ops/hist.py) on the same records:
 For each it reports ms and ns/record of the kernel and of the plain
 version, the kernel's max abs error against the plain version, the
 largest entry, and both against the float64 NumPy reference
-``ref_result`` (restricted to the band for K3).
+``ref_result`` (restricted to the band for K3).  Beside them: the bound,
+the least time an H100 SXM could take (the records read once and the
+PSD read and written once, at 3.35 TB/s; its two adds a record are far
+below the compute rate), and for K2/K4 the time of one ``index_add_``
+of the records' (lo, +w) and (hi + 1, -w) entries into the flat PSD
+(the library call; K3's band filter has none, and the port never calls
+it).
 
 Usage: python -m montecarloscattering_jl_tpu_torch.scripts.probe_hist
 """
@@ -37,6 +43,8 @@ N_CELLS = 4428           # the flagship's 2 * (n_mom + 1) * (n_theta + 1)
 NZC = 102                # nb + 1
 CROSS_RATE = 0.25
 R4 = 2 ** 16             # P4's record count
+RECORD_BYTES = 16        # cell, lo, hi (int32) and w (float32)
+HBM_BYTES_S = 3.35e12    # H100 SXM
 
 
 def synth(r: int, rng: np.random.Generator):
@@ -86,7 +94,7 @@ def time_ms(fn, n: int = 20) -> float:
     return start.elapsed_time(end) / n
 
 
-def _case(dev, records, want, kernel, plain) -> dict:
+def _case(dev, records, want, kernel, plain, library: bool) -> dict:
     args = [torch.from_numpy(a).to(dev) for a in records]
     new = lambda: torch.zeros(N_CELLS, NZC, dtype=torch.float32,
                               device=dev)
@@ -98,7 +106,17 @@ def _case(dev, records, want, kernel, plain) -> dict:
     n = len(records[0])
     ms = time_ms(lambda: kernel(psd, *args))
     plain_ms = time_ms(lambda: plain(psd, *args))
-    return dict(records=n, ms=ms, plain_ms=plain_ms,
+    library_ms = None
+    if library:
+        cell, lo, hi, w = args
+        base = cell.long() * NZC
+        idx = torch.cat([base + lo.long(), base + hi.long() + 1])
+        vals = torch.cat([w, -w])
+        flat = psd.view(-1)
+        library_ms = time_ms(lambda: flat.index_add_(0, idx, vals))
+    bound_ms = (n * RECORD_BYTES + 2 * psd.numel() * 4) / HBM_BYTES_S * 1e3
+    return dict(records=n, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by="bytes",
                 ns_per_record=ms * 1e6 / n,
                 plain_ns_per_record=plain_ms * 1e6 / n,
                 max_abs_err=float((got - ref).abs().max()),
@@ -119,27 +137,31 @@ def run(device) -> dict:
     path = synth(69_632, rng)
     cases = {
         "K2 (69,632 records)": (path, ref_result(*path), hist.psd_scatter,
-                                hist.psd_scatter_plain),
+                                hist.psd_scatter_plain, True),
         "K2 (2^21 records)": (recs, ref_result(*recs), hist.psd_scatter,
-                              hist.psd_scatter_plain)}
+                              hist.psd_scatter_plain, True)}
     for band in (1024, 2048):
         cases[f"K3 band={band}"] = (
             recs, band_ref(*recs, band),
             lambda p, *a, _b=band: hist.psd_scatter_band(p, *a, _b),
-            lambda p, *a, _b=band: hist.psd_scatter_band_plain(p, *a, _b))
+            lambda p, *a, _b=band: hist.psd_scatter_band_plain(p, *a, _b),
+            False)
     cases["K4 = K2 (2^16 records)"] = (recs4, ref_result(*recs4),
                                         hist.psd_scatter,
-                                        hist.psd_scatter_plain)
+                                        hist.psd_scatter_plain, True)
     out = {}
-    for name, (records, want, kernel, plain) in cases.items():
-        r = out[name] = _case(dev, records, want, kernel, plain)
+    for name, (records, want, kernel, plain, lib) in cases.items():
+        r = out[name] = _case(dev, records, want, kernel, plain, lib)
+        lib_txt = ("none" if r["library_ms"] is None
+                   else f"{r['library_ms']:8.4f} ms")
         print(f"{name:24s} kernel {r['ms']:8.4f} ms "
               f"({r['ns_per_record']:6.3f} ns/record), plain "
               f"{r['plain_ms']:8.4f} ms ({r['plain_ns_per_record']:6.3f} "
               f"ns/record); kernel vs plain max abs err "
               f"{r['max_abs_err']:.3e} (max |psd| {r['max_abs_psd']:.3e}); "
               f"max rel err vs f64: kernel {r['rel_err_f64']:.2e}, plain "
-              f"{r['plain_rel_err_f64']:.2e}")
+              f"{r['plain_rel_err_f64']:.2e}; bound {r['bound_ms']:.4f} ms "
+              f"(bytes); index_add_ {lib_txt}")
     return out
 
 

@@ -65,10 +65,9 @@ def _one_thread():
 @pytest.fixture(scope="module", params=["ion", "electron"])
 def horizon(request):
     """The electron case flips only the species flag of the same
-    population (no shipped config runs electrons without radiative
-    losses, which K1 does not have yet): it covers the electron
-    branches of the step (the effective gyro factor, the diffusion
-    length and the PRP shrink)."""
+    population: it covers the electron branches of the step (the
+    effective gyro factor, the diffusion length and the PRP shrink);
+    the static-flag branches are held in tests/test_torch_mega_flags.py."""
     import __graft_entry__ as ge
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(ps, "MAX_HELIX_STEPS", H)
@@ -212,23 +211,43 @@ def test_drain_spectrum_shape(drains):
 # the static-flag gate and the wrapper's checks
 # ---------------------------------------------------------------------------
 
-def _static():
-    import __graft_entry__ as ge
-    _, _, _, _, _, ss = ge._build(batch=128, p_dtype=jnp.float32)
-    return tst.StepStatic.from_jax(ss)
+_PORTED_FLAGS = ("do_rad_losses", "do_retro", "do_tcuts",
+                 "do_energy_transfer", "use_custom_eps_b", "dont_scatter",
+                 "dont_dsa")
 
 
-@pytest.mark.parametrize("flag", ["do_rad_losses", "do_retro", "do_tcuts",
-                                  "do_energy_transfer", "use_custom_eps_b",
-                                  "dont_scatter", "dont_dsa", "frg_rg0_cm",
-                                  "n_xspec", "parallel", "nb"])
+@pytest.mark.parametrize("flag", list(_PORTED_FLAGS) + [
+    "frg_rg0_cm", "n_xspec", "parallel", "nb"])
 def test_gate_raises_on_deferred_flags(flag):
-    ss = _static()
+    """The gate raises for what K1 does not run: the custom f(r_g) law
+    (not ported yet), x_spec detectors and oblique fields (the XLA
+    engine's), a zone table beyond ZMAX.  The seven static flags it
+    once raised for run: the gate admits each, as the JAX megakernel's
+    gate does, the flag reaches K1's tables as the bit of the static
+    config the megakernel compiles with, and a 4-step launch of the
+    twin with it on runs to a finite state."""
+    import __graft_entry__ as ge
+    _, state, tal, grids, sc, ss_j = ge._build(batch=128,
+                                                p_dtype=jnp.float32)
+    ss = tst.StepStatic.from_jax(ss_j)
     mega.check_supported(ss)
-    value = {"frg_rg0_cm": 1.0e10, "n_xspec": 2, "parallel": False,
-             "nb": mega.ZMAX}.get(flag, True)
-    with pytest.raises(NotImplementedError):
-        mega.check_supported(dataclasses.replace(ss, **{flag: value}))
+    if flag not in _PORTED_FLAGS:
+        value = {"frg_rg0_cm": 1.0e10, "n_xspec": 2, "parallel": False,
+                 "nb": mega.ZMAX}[flag]
+        with pytest.raises(NotImplementedError):
+            mega.check_supported(dataclasses.replace(ss, **{flag: value}))
+        return
+    ss_j = dataclasses.replace(ss_j, **{flag: True})
+    assert ps.megakernel_supported(ss_j, jnp.float32, jnp.float32)
+    assert ps._static_cfg(ss_j, n_tcut_slots=1)[flag]
+    st, tl, tb = _port_inputs(state, tal, grids, sc, ss_j)
+    mega.check_supported(tst.StepStatic.from_jax(ss_j))
+    bit = dict(mega._FLAG_NAMES)[flag]
+    assert tb.flags == bit and int(tb.si[mega.SI_FLAGS]) == bit
+    mega.launch(st, tb, tl, n_steps=4, max_helix=100)
+    assert int(st.nsteps.sum()) > 0
+    for name in ("pb", "pperp", "x", "acctime"):
+        assert torch.isfinite(getattr(st, name)).all(), name
 
 
 def test_wrapper_rejects_bad_inputs():

@@ -283,9 +283,34 @@ def test_drain_independent_of_sync_interval():
     ("dont_scatter", True), ("dont_dsa", True), ("frg_rg0_cm", 1.0e10),
     ("parallel", False)])
 def test_gate_raises_on_deferred_flags(flag, value):
-    _, _, _, _, ss = _build(0, lanes=128)
+    """The gate raises for what the engine does not run: the custom
+    f(r_g) law (not ported yet) and oblique fields.  The seven static
+    flags it once raised for run: with each on, two steps of 128
+    flagship lanes agree with the JAX ``helix_step`` per lane (XLA's
+    cos substituted: integer fields exactly, float fields to 1e-12)."""
+    state, tal, grids, sc, ss = _build(0, lanes=128)
     ssp = tst.StepStatic.from_jax(ss)
     tstep.check_supported(ssp)
-    bad = dataclasses.replace(ssp, **{flag: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item"):
-        tstep.check_supported(bad)
+    if flag in ("frg_rg0_cm", "parallel"):
+        bad = dataclasses.replace(ssp, **{flag: value})
+        with pytest.raises(NotImplementedError, match="ROADMAP.md item"):
+            tstep.check_supported(bad)
+        return
+    ss = dataclasses.replace(ss, **{flag: value})
+    tstep.check_supported(tst.StepStatic.from_jax(ss))
+    s, t = state, tal
+    for _ in range(2):
+        s, t = _helix_jit(s, t, grids, sc, ss)
+    st, tl, tb = _port(state, tal, grids, sc, ss)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch, "cos", _xla_cos)
+        _steps(st, tl, tb, 2)
+    ref, got = _np(s), st.to_numpy()
+    for f in INT_FIELDS:
+        np.testing.assert_array_equal(got[f], ref[f], err_msg=f)
+    p_ref = np.hypot(ref["pb"], ref["pperp"])
+    for f in FLOAT_FIELDS:
+        scale = p_ref if f in ("pb", "pperp") else np.abs(ref[f])
+        np.testing.assert_array_less(np.abs(got[f] - ref[f]),
+                                     1e-12 * scale + 1e-300, err_msg=f)
+    assert int(got["nsteps"].sum()) == 2 * 128

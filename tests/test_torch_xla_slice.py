@@ -12,8 +12,9 @@ within 0.45 of -(3r/(r-1) - 2).  The output file set, mc_xspec.dat
 included, and its columns match the JAX writer's.
 
 Also here: the CLI's engine selection (float64 by default on the XLA
-engine, K1 with --f32, x_spec configs on the XLA engine, deferred flags
-raising on both), and split_on_device at float64.
+engine, K1 with --f32, x_spec configs on the XLA engine, a once-deferred
+flag running on both against the JAX driver), and split_on_device at
+float64.
 """
 
 import os
@@ -219,11 +220,78 @@ def test_cli_engine_selection(tmp_path, capsys, low_caps, args, engine,
 
 
 @pytest.mark.parametrize("p_dtype", [torch.float64, torch.float32])
-def test_deferred_flags_raise_on_both_engines(tmp_path, p_dtype):
-    cfg = load_config(_tiny_toml(tmp_path))
+def test_deferred_flags_raise_on_both_engines(tmp_path, low_caps, p_dtype):
+    """A flag both engines once refused (no-scatter) runs through the
+    driver on each engine and matches the JAX driver on the same config
+    (helix cap 128 in every engine).  Without scattering a lane's path
+    is set by its injection, which both packages draw alike: at float64
+    (the same XLA stream) push and trajectory counts agree exactly, at
+    float32 (K1's twin against the JAX XLA step at float32) the
+    trajectories exactly and the pushes to 1%.  The custom f(r_g) law
+    still raises on both."""
+    cfg_path = _tiny_toml(tmp_path)
+    cfg = load_config(cfg_path)
     cfg.dont_scatter = True
+    jcfg = jload(cfg_path)
+    jcfg.dont_scatter = True
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(stp, "MAX_HELIX_STEPS", 128)
+        _clear_jax_caches()
+        ref = jdriver.run(jcfg, p_dtype=getattr(jnp, str(p_dtype)[6:]))
+        _clear_jax_caches()
+    before = (hist.PLAIN_CALLS, mega.TWIN_CALLS)
+    got = run(cfg, "cpu", p_dtype=p_dtype)
+    plain, twin = (hist.PLAIN_CALLS - before[0], mega.TWIN_CALLS - before[1])
+    assert (twin > 0) == (p_dtype == torch.float32)
+    assert (plain > 0) == (p_dtype == torch.float64)
+    assert got.n_trajectories == ref.n_trajectories
+    if p_dtype == torch.float64:
+        assert got.n_pushes == ref.n_pushes
+    else:
+        assert got.n_pushes == pytest.approx(ref.n_pushes, rel=1e-2)
+    cfg.dont_scatter, cfg.use_custom_frg = False, True
     with pytest.raises(NotImplementedError, match="ROADMAP.md item 1"):
         run(cfg, "cpu", p_dtype=p_dtype)
+
+
+@pytest.mark.parametrize("p_dtype", [torch.float64, torch.float32])
+def test_protons_without_radiation_key(tmp_path, low_caps, p_dtype):
+    """A protons-only config that omits ``radiation-losses`` (which then
+    defaults to on, utils/config.py) runs: the radiative-loss branch is
+    reached only by electrons (ops/step.py:309 of the JAX package), so
+    the flag gates nothing here.  Against the JAX driver on the same
+    config (helix cap 128 in every engine): at float64 (the same XLA
+    stream) push and trajectory counts exactly, the flux tallies to 1e-6
+    and the PSD to 1e-5 of their largest entry, as in the slice above;
+    at float32 (K1's twin against the JAX XLA step) pushes and
+    trajectories within 15%."""
+    text = open(_tiny_toml(tmp_path)).read()
+    assert "radiation-losses = false\n" in text
+    path = tmp_path / "no_rad_key.toml"
+    path.write_text(text.replace("radiation-losses = false\n", ""))
+    cfg, jcfg = load_config(str(path)), jload(str(path))
+    assert cfg.do_rad_losses and jcfg.do_rad_losses and cfg.n_ions == 1
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(stp, "MAX_HELIX_STEPS", 128)
+        _clear_jax_caches()
+        ref = jdriver.run(jcfg, p_dtype=getattr(jnp, str(p_dtype)[6:]))
+        _clear_jax_caches()
+    got = run(cfg, "cpu", p_dtype=p_dtype)
+    if p_dtype == torch.float32:
+        assert got.n_pushes == pytest.approx(ref.n_pushes, rel=0.15)
+        assert got.n_trajectories == pytest.approx(ref.n_trajectories,
+                                                   rel=0.15)
+        return
+    assert got.n_pushes == ref.n_pushes > 0
+    assert got.n_trajectories == ref.n_trajectories
+    for field in ("pxx_flux", "pxz_flux", "energy_flux"):
+        a = np.asarray(getattr(ref.iterations[0].tallies, field))
+        b = np.asarray(getattr(got.iterations[0].tallies, field))
+        np.testing.assert_allclose(b, a, rtol=0,
+                                   atol=1e-6 * np.abs(a).max())
+    a = np.asarray(ref.iterations[0].ion_finals[0].psd, np.float64)
+    b = np.asarray(got.iterations[0].ion_finals[0].psd, np.float64)
+    np.testing.assert_allclose(b, a, rtol=0, atol=1e-5 * np.abs(a).max())
 
 
 def _np(nt):
