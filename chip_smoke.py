@@ -1,8 +1,6 @@
 """Smoke test of montecarloscattering_jl_tpu_torch on one CUDA card.
 
 Run from the root of a checkout:  python3 chip_smoke.py
-(``--phases k1,flags,hist,f32,science,electrons,f64,shipped`` runs a
-subset; every phase runs by default.)
 
 1. Prints the card (nvidia-smi name and power limit) and builds every
    kernel of the port with nvcc for sm_90a, one nvcc per source, all
@@ -43,31 +41,38 @@ subset; every phase runs by default.)
    reasons, tcut weights, pool, retro entries and radiated energy are
    printed, and the proton side must show tcut weight and retro or age
    activity.
-7. ``electrons``: examples/03_electron_synch_ic.toml with photon
-   production off and the baseline's energy-transfer fraction 0.1, at
-   float64 momenta (the XLA engine and K2), 1 iteration, cut to its
-   first 4 pcuts and a 2,000-step helix cap: the ions' pool, the
-   electrons' received and radiated energy must be positive.  Float64,
-   because a thermal proton's gamma - 1 (~2e-8) and an electron's loss
-   in a step (~1e-10 of its momentum) are below a float32 ulp.  The
-   reference removes a lane as radiated only when its momentum after
-   the loss is <= 0, which p / (1 + dlnp) never is, so the exit count
-   is printed, not required.
-8. ``f64``: drives the XLA-engine path, the JAX CLI's default: the
+7. ``electrons32``: examples/03_electron_synch_ic.toml with photon
+   production off and the baseline's energy-transfer fraction 0.1, on
+   K1 (float32), 1 iteration, every pcut at the default helix cap:
+   both species' drains launch K1 (none the twin or the XLA engine),
+   the electrons' rad-loss and receipt branches run inside it, and the
+   electron species must push and exit.
+8. ``electrons``: the same config at float64 momenta (the XLA engine
+   and K2), cut to its first 4 pcuts and a 2,000-step helix cap: the
+   ions' pool, the electrons' received and radiated energy must be
+   positive.  Float64, because a thermal proton's gamma - 1 (~2e-8) and
+   an electron's loss in a step (~1e-10 of its momentum) are below a
+   float32 ulp, so at float32 they read 0.  The reference removes a
+   lane as radiated only when its momentum after the loss is <= 0,
+   which p / (1 + dlnp) never is, so the exit count is printed, not
+   required.
+9. ``f64``: drives the XLA-engine path, the JAX CLI's default: the
    flagship config with float64 momenta and two x_spec detectors at
    -/+0.5 r_g0, 1 iteration, cut to its first 4 pcuts; checks that every
    PSD deposit went through K2 (none through its plain version, no K1
    launch), that the output files with mc_xspec.dat are written, that
    both detectors' spectra are positive, and the slope.
-9. ``shipped``: configs/baseline.toml as shipped (no-scatter, no-DSA)
-   at float64 on the XLA engine, 1 iteration: every PSD deposit through
-   K2, the coupled CSVs written, pushes and trajectories printed.
+10. ``shipped``: configs/baseline.toml as shipped (no-scatter, no-DSA)
+    at float64 on the XLA engine, 1 iteration: every PSD deposit
+    through K2, the coupled CSVs written, pushes and trajectories
+    printed.
 
 Every phase that fails raises, so the script exits non-zero; it also
 exits non-zero without a CUDA device.  The line before the last is a
 JSON summary of the kernels, the last line the device record.
 """
 
+import dataclasses
 import json
 import math
 import os
@@ -80,8 +85,6 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CFG = os.path.join(ROOT, "tests", "data", "dsa_nonrel.toml")
 BASELINE = os.path.join(ROOT, "configs", "baseline.toml")
 ELECTRONS = os.path.join(ROOT, "examples", "03_electron_synch_ic.toml")
-PHASES = ("k1", "flags", "hist", "f32", "science", "electrons", "f64",
-          "shipped")
 LANES = 65_536
 WINDOW = 64
 DRAIN_CAP = 512
@@ -222,7 +225,6 @@ def flag_population(cfg, setup, i_ion, dev, seed=0):
 
 
 def clone_state(st):
-    import dataclasses
     return dataclasses.replace(st, **{
         f.name: getattr(st, f.name).clone()
         for f in dataclasses.fields(st)})
@@ -315,6 +317,12 @@ def hold_k1(tag, tabs, st0, fresh_tal) -> dict:
         fail(f"{tag} window: {lanes['float_lanes_over_bound']} float "
              f"fields beyond {ULP_BOUND:.3g} relative")
     psd_err = float((t_k.psd_diff - t_t.psd_diff).abs().max())
+    # bytes of the tally entries the window added to, each read and
+    # written once (the entries no lane touched need no traffic)
+    touched = sum(2 * int(torch.count_nonzero(v)) * v.element_size()
+                  for v in (getattr(t_t, f.name)
+                            for f in dataclasses.fields(t_t))
+                  if isinstance(v, torch.Tensor))
     win = compare_totals(f"{tag} window", stt.finalize_tallies(t_k),
                          stt.finalize_tallies(t_t))
     print(f"{tag} window psd: max_abs_err={psd_err:.6e}; twin totals "
@@ -376,7 +384,7 @@ def hold_k1(tag, tabs, st0, fresh_tal) -> dict:
           f"({nt / dtw / 1e6:.3f} M pushes/s); twin totals "
           f"{json.dumps(drained)}")
     return dict(max_abs_err=psd_err, ms=k1_ms, plain_ms=tw_ms,
-                pushes=pushes_w, window=win, drain=drained,
+                pushes=pushes_w, tally_bytes=touched, window=win, drain=drained,
                 reasons=rk)
 
 
@@ -400,12 +408,12 @@ def kernel_vs_twin(dev) -> dict:
     b = setup.bins
     fresh_tal = lambda: stt.make_tallies(setup.nb, b.n_mom, b.n_theta, dev)
     out = hold_k1("flagship", tabs, st0, fresh_tal)
-    psd_bytes = fresh_tal().psd_diff.numel() * 4
     out["bound_ms"], out["bound_by"] = bound(
-        LANES * K1_STATE_BYTES + 2 * psd_bytes,
+        LANES * K1_STATE_BYTES + out["tally_bytes"],
         out["pushes"] * K1_OPS_PER_PUSH)
-    print(f"flagship window bound: {out['bound_ms']:.4f} ms "
-          f"({out['bound_by']})")
+    print(f"flagship window bound: {out['bound_ms']:.6f} ms "
+          f"({out['bound_by']}; {out['tally_bytes']} B of tally entries "
+          f"touched)")
     return out
 
 
@@ -604,8 +612,9 @@ def drive(cfg, dev, p_dtype, tag: str, cap: int = 0) -> tuple:
           f"{wall:.2f} s ({res.n_pushes / wall / 1e6:.2f} M pushes/s); "
           f"launches {json.dumps(counts)}; phases {json.dumps(phases)}")
     if p_dtype == torch.float32:
-        if counts["k1"] <= 0 or counts["twin"] != 0:
-            fail(f"{tag}: {counts} (every drain must launch K1)")
+        if counts["k1"] <= 0 or counts["twin"] != 0 or counts["k2"] != 0:
+            fail(f"{tag}: {counts} (every drain must launch K1, none the "
+                 f"twin or the XLA engine)")
     elif (counts["k2"] <= 0 or counts["hist_plain"] != 0
           or counts["k1"] != 0 or counts["twin"] != 0):
         fail(f"{tag}: {counts} (every deposit must launch K2, no K1)")
@@ -711,18 +720,39 @@ def science_path(dev) -> dict:
                 trajectories=res.n_trajectories, species=rows)
 
 
-def electron_path(dev) -> dict:
+def electron_variant():
     """examples/03 with photon production off and the baseline's
-    energy-transfer fraction, at float64, cut (phase electrons): the
-    ions' pool, the electrons' receipt and radiative loss on the driven
-    path."""
-    import torch
-
-    cfg = load_variant(ELECTRONS, replace=[
+    energy-transfer fraction, 1 iteration."""
+    return load_variant(ELECTRONS, replace=[
         ("calculate-photon-production = true",
          "calculate-photon-production = false"),
         ("energy-transfer-frac = 0.0", "energy-transfer-frac = 0.1")],
         n_itrs=1)
+
+
+def electron_path_f32(dev) -> dict:
+    """electron_variant on K1 at float32, every pcut, the default helix
+    cap (phase electrons32): the electron species' drains, its rad-loss
+    and receipt branches and the received-energy table built from the
+    ions' pool all run in K1; the electrons must push and exit."""
+    import torch
+
+    res, counts, wall, _ = drive(electron_variant(), dev, torch.float32,
+                                 "electrons32")
+    rows = species_report("electrons32", res)
+    e = rows[1]
+    if not (e["pushes"] > 0 and sum(e["exits"].values()) > 0):
+        fail(f"electrons32: the electrons did not push or exit: {e}")
+    return dict(counts=counts, wall=wall, species=rows)
+
+
+def electron_path(dev) -> dict:
+    """electron_variant at float64, cut to its first F64_PCUTS pcuts and
+    an ELECTRON_CAP helix cap (phase electrons): the ions' pool, the
+    electrons' receipt and radiative loss on the driven path."""
+    import torch
+
+    cfg = electron_variant()
     cfg.pcuts = cfg.pcuts[:F64_PCUTS]
     res, counts, wall, _ = drive(cfg, dev, torch.float64, "electrons",
                                  cap=ELECTRON_CAP)
@@ -751,19 +781,8 @@ def shipped_path(dev) -> dict:
                 trajectories=res.n_trajectories)
 
 
-def main(argv=None) -> int:
-    import argparse
-
+def main() -> int:
     import torch
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default=",".join(PHASES),
-                    help="comma-separated subset of " + ",".join(PHASES))
-    args = ap.parse_args(argv)
-    phases = args.phases.split(",")
-    unknown = [p for p in phases if p not in PHASES]
-    if unknown:
-        print(f"chip_smoke: unknown phases {unknown}", file=sys.stderr)
-        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -793,15 +812,15 @@ def main(argv=None) -> int:
                       ("hist", hist_phase),
                       ("f32", lambda d: main_path(d, torch.float32, 2,
                                                   False)),
-                      ("science", science_path), ("electrons", electron_path),
+                      ("science", science_path),
+                      ("electrons32", electron_path_f32),
+                      ("electrons", electron_path),
                       ("f64", lambda d: main_path(d, torch.float64, 1, True)),
                       ("shipped", shipped_path)):
-        if phase in phases:
-            t0 = time.perf_counter()
-            done[phase] = fn(dev)
-            print(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
-    if set(phases) == set(PHASES):
-        print(json.dumps({"kernels": kernel_records(done)}))
+        t0 = time.perf_counter()
+        done[phase] = fn(dev)
+        print(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"kernels": kernel_records(done)}))
     print(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -812,14 +831,15 @@ def main(argv=None) -> int:
 
 def kernel_records(done) -> list:
     """The kernels line: every kernel with its main-path launches (K1 on
-    the flagship f32 and the science paths, K2 on the f64 flagship,
+    the flagship f32, science and electrons32 paths, K2 on the f64 flagship,
     shipped and electron paths), its error against its plain version,
     its time, its plain version's, its bound and the library call's."""
     src = "montecarloscattering_jl_tpu_torch/csrc/"
     hp, k1 = done["hist"], done["k1"]
     k2, k3, k4 = (hp["K2 (69,632 records)"], hp["K3 band=2048"],
                   hp["K4 = K2 (2^16 records)"])
-    k1_launches = done["f32"]["k1"] + done["science"]["counts"]["k1"]
+    k1_launches = (done["f32"]["k1"] + done["science"]["counts"]["k1"]
+                   + done["electrons32"]["counts"]["k1"])
     k2_launches = (done["f64"]["k2"] + done["shipped"]["counts"]["k2"]
                    + done["electrons"]["counts"]["k2"])
     rec = lambda r: dict(max_abs_err=r["max_abs_err"], ms=r["ms"],

@@ -18,9 +18,11 @@ For each it reports ms and ns/record of the kernel and of the plain
 version, the kernel's max abs error against the plain version, the
 largest entry, and both against the float64 NumPy reference
 ``ref_result`` (restricted to the band for K3).  Beside them: the bound,
-the least time an H100 SXM could take (the records read once and the
-PSD read and written once, at 3.35 TB/s; its two adds a record are far
-below the compute rate), and for K2/K4 the time of one ``index_add_``
+the least time an H100 SXM could take (the records read once, and each
+PSD entry that a nonzero record -- within the band, for K3 -- adds to
+read and written once, 4 B each way, at 3.35 TB/s; the entries no
+record touches need no traffic, and the two adds a record are far below
+the compute rate), and for K2/K4 the time of one ``index_add_``
 of the records' (lo, +w) and (hi + 1, -w) entries into the flat PSD
 (the library call; K3's band filter has none, and the port never calls
 it).
@@ -75,6 +77,18 @@ def band_ref(cell, lo, hi, w, band: int) -> np.ndarray:
     return ref_result(cell, lo, hi, np.where(keep, w, np.float32(0)))
 
 
+def touched_entries(cell, lo, hi, w, band: int = 0) -> int:
+    """The distinct PSD entries the nonzero records add to (those in
+    band_ref's band when `band` is given)."""
+    keep = w != 0
+    if band:
+        blo = int(np.min(np.where(keep, cell, 2 ** 30)))
+        keep &= (cell >= blo) & (cell < blo + band)
+    base = np.asarray(cell[keep], np.int64) * NZC
+    return int(np.unique(np.concatenate([base + lo[keep],
+                                         base + hi[keep] + 1])).size)
+
+
 def max_rel_err(got: torch.Tensor, want: np.ndarray) -> float:
     g = got.double().cpu().numpy()
     return float(np.abs(g - want).max() / max(np.abs(want).max(), 1e-30))
@@ -94,7 +108,8 @@ def time_ms(fn, n: int = 20) -> float:
     return start.elapsed_time(end) / n
 
 
-def _case(dev, records, want, kernel, plain, library: bool) -> dict:
+def _case(dev, records, want, kernel, plain, library: bool,
+          touched: int) -> dict:
     args = [torch.from_numpy(a).to(dev) for a in records]
     new = lambda: torch.zeros(N_CELLS, NZC, dtype=torch.float32,
                               device=dev)
@@ -114,8 +129,8 @@ def _case(dev, records, want, kernel, plain, library: bool) -> dict:
         vals = torch.cat([w, -w])
         flat = psd.view(-1)
         library_ms = time_ms(lambda: flat.index_add_(0, idx, vals))
-    bound_ms = (n * RECORD_BYTES + 2 * psd.numel() * 4) / HBM_BYTES_S * 1e3
-    return dict(records=n, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+    bound_ms = (n * RECORD_BYTES + 2 * touched * 4) / HBM_BYTES_S * 1e3
+    return dict(records=n, touched_entries=touched, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound_ms, bound_by="bytes",
                 ns_per_record=ms * 1e6 / n,
                 plain_ns_per_record=plain_ms * 1e6 / n,
@@ -137,21 +152,25 @@ def run(device) -> dict:
     path = synth(69_632, rng)
     cases = {
         "K2 (69,632 records)": (path, ref_result(*path), hist.psd_scatter,
-                                hist.psd_scatter_plain, True),
+                                hist.psd_scatter_plain, True,
+                                touched_entries(*path)),
         "K2 (2^21 records)": (recs, ref_result(*recs), hist.psd_scatter,
-                              hist.psd_scatter_plain, True)}
+                              hist.psd_scatter_plain, True,
+                              touched_entries(*recs))}
     for band in (1024, 2048):
         cases[f"K3 band={band}"] = (
             recs, band_ref(*recs, band),
             lambda p, *a, _b=band: hist.psd_scatter_band(p, *a, _b),
             lambda p, *a, _b=band: hist.psd_scatter_band_plain(p, *a, _b),
-            False)
+            False, touched_entries(*recs, band))
     cases["K4 = K2 (2^16 records)"] = (recs4, ref_result(*recs4),
                                         hist.psd_scatter,
-                                        hist.psd_scatter_plain, True)
+                                        hist.psd_scatter_plain, True,
+                                        touched_entries(*recs4))
     out = {}
-    for name, (records, want, kernel, plain, lib) in cases.items():
-        r = out[name] = _case(dev, records, want, kernel, plain, lib)
+    for name, (records, want, kernel, plain, lib, touched) in cases.items():
+        r = out[name] = _case(dev, records, want, kernel, plain, lib,
+                              touched)
         lib_txt = ("none" if r["library_ms"] is None
                    else f"{r['library_ms']:8.4f} ms")
         print(f"{name:24s} kernel {r['ms']:8.4f} ms "
@@ -160,8 +179,9 @@ def run(device) -> dict:
               f"ns/record); kernel vs plain max abs err "
               f"{r['max_abs_err']:.3e} (max |psd| {r['max_abs_psd']:.3e}); "
               f"max rel err vs f64: kernel {r['rel_err_f64']:.2e}, plain "
-              f"{r['plain_rel_err_f64']:.2e}; bound {r['bound_ms']:.4f} ms "
-              f"(bytes); index_add_ {lib_txt}")
+              f"{r['plain_rel_err_f64']:.2e}; bound {r['bound_ms']:.6f} ms "
+              f"(bytes; {r['touched_entries']} PSD entries touched); "
+              f"index_add_ {lib_txt}")
     return out
 
 
