@@ -18,7 +18,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
    science variant (tcuts, retro walk, custom eps_B, pool donation),
    electrons (radiative loss, received energy) and protons with the
    shipped no-scatter / no-DSA switches.  Window and drain as in 2, the
-   pool, tcut and counter tallies included.
+   pool, tcut and counter tallies included.  Then the custom f(r_g)
+   mean-free-path law (alpha = 1.5, r_ref = 2 r_g0) on the science
+   protons and electrons, and a window at alpha = 1, where K1's
+   per-lane cos_max must give the standard law's lanes back: after one
+   step every float field within 16 float32 ulp, no lane divergent.
 4. ``hist``: holds K2 and K3 (ops/hist.py) against their plain versions
    on the card, through the histogram probe (scripts/probe_hist.py): K2
    at the main path's shape (one record per lane of the 69,632-lane
@@ -41,14 +45,23 @@ Run from the root of a checkout:  python3 chip_smoke.py
    reasons, tcut weights, pool, retro entries and radiated energy are
    printed, and the proton side must show tcut weight and retro or age
    activity.
-7. ``electrons32``: examples/03_electron_synch_ic.toml with photon
-   production off and the baseline's energy-transfer fraction 0.1, on
-   K1 (float32), 1 iteration, every pcut at the default helix cap:
-   both species' drains launch K1 (none the twin or the XLA engine),
-   the electrons' rad-loss and receipt branches run inside it, and the
-   electron species must push and exit.
-8. ``electrons``: the same config at float64 momenta (the XLA engine
-   and K2), cut to its first 4 pcuts and a 2,000-step helix cap: the
+7. ``electrons32``: examples/03_electron_synch_ic.toml as shipped,
+   photon production on, on K1 (float32), every pcut at the default
+   helix cap: both species' drains launch K1 (none the twin or the XLA
+   engine), the electrons' rad-loss branch runs inside it, the electron
+   species must push and exit, and the photon files are written.
+8. ``sed``: the SED flagship (scripts/flagship_sed.py of the port):
+   examples/04_hadronic_sed.toml, gamma0 = 5, protons and electrons,
+   radiative losses, 9 pcuts, photons on, 16,384 particles per pcut,
+   float32 momenta, from config to the photon files.  Every drain must
+   launch K1; the synchrotron, IC and pion shells and the total SED
+   must be non-empty; L_synch / L_IC must lie within a factor 30 of
+   U_B / U_CMB; and the emission pass on the card must agree with the
+   per-zone NumPy loop on the same reductions to rtol 1e-5 on every bin
+   above 1e-90.
+9. ``electrons``: examples/03 with photon production off and the
+   baseline's energy-transfer fraction 0.1 at float64 momenta (the XLA
+   engine and K2), cut to its first 4 pcuts and a 2,000-step helix cap: the
    ions' pool, the electrons' received and radiated energy must be
    positive.  Float64, because a thermal proton's gamma - 1 (~2e-8) and
    an electron's loss in a step (~1e-10 of its momentum) are below a
@@ -56,13 +69,13 @@ Run from the root of a checkout:  python3 chip_smoke.py
    lane as radiated only when its momentum after the loss is <= 0,
    which p / (1 + dlnp) never is, so the exit count is printed, not
    required.
-9. ``f64``: drives the XLA-engine path, the JAX CLI's default: the
+10. ``f64``: drives the XLA-engine path, the JAX CLI's default: the
    flagship config with float64 momenta and two x_spec detectors at
    -/+0.5 r_g0, 1 iteration, cut to its first 4 pcuts; checks that every
    PSD deposit went through K2 (none through its plain version, no K1
    launch), that the output files with mc_xspec.dat are written, that
    both detectors' spectra are positive, and the slope.
-10. ``shipped``: configs/baseline.toml as shipped (no-scatter, no-DSA)
+11. ``shipped``: configs/baseline.toml as shipped (no-scatter, no-DSA)
     at float64 on the XLA engine, 1 iteration: every PSD deposit
     through K2, the coupled CSVs written, pushes and trajectories
     printed.
@@ -111,6 +124,14 @@ ELECTRON_CAP = 2_000
 # radiative loss of a step exceeds a float32 ulp of the momentum
 RECV_PER_ZONE = 3.0e-7
 E_TOP = 9.0
+# the custom f(r_g) law of the frg windows: alpha and the reference
+# radius in r_g0 (tests/test_switches.py)
+FRG_ALPHA, FRG_RG0_RG = 1.5, 2.0
+# the SED flagship's particles per pcut (scripts/flagship_sed.py), and
+# the bound of the card's emission pass against the per-zone NumPy loop
+# on every bin above EMISSION_FLOOR (tests/test_device_emission.py)
+SED_PER_PCUT = 16_384
+EMISSION_RTOL, EMISSION_FLOOR = 1e-5, 1e-90
 # JAX CPU run of the shipped baseline (1 iteration, --f32, XLA engine),
 # for comparison with the port's counts
 SHIPPED_JAX_PUSHES, SHIPPED_JAX_TRAJECTORIES = 980_000, 196
@@ -294,10 +315,10 @@ def compare_totals(tag, fk, ftw) -> dict:
     return out
 
 
-def hold_k1(tag, tabs, st0, fresh_tal) -> dict:
+def hold_k1(tag, tabs, st0, fresh_tal, drain: bool = True) -> dict:
     """K1 against its twin from the same state: one WINDOW-step launch
     (per-lane fields, tally totals, both timed: plain, kernel, kernel,
-    plain), then a drain to DRAIN_CAP steps."""
+    plain), then, with `drain`, a drain to DRAIN_CAP steps."""
     import torch
 
     from montecarloscattering_jl_tpu_torch.ops import mega, state as stt
@@ -346,6 +367,10 @@ def hold_k1(tag, tabs, st0, fresh_tal) -> dict:
           f"pushes): K1 {k1a:.4f} / {k1b:.4f} ms "
           f"({pushes_w / k1_ms / 1e3:.1f} M pushes/s), twin {tw1:.2f} / "
           f"{tw2:.2f} ms ({pushes_w / tw_ms / 1e3:.3f} M pushes/s)")
+    out = dict(max_abs_err=psd_err, ms=k1_ms, plain_ms=tw_ms,
+               pushes=pushes_w, tally_bytes=touched, window=win)
+    if not drain:
+        return out
 
     # ---- a full drain (helix cap lowered) ------------------------------
     res = {}
@@ -383,9 +408,7 @@ def hold_k1(tag, tabs, st0, fresh_tal) -> dict:
           f"({nk / dk / 1e6:.2f} M pushes/s), twin {dtw:.3f} s "
           f"({nt / dtw / 1e6:.3f} M pushes/s); twin totals "
           f"{json.dumps(drained)}")
-    return dict(max_abs_err=psd_err, ms=k1_ms, plain_ms=tw_ms,
-                pushes=pushes_w, tally_bytes=touched, window=win, drain=drained,
-                reasons=rk)
+    return dict(out, drain=drained, reasons=rk)
 
 
 def kernel_vs_twin(dev) -> dict:
@@ -453,14 +476,37 @@ def science_variant(cfg) -> None:
     cfg.n_pts_pcut_hi *= SCIENCE_PTS_MULT
 
 
-FLAG_CASES = (("protons", 0, True, ("do_tcuts", "do_retro",
-                                    "use_custom_eps_b",
-                                    "do_energy_transfer")),
-              ("electrons", 1, True, ("do_rad_losses", "do_retro",
-                                      "do_tcuts", "use_custom_eps_b",
-                                      "do_energy_transfer")),
+# (tag, species, science switches, flags that must be on, alpha of the
+# custom f(r_g) law or None)
+_PROTON_FLAGS = ("do_tcuts", "do_retro", "use_custom_eps_b",
+                 "do_energy_transfer")
+_ELECTRON_FLAGS = ("do_rad_losses",) + _PROTON_FLAGS
+FLAG_CASES = (("protons", 0, True, _PROTON_FLAGS, None),
+              ("electrons", 1, True, _ELECTRON_FLAGS, None),
               ("protons-shipped", 0, False, ("dont_scatter", "dont_dsa",
-                                             "do_tcuts", "do_retro")))
+                                             "do_tcuts", "do_retro"), None),
+              ("protons-frg", 0, True, _PROTON_FLAGS, FRG_ALPHA),
+              ("electrons-frg", 1, True, _ELECTRON_FLAGS, FRG_ALPHA),
+              ("protons-frg-alpha1", 0, True, _PROTON_FLAGS, 1.0))
+
+
+def hold_alpha1(tag, tabs, tabs_std, st0, fresh_tal) -> None:
+    """One K1 step with the custom f(r_g) law at alpha = 1 (`tabs`)
+    against one with the standard law (`tabs_std`) from the same state:
+    exp(log(.) * 0) = 1, so the per-lane cos_max is the precomputed one
+    to a float32 rounding, and so are the lanes."""
+    import torch
+
+    from montecarloscattering_jl_tpu_torch.ops import mega
+
+    s_f, s_s = clone_state(st0), clone_state(st0)
+    mega.launch(s_f, tabs, fresh_tal(), 1, 10_000)
+    mega.launch(s_s, tabs_std, fresh_tal(), 1, 10_000)
+    torch.cuda.synchronize()
+    lanes = compare_lanes(s_f, s_s)
+    print(f"{tag} one step against the standard law:", json.dumps(lanes))
+    if lanes["divergent_lanes"] or lanes["float_lanes_over_bound"]:
+        fail(f"{tag}: alpha = 1 differs from the standard law: {lanes}")
 
 
 def kernel_vs_twin_flags(dev) -> dict:
@@ -476,11 +522,14 @@ def kernel_vs_twin_flags(dev) -> dict:
     from montecarloscattering_jl_tpu_torch.ops import mega, state as stt
 
     out = {}
-    for tag, i_ion, science, want in FLAG_CASES:
+    for tag, i_ion, science, want, frg_alpha in FLAG_CASES:
         cfg = load_variant(BASELINE, replace=[("DENZ_ION = [1.0, 0.0]",
                                                "DENZ_ION = [1.0, 1.0]")])
         if science:
             science_variant(cfg)
+        if frg_alpha is not None:
+            cfg.use_custom_frg = True
+            cfg.frg_alpha, cfg.frg_rg0_rg = frg_alpha, FRG_RG0_RG
         setup = build_setup(cfg)
         eng = TransportEngine(setup, device=dev)
         prof = setup.profile
@@ -498,10 +547,20 @@ def kernel_vs_twin_flags(dev) -> dict:
             fail(f"flags {tag}: {off} are off in the config")
         mega.check_supported(ss)
         tabs = mega.mega_tables(grids, sc, ss, dev)
+        if bool(tabs.flags & mega.FLAG_CUSTOM_FRG) != (frg_alpha is not None):
+            fail(f"flags {tag}: the f(r_g) bit is {tabs.flags:#x}")
         b = setup.bins
         fresh_tal = lambda: stt.make_tallies(
             setup.nb, b.n_mom, b.n_theta, dev,
             n_tcut_slots=eng.n_tcut_slots)
+        if frg_alpha == 1.0:
+            # the window only, and one step against the standard law
+            out[tag] = hold_k1(f"flags {tag}", tabs, st0, fresh_tal,
+                               drain=False)
+            std = dataclasses.replace(ss, frg_rg0_cm=0.0)
+            hold_alpha1(f"flags {tag}", tabs,
+                        mega.mega_tables(grids, sc, std, dev), st0, fresh_tal)
+            continue
         r = out[tag] = hold_k1(f"flags {tag}", tabs, st0, fresh_tal)
         w, d = r["window"], r["drain"]
         fired = {
@@ -530,6 +589,11 @@ def expected_files(cfg):
         names += ["mc_coupled_weights.csv", "mc_coupled_spectra.csv"]
     if cfg.x_spec:
         names.append("mc_xspec.dat")
+    if cfg.do_photons:
+        names += ["photon_pion_decay_grid.dat", "photon_synch_grid.dat",
+                  "photon_IC_grid.dat", "photon_pion_summed.dat",
+                  "photon_synch_summed.dat", "photon_IC_summed.dat",
+                  "photon_tot.dat", "photon_tot_summed.dat"]
     return names
 
 
@@ -720,6 +784,96 @@ def science_path(dev) -> dict:
                 trajectories=res.n_trajectories, species=rows)
 
 
+def emission_report(tag, res) -> dict:
+    """The last iteration's emission: each process's shell total and
+    the nonzero bins of the total SED, which must not be empty."""
+    import numpy as np
+
+    em = res.iterations[-1].emission
+    if em is None:
+        fail(f"{tag}: no emission result")
+    tot = np.asarray(em.tot)
+    sums = {k: float(np.asarray(getattr(em, k + "_shell")).sum())
+            for k in ("synch", "ic", "pion")}
+    print(f"{tag}: shell totals [erg/(cm^2 s)] {json.dumps(sums)}; "
+          f"{int((tot > 0).sum())} nonzero bins of {tot.size} in the total "
+          f"SED")
+    if not (np.isfinite(tot).all() and (tot > 0).any()
+            and all(v > 0 and math.isfinite(v) for v in sums.values())):
+        fail(f"{tag}: an empty or non-finite SED: {sums}")
+    return sums
+
+
+def electron_path_f32(dev) -> dict:
+    """examples/03 as shipped on K1 at float32, photons on (phase
+    electrons32): both species' drains and the electrons' rad-loss
+    branch run in K1; the electrons must push and exit, and the SED of
+    their synchrotron and IC photons and the protons' pion decay is
+    written."""
+    import torch
+
+    from montecarloscattering_jl_tpu_torch.utils import load_config
+
+    cfg = load_config(ELECTRONS)
+    if not cfg.do_photons:
+        fail("electrons32: examples/03 ships with photon production on")
+    res, counts, wall, _ = drive(cfg, dev, torch.float32, "electrons32")
+    rows = species_report("electrons32", res)
+    e = rows[1]
+    if not (e["pushes"] > 0 and sum(e["exits"].values()) > 0):
+        fail(f"electrons32: the electrons did not push or exit: {e}")
+    emission_report("electrons32", res)
+    return dict(counts=counts, wall=wall, species=rows)
+
+
+def sed_path(dev) -> dict:
+    """The SED flagship on K1 at float32, SED_PER_PCUT particles per
+    pcut (phase sed): transport, reductions, emission on the card and
+    the photon files, then the script's physics checks and the card's
+    emission pass against the per-zone NumPy loop on the same
+    reductions."""
+    import numpy as np
+    import torch
+
+    from montecarloscattering_jl_tpu_torch.models.emission import photon_calcs
+    from montecarloscattering_jl_tpu_torch.scripts import flagship_sed
+
+    cfg = flagship_sed.sed_config(SED_PER_PCUT)
+    print(f"sed: {len(cfg.pcuts)} pcuts, {cfg.n_pts_inj} / {cfg.n_pts_pcut} "
+          f"/ {cfg.n_pts_pcut_hi} particles, {cfg.n_ions} species")
+    res, counts, wall, _ = drive(cfg, dev, torch.float32, "sed")
+    rows = species_report("sed", res)
+    sums = emission_report("sed", res)
+    if not flagship_sed.check_sed(cfg, res):
+        fail("sed: the flagship's physics checks failed")
+    # the same reductions through both bodies of photon_calcs
+    it = res.iterations[-1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    em_dev = photon_calcs(res.setup, res.setup.profile, it.ion_finals,
+                          device=dev)
+    torch.cuda.synchronize()
+    t_dev = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    em_np = photon_calcs(res.setup, res.setup.profile, it.ion_finals,
+                         device=None)
+    t_np = time.perf_counter() - t0
+    worst = {}
+    for name in ("pion_grid", "synch_grid", "ic_grid", "pion_shell",
+                 "synch_shell", "ic_shell", "tot"):
+        a = np.maximum(np.asarray(getattr(em_np, name)), EMISSION_FLOOR)
+        b = np.maximum(np.asarray(getattr(em_dev, name)), EMISSION_FLOOR)
+        worst[name] = float(np.abs(b / a - 1.0).max())
+    print(f"sed: emission on the card {t_dev:.3f} s, per-zone NumPy loop "
+          f"{t_np:.3f} s; max relative difference above {EMISSION_FLOOR:g}: "
+          f"{json.dumps(worst)}")
+    bad = {k: v for k, v in worst.items() if not v <= EMISSION_RTOL}
+    if bad:
+        fail(f"sed: the card's emission differs from the NumPy loop: {bad}")
+    return dict(counts=counts, wall=wall, pushes=res.n_pushes,
+                trajectories=res.n_trajectories, species=rows, shells=sums)
+
+
 def electron_variant():
     """examples/03 with photon production off and the baseline's
     energy-transfer fraction, 1 iteration."""
@@ -728,22 +882,6 @@ def electron_variant():
          "calculate-photon-production = false"),
         ("energy-transfer-frac = 0.0", "energy-transfer-frac = 0.1")],
         n_itrs=1)
-
-
-def electron_path_f32(dev) -> dict:
-    """electron_variant on K1 at float32, every pcut, the default helix
-    cap (phase electrons32): the electron species' drains, its rad-loss
-    and receipt branches and the received-energy table built from the
-    ions' pool all run in K1; the electrons must push and exit."""
-    import torch
-
-    res, counts, wall, _ = drive(electron_variant(), dev, torch.float32,
-                                 "electrons32")
-    rows = species_report("electrons32", res)
-    e = rows[1]
-    if not (e["pushes"] > 0 and sum(e["exits"].values()) > 0):
-        fail(f"electrons32: the electrons did not push or exit: {e}")
-    return dict(counts=counts, wall=wall, species=rows)
 
 
 def electron_path(dev) -> dict:
@@ -814,6 +952,7 @@ def main() -> int:
                                                   False)),
                       ("science", science_path),
                       ("electrons32", electron_path_f32),
+                      ("sed", sed_path),
                       ("electrons", electron_path),
                       ("f64", lambda d: main_path(d, torch.float64, 1, True)),
                       ("shipped", shipped_path)):
@@ -831,15 +970,16 @@ def main() -> int:
 
 def kernel_records(done) -> list:
     """The kernels line: every kernel with its main-path launches (K1 on
-    the flagship f32, science and electrons32 paths, K2 on the f64 flagship,
-    shipped and electron paths), its error against its plain version,
+    the flagship f32, science, electrons32 and sed paths, K2 on the f64
+    flagship, shipped and electron paths), its error against its plain version,
     its time, its plain version's, its bound and the library call's."""
     src = "montecarloscattering_jl_tpu_torch/csrc/"
     hp, k1 = done["hist"], done["k1"]
     k2, k3, k4 = (hp["K2 (69,632 records)"], hp["K3 band=2048"],
                   hp["K4 = K2 (2^16 records)"])
     k1_launches = (done["f32"]["k1"] + done["science"]["counts"]["k1"]
-                   + done["electrons32"]["counts"]["k1"])
+                   + done["electrons32"]["counts"]["k1"]
+                   + done["sed"]["counts"]["k1"])
     k2_launches = (done["f64"]["k2"] + done["shipped"]["counts"]["k2"]
                    + done["electrons"]["counts"]["k2"])
     rec = lambda r: dict(max_abs_err=r["max_abs_err"], ms=r["ms"],

@@ -20,7 +20,8 @@
 //
 // The static flags of the megakernel's cfg (no-scatter, no-DSA,
 // radiative losses, the retro walk, tcuts, energy transfer, custom
-// eps_B) are runtime bits of si[SI_FLAGS], uniform across a launch.
+// eps_B, the custom f(r_g) mean-free-path law) are runtime bits of
+// si[SI_FLAGS], uniform across a launch.
 // Their tallies go to global memory by f64 atomicAdd: the ion pool as a
 // (lo, hi+1) difference pair into pool_diff, the tcut crossings into
 // weight_coupled / spectra_coupled at the lane's final momentum bin.
@@ -53,7 +54,8 @@ enum {
   SF_TWO_PI, SF_PI, SF_PSD_MOM_MIN, SF_LOG_PMIN, SF_THETA_MIN,
   SF_LOG_TMIN, SF_COS_FINE, SF_DCOS, SF_INV_LN10, SF_SPIKE, SF_THREE,
   SF_ONE, SF_TINY30, SF_TINY37, SF_E_REL, SF_B_CMBZ, SF_EWF, SF_RAD,
-  SF_B_DW, SF_GSF_DW, SF_GEF_DW, SF_UX_DW, SF_TEN, N_SF
+  SF_B_DW, SF_GSF_DW, SF_GEF_DW, SF_UX_DW, SF_TEN, SF_FRG_RG0, SF_FRG_AM1,
+  SF_ETA, SF_TWELVE_PI, N_SF
 };
 // f64 scalar vector (SD_*)
 enum { SD_FEB_UP, SD_FEB_DW, SD_X_STOP, SD_AGE_MAX, N_SD };
@@ -66,7 +68,7 @@ enum {
 enum {
   FLAG_DONT_SCATTER = 1, FLAG_DONT_DSA = 2, FLAG_RAD_LOSSES = 4,
   FLAG_RETRO = 8, FLAG_TCUTS = 16, FLAG_ENERGY_TRANSFER = 32,
-  FLAG_CUSTOM_EPS_B = 64
+  FLAG_CUSTOM_EPS_B = 64, FLAG_CUSTOM_FRG = 128
 };
 
 __device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
@@ -213,6 +215,7 @@ mega_step_kernel(float* __restrict__ w_g, float* __restrict__ pb_g,
   const bool do_tcuts = (fl & FLAG_TCUTS) != 0;
   const bool xfer_on = (fl & FLAG_ENERGY_TRANSFER) != 0;
   const bool eps_b = (fl & FLAG_CUSTOM_EPS_B) != 0;
+  const bool frg_on = (fl & FLAG_CUSTOM_FRG) != 0;
 
   for (int z = threadIdx.x; z < nb; z += blockDim.x) {
     xg[z] = xg_g[z];
@@ -248,6 +251,8 @@ mega_step_kernel(float* __restrict__ w_g, float* __restrict__ pb_g,
   const float rad = sf_g[SF_RAD], b_dw = sf_g[SF_B_DW];
   const float gsf_dw = sf_g[SF_GSF_DW], gef_dw = sf_g[SF_GEF_DW];
   const float ux_dw = sf_g[SF_UX_DW], ten = sf_g[SF_TEN];
+  const float frg_rg0 = sf_g[SF_FRG_RG0], frg_am1 = sf_g[SF_FRG_AM1];
+  const float eta = sf_g[SF_ETA], twelve_pi = sf_g[SF_TWELVE_PI];
   const double feb_up = sd_g[SD_FEB_UP], feb_dw = sd_g[SD_FEB_DW];
   const double x_stop = sd_g[SD_X_STOP], age_max = sd_g[SD_AGE_MAX];
 
@@ -370,7 +375,16 @@ mega_step_kernel(float* __restrict__ w_g, float* __restrict__ pb_g,
 
       // pitch-angle scattering (parallel: no phase adjustment)
       if (do_b3 && !dont_scatter) {
-        const float cos_max = (xnp == xn_coarse) ? cmax_coarse : cmax_fine;
+        float cos_max = (xnp == xn_coarse) ? cmax_coarse : cmax_fine;
+        if (frg_on) {
+          // custom MFP law lambda = eta*r_g*(r_g/r_ref)^(alpha-1): the
+          // power as exp(log(.)*(alpha-1)), the twin's order, not powf
+          const float p_scat = (is_el && ptot < pe_crit) ? pe_crit : ptot;
+          const float lg = logf(fmaxp(p_scat * c * gden / frg_rg0, tiny30));
+          const float f_frg = expf(lg * frg_am1);
+          cos_max = cosf(sqrtf(twelve_pi / (xnp * eta) /
+                               fmaxp(f_frg, tiny30)));
+        }
         const float safe_pt = fmaxp(ptot, tiny30);
         const float cos_old = pb / safe_pt;
         const float sin_old = pperp / safe_pt;

@@ -17,6 +17,7 @@ import torch
 
 from ..utils.config import RunConfig, load_config
 from ..utils.tracing import PhaseTimers
+from ..models.emission import photon_calcs
 from ..models.rankine_hugoniot import q_esc_calcs
 from ..models.smoothing import (
     SmoothDiagnostics, set_gamma_adiab_grid, smooth_grid)
@@ -66,6 +67,7 @@ class IterationResult:
     px_esc_frac: float
     en_esc_frac: float
     profile_after: object = None
+    emission: object = None     # models.emission.EmissionResult
 
 
 @dataclass
@@ -129,19 +131,18 @@ def ion_finalize(setup: RunSetup, res: IonResult, prof, i_ion: int,
 
 
 def run(cfg: RunConfig | str, device, out_dir: str | None = None,
-        p_dtype: torch.dtype = torch.float64) -> RunResult:
+        p_dtype: torch.dtype = torch.float64,
+        emission_hook=None) -> RunResult:
     """Full nonlinear run (main_loops.jl:52-391) on `device`.  `p_dtype`
     is the momentum precision, float64 by default as in the JAX package
     (driver.py:173-210); float32 runs the configs K1 accepts on K1
-    (engine/run.py).  Positions, PRP and times stay float64."""
+    (engine/run.py).  Positions, PRP and times stay float64.
+    `emission_hook(setup, prof, ion_finals, i_iter)` is called after
+    each iteration's emission pass when photon production is enabled."""
     timers = PhaseTimers()
     t_start = time.time()
     if isinstance(cfg, str):
         cfg = load_config(cfg)
-    if cfg.do_photons:
-        raise NotImplementedError(
-            "photon production is ROADMAP.md's 'emission' item; this "
-            "port does not compute it yet")
     with timers.phase("setup"):
         setup = build_setup(cfg)
     engine = TransportEngine(setup, device=device, p_dtype=p_dtype)
@@ -204,11 +205,19 @@ def run(cfg: RunConfig | str, device, out_dir: str | None = None,
                 cfg.species[0].number_density, cfg.species[0].temperature,
                 rho0, cfg.use_custom_eps_b)
 
-        result.iterations.append(IterationResult(
+        itres = IterationResult(
             ion_finals=ion_finals, tallies=it, diag=diag,
             gamma_downstream=gamma_dw, q_esc_px=q_px_avg,
             q_esc_en=q_en_avg, px_esc_frac=px_esc_frac,
-            en_esc_frac=en_esc_frac, profile_after=prof_new))
+            en_esc_frac=en_esc_frac, profile_after=prof_new)
+        if cfg.do_photons:
+            # photon production per shell/zone (ion_finalize.jl:72-78)
+            with timers.phase("emission"):
+                itres.emission = photon_calcs(setup, prof, ion_finals,
+                                              i_iter, device=engine.device)
+            if emission_hook is not None:
+                emission_hook(setup, prof, ion_finals, i_iter)
+        result.iterations.append(itres)
         prof = prof_new
 
     if engine.device.type == "cuda":

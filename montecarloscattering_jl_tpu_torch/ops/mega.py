@@ -14,10 +14,10 @@ module holds:
   or the helix-cap bound on launches is reached (pallas_step.py:1650).
 * ``check_supported``: the static-flag gate of this kernel.
 
-Every static flag of the megakernel's cfg runs but the custom f(r_g)
-law: no-scatter, no-DSA, radiative losses, the retro walk, tcuts, the
-energy transfer and custom eps_B, as bits of the packed int vector
-(FLAG_*), with the tcut times, eps_target and the received-energy
+Every static flag of the megakernel's cfg runs: no-scatter, no-DSA,
+radiative losses, the retro walk, tcuts, the energy transfer, custom
+eps_B and the custom f(r_g) mean-free-path law, as bits of the packed
+int vector (FLAG_*), with the tcut times, eps_target and the received-energy
 prefix as tables read by index (no bf16 splits or one-hot gathers).
 
 Arithmetic follows the megakernel: momenta, fields and segment scalars
@@ -55,7 +55,7 @@ from .state import (ACTIVE, C_RAD, C_RECV, C_RETRO, FINISHED, FL_DW, FL_INJ,
                     FL_JRET, FL_RETRO, N_COUNTS, R_AGE, R_DOWNSTREAM,
                     R_RADIATED, R_UPSTREAM_PMAX, SAVED,
                     ParticleState, SegmentGrids, SegmentScalars,
-                    StepStatic, Tallies, check_deferred_flags)
+                    StepStatic, Tallies)
 
 STEPS = 256            # helix steps per launch (pallas_step.py:91)
 ZMAX = 128             # zone-table capacity: nb + 1 <= ZMAX
@@ -72,8 +72,9 @@ TWIN_CALLS = 0
  SF_TWO_PI, SF_PI, SF_PSD_MOM_MIN, SF_LOG_PMIN, SF_THETA_MIN,
  SF_LOG_TMIN, SF_COS_FINE, SF_DCOS, SF_INV_LN10, SF_SPIKE, SF_THREE,
  SF_ONE, SF_TINY30, SF_TINY37, SF_E_REL, SF_B_CMBZ, SF_EWF, SF_RAD,
- SF_B_DW, SF_GSF_DW, SF_GEF_DW, SF_UX_DW, SF_TEN) = range(42)
-N_SF = 42
+ SF_B_DW, SF_GSF_DW, SF_GEF_DW, SF_UX_DW, SF_TEN, SF_FRG_RG0, SF_FRG_AM1,
+ SF_ETA, SF_TWELVE_PI) = range(46)
+N_SF = 46
 # f64 scalar vector `sd`
 SD_FEB_UP, SD_FEB_DW, SD_X_STOP, SD_AGE_MAX = range(4)
 N_SD = 4
@@ -83,7 +84,8 @@ N_SD = 4
 N_SI = 10
 # bits of si[SI_FLAGS]: the static flags of the megakernel's cfg
 (FLAG_DONT_SCATTER, FLAG_DONT_DSA, FLAG_RAD_LOSSES, FLAG_RETRO, FLAG_TCUTS,
- FLAG_ENERGY_TRANSFER, FLAG_CUSTOM_EPS_B) = (1, 2, 4, 8, 16, 32, 64)
+ FLAG_ENERGY_TRANSFER, FLAG_CUSTOM_EPS_B, FLAG_CUSTOM_FRG) = (
+     1, 2, 4, 8, 16, 32, 64, 128)
 _FLAG_NAMES = (("dont_scatter", FLAG_DONT_SCATTER),
                ("dont_dsa", FLAG_DONT_DSA),
                ("do_rad_losses", FLAG_RAD_LOSSES), ("do_retro", FLAG_RETRO),
@@ -100,8 +102,7 @@ def check_supported(ss: StepStatic) -> None:
     megakernel itself rejects (megakernel_supported,
     pallas_step.py:1206-1239: oblique fields, x_spec detectors, more
     zones than the table holds; float64 momenta are the engine
-    selection's business, engine/run.py), or the custom f(r_g) law,
-    which this port has not written yet."""
+    selection's business, engine/run.py)."""
     if not ss.parallel or ss.n_xspec != 0:
         raise NotImplementedError(
             "oblique fields and x_spec detectors run on the XLA engine "
@@ -109,7 +110,6 @@ def check_supported(ss: StepStatic) -> None:
     if ss.nb + 1 > ZMAX:
         raise NotImplementedError(
             f"nb + 1 = {ss.nb + 1} exceeds the {ZMAX}-zone table")
-    check_deferred_flags(ss)
 
 
 @dataclass
@@ -198,12 +198,18 @@ def mega_tables(grids: SegmentGrids, sc: SegmentScalars, ss: StepStatic,
     sf[SF_GEF_DW] = host(grids.gamma_ef)
     sf[SF_UX_DW] = host(grids.ux)
     sf[SF_TEN] = 10.0
+    sf[SF_FRG_RG0] = ss.frg_rg0_cm
+    sf[SF_FRG_AM1] = ss.frg_alpha - 1.0
+    sf[SF_ETA] = eta
+    sf[SF_TWELVE_PI] = 12.0 * np.pi
     sd = np.array([sc.feb_up, sc.feb_dw, sc.x_grid_stop,
                    sc.age_max if sc.age_max > 0 else 3.0e38], np.float64)
     flags = 0
     for name, bit in _FLAG_NAMES:
         if getattr(ss, name):
             flags |= bit
+    if ss.frg_rg0_cm > 0.0:
+        flags |= FLAG_CUSTOM_FRG
     tc = grids.tcuts.to(dev, torch.float64).contiguous()
     si = np.array([nb, ss.i_grid_feb, ss.n_mom, ss.n_theta,
                    ss.bins_per_dec_mom, ss.bins_per_dec_theta,
@@ -268,6 +274,8 @@ def step_twin(st: ParticleState, tb: MegaTables, tl: Tallies,
     b_cmbz, ewf, rad = k(SF_B_CMBZ), k(SF_EWF), k(SF_RAD)
     b_dw, gsf_dw, gef_dw = k(SF_B_DW), k(SF_GSF_DW), k(SF_GEF_DW)
     ux_dw, ten = k(SF_UX_DW), k(SF_TEN)
+    frg_rg0, frg_am1 = k(SF_FRG_RG0), k(SF_FRG_AM1)
+    eta, twelve_pi = k(SF_ETA), k(SF_TWELVE_PI)
     feb_up, feb_dw = tb.sd[SD_FEB_UP], tb.sd[SD_FEB_DW]
     x_stop, age_max = tb.sd[SD_X_STOP], tb.sd[SD_AGE_MAX]
     nb, nz = tb.nb, tb.nb + 1
@@ -276,6 +284,7 @@ def step_twin(st: ParticleState, tb: MegaTables, tl: Tallies,
     rad_on = tb.on(FLAG_RAD_LOSSES) and is_el
     do_retro, do_tcuts = tb.on(FLAG_RETRO), tb.on(FLAG_TCUTS)
     xfer_on, eps_b = tb.on(FLAG_ENERGY_TRANSFER), tb.on(FLAG_CUSTOM_EPS_B)
+    frg_on = tb.on(FLAG_CUSTOM_FRG)
     n_tc = tb.tc.shape[0]
     xg = tb.xg
     zux, zgsf, zgef, zb = tb.zf[0], tb.zf[1], tb.zf[2], tb.zf[3]
@@ -397,6 +406,16 @@ def step_twin(st: ParticleState, tb: MegaTables, tl: Tallies,
         if not dont_scatter:
             # pitch-angle scattering (parallel: no phase adjustment)
             cos_max = torch.where(xnp == xn_coarse, cmax_coarse, cmax_fine)
+            if frg_on:
+                # custom MFP law lambda = eta*r_g*(r_g/r_ref)^(alpha-1);
+                # the power as exp(log(.)*(alpha-1)), as the megakernel
+                p_scat = (torch.where(ptot < pe_crit, pe_crit, ptot)
+                          if is_el else ptot)
+                lg = torch.log(torch.maximum(p_scat * c * gden / frg_rg0,
+                                             tiny30))
+                f_frg = torch.exp(lg * frg_am1)
+                cos_max = torch.cos(torch.sqrt(
+                    twelve_pi / (xnp * eta) / torch.maximum(f_frg, tiny30)))
             safe_pt = torch.maximum(ptot, tiny30)
             cos_old = pb / safe_pt
             sin_old = pperp / safe_pt

@@ -4,8 +4,8 @@ Counterpart of the JAX package's ops/scattering.py ``scattering``
 (scattering.jl:29-101): a random small-angle deflection on the unit
 sphere whose largest angle is set by the mean free path lambda =
 eta * r_g, with the electron constant-MFP regime below ``pe_crit``.
-The custom f(r_g) law stays deferred (ROADMAP.md item 1): callers pass
-the fixed ``cos_max``.  Also ``radiation_loss``, the electrons'
+Callers pass ``cos_max``: one of the two precomputed values, or the
+custom f(r_g) law's per-lane one (ops/step.py).  Also ``radiation_loss``, the electrons'
 synchrotron + inverse-Compton loss of one step.
 
 The uniforms arrive as float32 (the XLA engine's stream, rng.py), and
@@ -37,7 +37,7 @@ def scattering(u1, u2, pb, pperp, ptot, gamma_pf, gyro_denom,
     `mc`, `pe_crit`, `gamma_e_crit` are scalars or 0-dim tensors of the
     momentum dtype; `cos_max` broadcasts against the lanes.  The gyro
     phase is left as it is: its Ellison+ (1990) adjustment is observable
-    only in oblique fields, which are not ported (ROADMAP.md item 2)."""
+    only in oblique fields, which are not ported (ROADMAP.md item 4)."""
     period = gyro_period(ptot, gamma_pf, gyro_denom, is_electron, pe_crit,
                          gamma_e_crit, mc)
 

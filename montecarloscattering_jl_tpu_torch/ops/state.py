@@ -406,13 +406,3 @@ class StepStatic:
         """From the JAX StepStatic (a frozen dataclass of host values)."""
         return cls(**{fl.name: getattr(ss, fl.name) for fl in fields(cls)})
 
-
-def check_deferred_flags(ss: StepStatic) -> None:
-    """Raise NotImplementedError for the one static branch neither
-    transport engine has yet: the custom f(r_g) mean-free-path law
-    (ops/step.py:333-345, pallas_step.py:432-439 of the JAX package),
-    reached by every lane that scatters when ``frg_rg0_cm > 0``."""
-    if ss.frg_rg0_cm > 0.0 and not ss.dont_scatter:
-        raise NotImplementedError(
-            "frg_rg0_cm > 0: the custom f(r_g) law is not ported yet "
-            "(ROADMAP.md item 1)")

@@ -11,11 +11,11 @@ kernel, so plain torch is its counterpart; the one kernel on the path is
 the PSD deposit, K2 (ops/hist.py), launched once a step.
 
 Branches: the parallel-field step (theta_B = 0, the only geometry the
-config admits) with every static flag of the reference but the custom
-f(r_g) law (``check_supported`` raises for it): the x_spec detector
-spectra (:612-637), the custom eps_B far-field decay (:228-235,
+config admits) with every static flag of the reference: the x_spec
+detector spectra (:612-637), the custom eps_B far-field decay (:228-235,
 :937-940), the no-scatter escape (:277-281), radiative losses
-(:309-322), tcut firing with the coupled tallies (:370-387), the no-DSA
+(:309-322), the custom f(r_g) mean-free-path law's per-lane cos_max
+(:333-345), tcut firing with the coupled tallies (:370-387), the no-DSA
 reflection (:434-435), the ion -> electron energy transfer (:568-600),
 and the PRP return, analytic (:965-982) or by the retro walk (:956-963
 and ``_retro_step``).
@@ -55,8 +55,7 @@ from .scattering import gyro_period, radiation_loss, scattering
 from .state import (ACTIVE, C_RAD, C_RECV, C_RETRO, FINISHED, FL_DW, FL_INJ,
                     FL_JRET, FL_RETRO, R_AGE, R_DOWNSTREAM, R_RADIATED,
                     R_UPSTREAM_PMAX, SAVED, X_DTYPE, ParticleState,
-                    SegmentGrids, SegmentScalars, StepStatic, Tallies,
-                    check_deferred_flags)
+                    SegmentGrids, SegmentScalars, StepStatic, Tallies)
 from .transforms import (hyp, transform_p_ps_parallel,
                          transform_p_psp_parallel)
 
@@ -78,12 +77,11 @@ _DEPOSIT_TARGETS = ("flux_diff", "spectra_sf", "spectra_pf", "pool_diff",
 
 def check_supported(ss: StepStatic) -> None:
     """Raise NotImplementedError for a config this engine does not run
-    yet: an oblique field, or the custom f(r_g) law."""
+    yet: an oblique field."""
     if not ss.parallel:
         raise NotImplementedError(
             "oblique fields: the general frame transforms are not ported "
-            "(ROADMAP.md item 2)")
-    check_deferred_flags(ss)
+            "(ROADMAP.md item 4)")
 
 
 @dataclass
@@ -134,6 +132,8 @@ def step_tables(grids: SegmentGrids, sc: SegmentScalars, ss: StepStatic,
         cmax_fine=p(math.cos(math.sqrt(
             12.0 * math.pi / (ss.xn_per_fine * ss.eta_mfp)))),
         xn_coarse=p(ss.xn_per_coarse), xn_fine=p(ss.xn_per_fine),
+        eta=p(ss.eta_mfp), twelve_pi=p(12.0 * math.pi),
+        frg_rg0=p(ss.frg_rg0_cm), frg_am1=p(ss.frg_alpha - 1.0),
         feb_up=d(sc.feb_up), feb_dw=d(sc.feb_dw), x_stop=d(sc.x_grid_stop),
         age_max=d(sc.age_max),
         # the downstream-most zone, where the retro walk runs
@@ -264,6 +264,16 @@ def helix_step(st: ParticleState, tl: Tallies, tb: StepTables,
     else:
         cos_max = torch.where(st.xn_per == k["xn_coarse"],
                               k["cmax_coarse"], k["cmax_fine"])
+        if ss.frg_rg0_cm > 0.0:
+            # custom MFP law lambda = eta*r_g*(r_g/r_ref)^(alpha-1): only
+            # the f(r_g) factor enters cos_max (scattering.jl:46-60)
+            p_scat = (torch.where(ptot < k["pe_crit"], k["pe_crit"], ptot)
+                      if ss.is_electron else ptot)
+            f_frg = torch.pow(p_scat * c * gyro_denom / k["frg_rg0"],
+                              k["frg_am1"])
+            cos_max = torch.cos(torch.sqrt(
+                k["twelve_pi"] / (st.xn_per * k["eta"]
+                                  * torch.maximum(f_frg, k["tiny30"]))))
         res = scattering(u[_U_SCAT1], u[_U_SCAT2], pb, pperp, ptot,
                          gamma_pf, gyro_denom, ss.is_electron,
                          k["pe_crit"], k["gamma_e_crit"], mc, cos_max)

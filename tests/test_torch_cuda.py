@@ -1,8 +1,11 @@
 """The port's kernels against their plain PyTorch versions on a CUDA
-card: K1 (csrc/mega_step.cu) against its twin, K2 and K3
+card: K1 (csrc/mega_step.cu) against its twin (the custom f(r_g) law
+on and off), K2 and K3
 (csrc/psd_hist.cu) against ops/hist.py's plain versions, and the XLA
 engine's float64 segment (ops/step.py, K2 inside, replayed as a CUDA
-graph) against the same segment on the CPU.  Every test here needs the
+graph) against the same segment on the CPU; and the batched emission
+functions (models/emission/device.py) on the card against the per-zone
+NumPy oracles.  Every test here needs the
 card: it carries the ``cuda`` marker and skips without one.  Run on the
 card with
 
@@ -19,7 +22,10 @@ K3 agree with their plain versions to 1e-4 of the largest PSD entry
 with the CPU's on all but 0.1% of lanes' integer fields; the card's
 float32 cos of the scattering phase may differ from the CPU's by an ulp,
 which moves momenta by ~1e-7 a step, so float fields agree to 1e-4
-relative and the tallies to 1e-4 of their largest entry."""
+relative and the tallies to 1e-4 of their largest entry.  The emission
+functions agree with the NumPy oracles to rtol 1e-5 on every bin above
+1e-90 (the oracle floors each term at 1e-60 before it sums, the batched
+IC kernel after; float64 atomics sum in any order)."""
 
 import dataclasses
 import os
@@ -67,10 +73,12 @@ def population(card):
         t(pop.i_grid).astype(np.int32), t(prof.ux_sk[pop.i_grid]),
         cfg.xn_per_fine, setup.x_grid_stop, rng.key(0), card)
     ss = eng.step_static(0)
-    tabs = {kind: mega.mega_tables(
+    frg = dict(frg_alpha=1.5, frg_rg0_cm=2.0 * cfg.rg0)
+    tabs = {kind + law: mega.mega_tables(
         eng.segment_grids(prof), eng.segment_scalars(0, 2, prof.bmag2),
-        dataclasses.replace(ss, is_electron=kind == "electron"), card)
-        for kind in ("ion", "electron")}
+        dataclasses.replace(ss, is_electron=kind == "electron",
+                            **(frg if law else {})), card)
+        for kind in ("ion", "electron") for law in ("", "-frg")}
     fresh = lambda: stt.make_tallies(setup.nb, setup.bins.n_mom,
                                      setup.bins.n_theta, card)
     return st, tabs, fresh
@@ -81,11 +89,13 @@ def _clone(st):
         f.name: getattr(st, f.name).clone() for f in dataclasses.fields(st)})
 
 
-@pytest.mark.parametrize("kind", ["ion", "electron"])
+@pytest.mark.parametrize("kind", ["ion", "electron", "ion-frg",
+                                  "electron-frg"])
 @pytest.mark.parametrize("n_steps", [1, 64, 256])
 def test_k1_matches_twin(population, n_steps, kind):
     st0, tabs, fresh = population
     tabs = tabs[kind]
+    assert tabs.on(mega.FLAG_CUSTOM_FRG) == kind.endswith("-frg")
     s_k, t_k, s_t, t_t = _clone(st0), fresh(), _clone(st0), fresh()
     before = mega.LAUNCHES
     mega.launch(s_k, tabs, t_k, n_steps=n_steps)
@@ -214,3 +224,56 @@ def test_xla_segment_matches_cpu(card):
         b = np.asarray(tc[name], np.float64)
         assert np.abs(b).max() > 0, name
         assert np.abs(a - b).max() <= 1e-4 * np.abs(b).max(), name
+
+
+# ---------------------------------------------------------------------------
+# emission on the card against the per-zone NumPy oracles
+# ---------------------------------------------------------------------------
+
+def test_emission_matches_numpy_oracle(card):
+    from montecarloscattering_jl_tpu_torch.models.emission import (
+        device as edev, driver as edrv, inverse_compton as eic, pion as epi,
+        synchrotron as esy)
+    from montecarloscattering_jl_tpu_torch.utils import constants as K
+
+    g = np.random.default_rng(7)
+    nz, n_p, n_th = 24, 96, 9
+    counts = np.where(g.random((nz, n_p)) < 0.1, 0.0,
+                      10.0 ** g.uniform(-99.0, 60.0, (nz, n_p)))
+    d2n = 10.0 ** g.uniform(-99.0, 60.0, (n_p, n_th, nz))
+    cos_bounds = np.linspace(-1.0, 1.0, n_th + 1)
+    btot = 10.0 ** g.uniform(-6, -2, nz)
+    target = 10.0 ** g.uniform(-2, 1, nz)
+    me_c = K.ME_CGS * K.C_CGS
+    pe = me_c * np.logspace(-2, 9, n_p + 1)
+    pp = K.MP_C * np.logspace(-2, 6, n_p + 1)
+    e_synch = esy.photon_energy_grid(1e-13, 180, 10)
+    e_pion = 10.0 ** (np.log10(K.MEV_ERG) + np.arange(120) / 10)
+    alpha = eic.ic_photon_energy_grid(1e-2, 140, 10)
+    beta = g.uniform(0.05, 0.98, nz)
+    gamma = 1.0 / np.sqrt(1.0 - beta ** 2)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=card)
+
+    def close(got, ref):
+        assert got.device.type == "cuda" and got.dtype == torch.float64
+        np.testing.assert_allclose(np.maximum(got.cpu().numpy(), 1e-90),
+                                   np.maximum(ref, 1e-90), rtol=1e-5)
+
+    close(edev.synch_grid_device(t(counts), t(btot), t(pe), t(e_synch)),
+          np.stack([esy.synch_emission(counts[z], pe, btot[z], e_synch)
+                    for z in range(nz)], axis=1))
+    a1, n_ph = eic.cmb_photon_field(0.2)
+    ne = edev.cone_cut_counts(d2n, cos_bounds, 0.3)
+    close(edev.ic_grid_device(t(ne), t(pe), t(alpha), (t(a1), t(n_ph)), me_c,
+                              0.3, 3.0e27),
+          np.stack([eic.ic_emission(d2n[:, :, z], pe, cos_bounds, alpha, 0.2,
+                                    0.3, 3.0e27, me_c)
+                    for z in range(nz)], axis=1))
+    close(edev.pion_grid_device(t(counts), pp, e_pion, t(target), 1.0,
+                                K.MP_C, 1.0),
+          np.stack([epi.pion_emission(counts[z], pp, e_pion, target[z], 1.0,
+                                      K.MP_C, [1.0], [1.0])
+                    for z in range(nz)], axis=1))
+    grid = 10.0 ** g.uniform(-60, -5, (180, nz))
+    close(edev.doppler_shift_device(t(grid), t(e_synch), t(beta), t(gamma)),
+          edrv.doppler_shift_to_ism(grid, e_synch, beta, gamma))

@@ -219,12 +219,13 @@ _PORTED_FLAGS = ("do_rad_losses", "do_retro", "do_tcuts",
 @pytest.mark.parametrize("flag", list(_PORTED_FLAGS) + [
     "frg_rg0_cm", "n_xspec", "parallel", "nb"])
 def test_gate_raises_on_deferred_flags(flag):
-    """The gate raises for what K1 does not run: the custom f(r_g) law
-    (not ported yet), x_spec detectors and oblique fields (the XLA
-    engine's), a zone table beyond ZMAX.  The seven static flags it
-    once raised for run: the gate admits each, as the JAX megakernel's
-    gate does, the flag reaches K1's tables as the bit of the static
-    config the megakernel compiles with, and a 4-step launch of the
+    """The gate raises for what K1 does not run: x_spec detectors and
+    oblique fields (the XLA engine's), a zone table beyond ZMAX.  The
+    eight static flags it once raised for run (the custom f(r_g) law at
+    alpha = 1.5, r_ref = 1e10 cm): the gate admits each, as the JAX
+    megakernel's gate does, the flag reaches K1's tables as the bit of
+    the static config the megakernel compiles with, and a 4-step launch
+    of the
     twin with it on matches ``run_segment_mega(..., interpret=True)``
     per lane on the DSA population, to the horizon tests' tolerances
     (integer fields on 99% of lanes, float fields to 1e-5).  These lanes
@@ -235,13 +236,15 @@ def test_gate_raises_on_deferred_flags(flag):
                                                 p_dtype=jnp.float32)
     ss = tst.StepStatic.from_jax(ss_j)
     mega.check_supported(ss)
-    if flag not in _PORTED_FLAGS:
-        value = {"frg_rg0_cm": 1.0e10, "n_xspec": 2, "parallel": False,
-                 "nb": mega.ZMAX}[flag]
+    if flag not in _PORTED_FLAGS + ("frg_rg0_cm",):
+        value = {"n_xspec": 2, "parallel": False, "nb": mega.ZMAX}[flag]
         with pytest.raises(NotImplementedError):
             mega.check_supported(dataclasses.replace(ss, **{flag: value}))
         return
-    ss_j = dataclasses.replace(ss_j, **{flag: True})
+    if flag == "frg_rg0_cm":
+        ss_j = dataclasses.replace(ss_j, frg_rg0_cm=1.0e10, frg_alpha=1.5)
+    else:
+        ss_j = dataclasses.replace(ss_j, **{flag: True})
     assert ps.megakernel_supported(ss_j, jnp.float32, jnp.float32)
     assert ps._static_cfg(ss_j, n_tcut_slots=1)[flag]
     n_steps = 4
@@ -253,7 +256,7 @@ def test_gate_raises_on_deferred_flags(flag):
                                        interpret=True)
     st, tl, tb = _port_inputs(state, tal, grids, sc, ss_j)
     mega.check_supported(tst.StepStatic.from_jax(ss_j))
-    bit = dict(mega._FLAG_NAMES)[flag]
+    bit = dict(mega._FLAG_NAMES, frg_rg0_cm=mega.FLAG_CUSTOM_FRG)[flag]
     assert tb.flags == bit and int(tb.si[mega.SI_FLAGS]) == bit
     n_lanes = int(st.nsteps.numel())
     mega.launch(st, tb, tl, n_steps=n_steps, max_helix=n_steps)

@@ -7,7 +7,8 @@ population of tests/torch_flag_cases.py at float32 (electrons up to
 10^9 m c, where their radiative loss is larger than a float32 ulp of
 the momentum, and the group returning to the shock within 1e-4 r_g0 of
 it, so that it reaches the shock in 16 steps).  Each case turns on one
-static flag -- or all of them -- for the species whose lanes reach it,
+static flag -- or all of them, or the custom f(r_g) law (alpha = 1.5,
+and alpha = 1, the standard law) -- for the species whose lanes reach it,
 and runs one launch of 16 steps with the helix cap at 16 in both
 packages.  Both draw the megakernel's
 lane-keyed uniforms, so lanes follow the same trajectories.
@@ -99,7 +100,10 @@ def case(request, setup):
                 port=st.to_numpy(), port_tl=tst.finalize_tallies(tl),
                 off=st_off.to_numpy(), counts=tl.counts.numpy(),
                 x0=np.asarray(state.x),
-                flag=flag, kind=kind)
+                flag=flag, kind=kind,
+                below_pe_crit=np.hypot(np.asarray(state.pb),
+                                       np.asarray(state.pperp))
+                < float(sc.pe_crit))
 
 
 @pytest.mark.parametrize("field", INT_FIELDS + ("flags",))
@@ -148,6 +152,22 @@ def test_branch_fires(case):
     branch's own observable is there in both packages."""
     flag, kind = case["flag"], case["kind"]
     got, off, tl = case["port"], case["off"], case["port_tl"]
+    if flag == "frg_alpha1":
+        # alpha = 1 is the standard law: exp(log(.) * 0) = 1, and the
+        # per-lane cos_max equals the precomputed one to a float32
+        # rounding, so the lanes stay together over the launch
+        for f in INT_FIELDS + FLAG_FIELDS:
+            assert (got[f] != off[f]).sum() <= 0.01 * LANES, f
+        p = np.hypot(off["pb"].astype(np.float64), off["pperp"])
+        same = np.all([got[f] == off[f] for f in INT_FIELDS + FLAG_FIELDS],
+                      axis=0)
+        for f in ("pb", "pperp"):
+            err = np.abs(got[f].astype(np.float64) - off[f])
+            assert (err[same] > 1e-5 * p[same]).sum() <= 0.01 * LANES, f
+        return
+    if flag == "frg" and kind == "electron":
+        below = case["below_pe_crit"]
+        assert below.sum() > 10 and (~below).sum() > 10
     assert any(not np.array_equal(got[f], off[f])
                for f in INT_FIELDS + FLAG_FIELDS + FLOAT_FIELDS), flag
     ref_tl = case["ref_tl"]

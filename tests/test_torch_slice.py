@@ -172,6 +172,18 @@ def test_port_runs_without_jax():
         "psd = torch.zeros(probe_hist.N_CELLS, probe_hist.NZC)\n"
         "hist.psd_scatter_band(psd, *recs, 1024)\n"
         "assert float(psd.abs().sum()) > 0\n"
+        "from montecarloscattering_jl_tpu_torch.models import emission\n"
+        "from montecarloscattering_jl_tpu_torch.models.emission import "
+        "device as edev\n"
+        "from montecarloscattering_jl_tpu_torch.scripts import "
+        "flagship_sed\n"
+        "grid = torch.full((30, 4), 1e-20, dtype=torch.float64)\n"
+        "e_g = torch.logspace(-18, -15, 30, dtype=torch.float64)\n"
+        "ism = edev.doppler_shift_device(\n"
+        "    grid, e_g, torch.full((4,), 0.5, dtype=torch.float64),\n"
+        "    torch.full((4,), 1.25, dtype=torch.float64))\n"
+        "assert ism.shape == grid.shape and float(ism.sum()) > 0\n"
+        "assert callable(emission.photon_calcs)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'montecarloscattering_jl_tpu'"
         " or m.startswith('montecarloscattering_jl_tpu.')]\n"

@@ -283,20 +283,22 @@ def test_drain_independent_of_sync_interval():
     ("dont_scatter", True), ("dont_dsa", True), ("frg_rg0_cm", 1.0e10),
     ("parallel", False)])
 def test_gate_raises_on_deferred_flags(flag, value):
-    """The gate raises for what the engine does not run: the custom
-    f(r_g) law (not ported yet) and oblique fields.  The seven static
-    flags it once raised for run: with each on, two steps of 128
-    flagship lanes agree with the JAX ``helix_step`` per lane (XLA's
-    cos substituted: integer fields exactly, float fields to 1e-12)."""
+    """The gate raises for what the engine does not run: oblique
+    fields.  The eight static flags it once raised for run: with each
+    on (the custom f(r_g) law at alpha = 1.5), two steps of 128 flagship
+    lanes agree with the JAX ``helix_step`` per lane (XLA's cos
+    substituted: integer fields exactly, float fields to 1e-12)."""
     state, tal, grids, sc, ss = _build(0, lanes=128)
     ssp = tst.StepStatic.from_jax(ss)
     tstep.check_supported(ssp)
-    if flag in ("frg_rg0_cm", "parallel"):
+    if flag == "parallel":
         bad = dataclasses.replace(ssp, **{flag: value})
         with pytest.raises(NotImplementedError, match="ROADMAP.md item"):
             tstep.check_supported(bad)
         return
     ss = dataclasses.replace(ss, **{flag: value})
+    if flag == "frg_rg0_cm":
+        ss = dataclasses.replace(ss, frg_alpha=1.5)
     tstep.check_supported(tst.StepStatic.from_jax(ss))
     s, t = state, tal
     for _ in range(2):

@@ -4,7 +4,8 @@ package's ``helix_step`` at float64, on the CPU.
 configs/baseline.toml (the gamma0 = 5 parallel shock, protons and
 electrons) with the electrons' density set to 1, so that they carry the
 received energy.  Each case turns on one static flag of ``StepStatic``
--- or all of them -- and runs 32 steps of 512 lanes of a population made
+-- or all of them, or the custom f(r_g) law (alpha = 1.5, and alpha = 1,
+the standard law) -- and runs 32 steps of 512 lanes of a population made
 to reach every branch (tests/torch_flag_cases.py).  Both packages draw
 the same uniforms, so lanes follow the same trajectories; the port runs
 with the reference's float32 cos substituted (XLA's polynomial, as
@@ -105,9 +106,11 @@ def case(request, setup):
     off = fc.static(eng, i_ion, "none")
     st_off, tl_off = _run_port(state, tal, grids, sc, off)
     torch.set_num_threads(n_thr)
+    p0 = np.hypot(np.asarray(state.pb), np.asarray(state.pperp))
     return dict(ref=(_np(s), _np(t)), port=(st.to_numpy(), tl.to_numpy()),
                 off=(st_off.to_numpy(), tl_off.to_numpy()),
-                counts=tl.counts.numpy(), flag=flag, kind=kind)
+                counts=tl.counts.numpy(), flag=flag, kind=kind,
+                below_pe_crit=p0 < float(sc.pe_crit))
 
 
 @pytest.mark.parametrize("field", INT_FIELDS)
@@ -155,9 +158,22 @@ def test_branch_fires(case):
     flag, kind = case["flag"], case["kind"]
     got, tl = case["port"]
     off, tl_off = case["off"]
+    if flag == "frg_alpha1":
+        # alpha = 1 is the standard law: the per-lane cos_max equals the
+        # precomputed one to a float64 rounding, and so do the lanes
+        for f in INT_FIELDS:
+            np.testing.assert_array_equal(got[f], off[f], err_msg=f)
+        p = np.hypot(off["pb"], off["pperp"])
+        for f in ("pb", "pperp"):
+            np.testing.assert_array_less(np.abs(got[f] - off[f]),
+                                         1e-12 * p + 1e-300, err_msg=f)
+        return
     moved = any(not np.array_equal(got[f], off[f])
                 for f in INT_FIELDS + FLOAT_FIELDS)
     assert moved, flag
+    if flag == "frg" and kind == "electron":
+        below = case["below_pe_crit"]
+        assert below.sum() > 10 and (~below).sum() > 10
     # with every flag on, the no-scatter escape takes the downstream
     # lanes at their first step, before a tcut or a PRP (the shipped
     # baseline's switches)

@@ -228,7 +228,10 @@ def test_deferred_flags_raise_on_both_engines(tmp_path, low_caps, p_dtype):
     (the same XLA stream) push and trajectory counts agree exactly, at
     float32 (K1's twin against the JAX XLA step at float32) the
     trajectories exactly and the pushes to 1%.  The custom f(r_g) law
-    still raises on both."""
+    (alpha = 1.5, r_ref = 2 r_g0), which both once refused, runs on each
+    too: against the JAX driver, at float64 push and trajectory counts
+    exactly at this cap, at float32 (K1's twin against the JAX XLA
+    step, two RNG streams) both within 15%."""
     cfg_path = _tiny_toml(tmp_path)
     cfg = load_config(cfg_path)
     cfg.dont_scatter = True
@@ -249,9 +252,18 @@ def test_deferred_flags_raise_on_both_engines(tmp_path, low_caps, p_dtype):
         assert got.n_pushes == ref.n_pushes
     else:
         assert got.n_pushes == pytest.approx(ref.n_pushes, rel=1e-2)
-    cfg.dont_scatter, cfg.use_custom_frg = False, True
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 1"):
-        run(cfg, "cpu", p_dtype=p_dtype)
+    for c in (cfg, jcfg):
+        c.dont_scatter, c.use_custom_frg = False, True
+        c.frg_alpha, c.frg_rg0_rg = 1.5, 2.0
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(stp, "MAX_HELIX_STEPS", 128)
+        _clear_jax_caches()
+        ref = jdriver.run(jcfg, p_dtype=getattr(jnp, str(p_dtype)[6:]))
+        _clear_jax_caches()
+    got = run(cfg, "cpu", p_dtype=p_dtype)
+    rel = 0.15 if p_dtype == torch.float32 else 0.0
+    assert got.n_pushes == pytest.approx(ref.n_pushes, rel=rel)
+    assert got.n_trajectories == pytest.approx(ref.n_trajectories, rel=rel)
 
 
 @pytest.mark.parametrize("p_dtype", [torch.float64, torch.float32])

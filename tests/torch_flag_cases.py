@@ -11,7 +11,9 @@ downstream field is ~1e3 times the upstream one), moving
 upstream at 3 m c (the no-DSA reflection); two groups beyond the grid
 end (custom eps_B) with the PRP 1 to 3% ahead (the retro walk), moving
 on at 3-30 m c (electrons up to 10^e_top m c, where their radiative
-loss shows in the momentum dtype).
+loss shows in the momentum dtype; their first three groups lie below
+pe_crit, the fast ones above it, so the custom f(r_g) law sees both of
+its electron regimes).
 Acceleration times sit around a tcut, an eighth of them past the age
 limit; the last step size is a fine step in the lane's zone.  The
 electrons' received-energy pool is a flat RECV_PER_ZONE.
@@ -41,7 +43,12 @@ CASES = [("dont_scatter", "ion"), ("dont_dsa", "ion"),
          ("do_rad_losses", "electron"), ("do_retro", "ion"),
          ("do_tcuts", "ion"), ("do_energy_transfer", "ion"),
          ("do_energy_transfer", "electron"), ("use_custom_eps_b", "ion"),
-         ("all", "ion"), ("all", "electron")]
+         ("all", "ion"), ("all", "electron"),
+         ("frg", "ion"), ("frg", "electron"),
+         ("frg_alpha1", "ion"), ("frg_alpha1", "electron")]
+# the custom f(r_g) law's cases: alpha and the reference radius in r_g0
+# (tests/test_switches.py); alpha = 1 is the standard law
+FRG = {"frg": (1.5, 2.0), "frg_alpha1": (1.0, 2.0)}
 IDS = [f"{f}-{s}" for f, s in CASES]
 RECV_PER_ZONE = 3.0e-7     # erg
 I_PCUT = 11                # pcut 1000 m_p c: above every lane
@@ -111,8 +118,12 @@ def population(cfg, setup, i_ion, p_dtype, e_top=6.0, near=1.0e-3,
 
 def static(eng, i_ion, flag):
     """The config's StepStatic with `flag` on (every flag for "all",
-    none for "none") and the other static flags off."""
+    none for "none", the custom f(r_g) law for a key of FRG) and the
+    other static flags off."""
     on = {f: flag == "all" or f == flag for f in FLAGS}
+    if flag in FRG:
+        alpha, rg0_rg = FRG[flag]
+        on.update(frg_alpha=alpha, frg_rg0_cm=rg0_rg * eng.setup.cfg.rg0)
     return dataclasses.replace(eng.step_static(i_ion), **on)
 
 
