@@ -4,21 +4,28 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 1. Prints the card (nvidia-smi name and power limit) and builds every
    kernel of the port with nvcc for sm_90a, one nvcc per source, all
-   started together: K1 (csrc/mega_step.cu) and K2/K3
-   (csrc/psd_hist.cu), with each kernel's registers and spills.
+   started together: K1 (csrc/mega_step.cu, one instance per flag word
+   of ops/mega.py INSTANCES) and K2/K3 (csrc/psd_hist.cu), with each
+   kernel's registers, stack and spills.
 2. ``k1``: holds K1 against its plain PyTorch version (ops/mega.py
    step_twin) on the card, on the flagship population:
    tests/data/dsa_nonrel.toml, 65,536 injected lanes at pcut index 2.
-   First one 64-step launch from the same state (per-lane fields), then
+   First one 64-step launch from the same state (per-lane fields; timed
+   enqueued only, and through ``mega.launch`` with its host wait), then
    a full drain with the helix cap lowered to 512 steps (status counts,
-   step totals, tallies).
+   step totals, tallies).  Then K1 alone drains the same population at
+   the config's helix cap, and the science protons of phase 3 at the
+   science cap: wall ms ending in a synchronize, launches, pushes,
+   pushes/s, the host waits inside the drain (none).
 3. ``flags``: the same with K1's static-flag branches on, on
    configs/baseline.toml (electron density set to 1) at 65,536 lanes
    placed to reach every branch (``flag_population``): protons of the
    science variant (tcuts, retro walk, custom eps_B, pool donation),
    electrons (radiative loss, received energy) and protons with the
    shipped no-scatter / no-DSA switches.  Window and drain as in 2, the
-   pool, tcut and counter tallies included.  Then the custom f(r_g)
+   pool, tcut and counter tallies included; each case must run the K1
+   instance compiled for its flag word (the shipped switches: the one
+   that reads the flags at run time).  Then the custom f(r_g)
    mean-free-path law (alpha = 1.5, r_ref = 2 r_g0) on the science
    protons and electrons, and a window at alpha = 1, where K1's
    per-lane cos_max must give the standard law's lanes back: after one
@@ -30,7 +37,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
    at bands 1,024 and 2,048, K2 at the probe's 2^16-record P4 shape;
    each timed beside its plain version and, for K2/K4, beside one
    ``index_add_`` of the same records (the library call, never used by
-   the port), and checked against float64.
+   the port), and checked against float64.  K2/K4 and the
+   ``index_add_`` are timed under CUDA-graph replay, the way the
+   transport path launches K2, and eagerly; K2 also on the helix step's
+   own tensors (int64 zones, float64 weights).
 5. ``f32``: drives the K1 path: ``engine.driver.run`` on the flagship
    nonlinear config with float32 momenta (65,536 particles per pcut,
    smoothing on, 2 iterations); checks that every transport launch went
@@ -89,16 +99,12 @@ import dataclasses
 import json
 import math
 import os
-import subprocess
 import sys
 import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-CFG = os.path.join(ROOT, "tests", "data", "dsa_nonrel.toml")
-BASELINE = os.path.join(ROOT, "configs", "baseline.toml")
 ELECTRONS = os.path.join(ROOT, "examples", "03_electron_synch_ic.toml")
-LANES = 65_536
 WINDOW = 64
 DRAIN_CAP = 512
 # per-lane bounds of K1 against the twin on the card: both round every
@@ -111,22 +117,9 @@ MAX_DIVERGENT = 1e-3
 TALLY_RTOL = 1e-4                          # f32 atomics in any order
 # K2/K3 against their plain versions: f32 sums in another order
 HIST_TOL = 1e-4                            # of max |psd|
-# the science variant (scripts/flagship_baseline.py --dsa
-# --pcuts-per-decade 4 --max-helix-steps 200000 --n-pts-mult 4)
-SCIENCE_PCUTS_PER_DECADE = 4
-SCIENCE_CAP = 200_000
-SCIENCE_PTS_MULT = 4
 # the f64 paths' cuts: pcut segments kept, and examples/03's helix cap
 F64_PCUTS = 4
 ELECTRON_CAP = 2_000
-# the flags phase: the electrons' flat received-energy pool [erg per
-# zone], and the top of their momentum range [log10 m c], where the
-# radiative loss of a step exceeds a float32 ulp of the momentum
-RECV_PER_ZONE = 3.0e-7
-E_TOP = 9.0
-# the custom f(r_g) law of the frg windows: alpha and the reference
-# radius in r_g0 (tests/test_switches.py)
-FRG_ALPHA, FRG_RG0_RG = 1.5, 2.0
 # the SED flagship's particles per pcut (scripts/flagship_sed.py), and
 # the bound of the card's emission pass against the per-zone NumPy loop
 # on every bin above EMISSION_FLOOR (tests/test_device_emission.py)
@@ -156,99 +149,11 @@ def fail(msg: str) -> None:
     raise RuntimeError(msg)
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()
-    return out[0].strip()
-
-
 def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
     """The least time [ms] the card could take: bytes over the memory
     rate or operations over the float32 rate, whichever is larger."""
     t_b, t_o = n_bytes / HBM_BYTES_S * 1e3, n_ops / F32_OPS_S * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
-
-
-def flagship_population(setup, cfg, dev):
-    """bench.py's drain population: the injected distribution tiled to
-    LANES lanes, keyed from seed 0."""
-    import numpy as np
-
-    from montecarloscattering_jl_tpu_torch.models.injection import init_pop
-    from montecarloscattering_jl_tpu_torch.ops import rng, state as stt
-
-    prof = setup.profile
-    pop = init_pop(np.random.default_rng(0), cfg.species, 0, 1,
-                   cfg.energy_inj, True, cfg.n_pts_inj, setup.x_grid_start,
-                   cfg.rg0, 1.0, True, -1.0, cfg.beta0, cfg.gamma0, cfg.u0,
-                   setup.x_grid_rg, prof.ux_sk, prof.gamma_sf)
-    reps = LANES // len(pop.ptot_pf) + 1
-    t = lambda a: np.tile(a, reps)[:LANES]
-    return stt.init_state(
-        t(pop.weight), t(pop.ptot_pf), t(pop.pb_pf), t(pop.x_cm),
-        t(pop.i_grid).astype(np.int32), t(prof.ux_sk[pop.i_grid]),
-        cfg.xn_per_fine, setup.x_grid_stop, rng.key(0), dev)
-
-
-def flag_population(cfg, setup, i_ion, dev, seed=0):
-    """LANES lanes that reach every flag branch within one window, as
-    tests/torch_flag_cases.py places them: a quarter upstream within
-    0.01 r_g0 (times the species' mass over the protons') of the shock
-    moving with the flow (pool donation or
-    receipt on the crossing), a quarter within 1e-4 r_g0 downstream
-    moving upstream at 3 m c (the no-DSA reflection), half beyond the
-    grid end (custom eps_B) with the PRP 1 to 3% ahead (the retro walk)
-    at 3-30 m c (electrons up to 10^E_TOP m c).  Acceleration times sit
-    around a tcut, an eighth past the age limit; the last step size is a
-    fine step in the lane's zone."""
-    import numpy as np
-    import torch
-
-    from montecarloscattering_jl_tpu_torch.ops import rng, state as stt
-    from montecarloscattering_jl_tpu_torch.utils import constants as K
-
-    g = np.random.default_rng(seed)
-    s = cfg.species[i_ion]
-    mc = s.mass * K.C_CGS
-    prof = setup.profile
-    n = LANES // 4
-    rg0, x_stop = cfg.rg0, setup.x_grid_stop
-    x = np.concatenate([-1.0e-2 * rg0 * (s.mass / cfg.species[0].mass)
-                        * g.random(n),
-                        1.0e-4 * rg0 * g.random(n),
-                        x_stop * (1.0 + 0.5 * g.random(2 * n))])
-    ptot = np.concatenate([
-        0.05 * mc * (1.0 + g.random(n)), 3.0 * mc * np.ones(n),
-        mc * 10.0 ** g.uniform(0.5, E_TOP if s.is_electron else 1.5,
-                               2 * n)])
-    mu = np.concatenate([g.uniform(-1, 1, n), -0.9 + 0.1 * g.random(n),
-                         0.5 + 0.5 * g.random(2 * n)])
-    ig = (np.searchsorted(setup.x_grid_cm, x, side="right") - 1).astype(
-        np.int32)
-    tc = np.asarray(cfg.tcuts)
-    slot = g.integers(0, len(tc) - 1, LANES)
-    acct = tc[slot] * g.uniform(0.3, 1.2, LANES)
-    acct[-n // 2:] = 1.1 * cfg.age_max
-    dw = x > 0.0
-    st = stt.init_state(
-        np.ones(LANES), ptot, ptot * mu, x, ig, prof.ux_sk[ig],
-        cfg.xn_per_fine, x_stop, rng.key(seed), dev, downstream=dw,
-        inj=dw & (x > x_stop), acctime=acct, tcut=slot.astype(np.int32))
-    prp = np.where(x > x_stop, x * g.uniform(1.01, 1.03, LANES), x_stop)
-    gamma = np.hypot(ptot / mc, 1.0)
-    t_step = (2.0 * np.pi * gamma * mc / (abs(s.charge) * prof.btot[ig])
-              / cfg.xn_per_fine)
-    st.prp_x = torch.from_numpy(prp).to(dev)
-    st.t_step = torch.from_numpy(t_step).to(dev, torch.float32)
-    return st, float(ptot.max())
-
-
-def clone_state(st):
-    return dataclasses.replace(st, **{
-        f.name: getattr(st, f.name).clone()
-        for f in dataclasses.fields(st)})
 
 
 def compare_lanes(a, b) -> dict:
@@ -278,22 +183,6 @@ def compare_lanes(a, b) -> dict:
     return out
 
 
-def time_launches(fn, prepared) -> float:
-    """Mean ms of fn(*args) over the prepared argument sets after the
-    first (a warm-up), by CUDA events around the launches alone."""
-    import torch
-    fn(*prepared[0])
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for args in prepared[1:]:
-        fn(*args)
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (len(prepared) - 1)
-
-
 # the finalized tallies K1 and the twin must agree on, as totals
 TALLY_FIELDS = ("psd", "therm_psd", "pxx_flux", "pxz_flux", "energy_flux",
                 "num_crossings", "px_esc_up", "en_esc_up", "sum_p_dw",
@@ -315,14 +204,23 @@ def compare_totals(tag, fk, ftw) -> dict:
     return out
 
 
-def hold_k1(tag, tabs, st0, fresh_tal, drain: bool = True) -> dict:
+def hold_k1(tag, tabs, st0, fresh_tal, drain: bool = True,
+            word: int = 0) -> dict:
     """K1 against its twin from the same state: one WINDOW-step launch
     (per-lane fields, tally totals, both timed: plain, kernel, kernel,
-    plain), then, with `drain`, a drain to DRAIN_CAP steps."""
+    plain), then, with `drain`, a drain to DRAIN_CAP steps.  K1 must run
+    the instance compiled for `word` (ops/mega.py INSTANCES)."""
     import torch
 
     from montecarloscattering_jl_tpu_torch.ops import mega, state as stt
+    from montecarloscattering_jl_tpu_torch.scripts import workloads as wl
 
+    clone_state, time_launches, LANES = (wl.clone_state, wl.time_launches,
+                                         wl.LANES)
+    inst = mega.instance_of(tabs.flags, tabs.is_electron)
+    if mega.INSTANCES[inst] != word:
+        fail(f"{tag}: flags {tabs.flags:#x} run K1's instance "
+             f"{mega.INSTANCES[inst]:#x}, not {word:#x}")
     # ---- one 64-step launch from the same state -------------------------
     s_k, t_k = clone_state(st0), fresh_tal()
     s_t, t_t = clone_state(st0), fresh_tal()
@@ -350,25 +248,37 @@ def hold_k1(tag, tabs, st0, fresh_tal, drain: bool = True) -> dict:
           f"{json.dumps(win)}")
     pushes_w = int((s_t.nsteps - st0.nsteps).sum())
 
-    def k1_window(s, t):
+    def k1_window(prepared):
+        # enqueued only: the events time the card (the launch and the
+        # memset of its two counters), not a host wait
+        prepared.enqueue(WINDOW, 10_000)
+
+    def k1_window_waited(s, t):
+        # through the wrapper that returns the ACTIVE count: validation
+        # and one host wait a launch, as every earlier reading of this
+        # window was taken
         mega.launch(s, tabs, t, WINDOW, 10_000)
 
     def twin_window(s, t):
         mega.step_twin(s, tabs, t, WINDOW, 10_000)
 
     prep = lambda n: [(clone_state(st0), fresh_tal()) for _ in range(n)]
+    launches = lambda n: [(mega.K1Launch(s, tabs, t),) for s, t in prep(n)]
     # plain, kernel, kernel, plain
     tw1 = time_launches(twin_window, prep(2))
-    k1a = time_launches(k1_window, prep(11))
-    k1b = time_launches(k1_window, prep(11))
+    k1a = time_launches(k1_window, launches(11))
+    k1b = time_launches(k1_window, launches(11))
+    k1w = time_launches(k1_window_waited, prep(11))
     tw2 = time_launches(twin_window, prep(2))
     k1_ms, tw_ms = (k1a + k1b) / 2, (tw1 + tw2) / 2
     print(f"{tag} window {WINDOW} steps x {LANES} lanes ({pushes_w} "
           f"pushes): K1 {k1a:.4f} / {k1b:.4f} ms "
-          f"({pushes_w / k1_ms / 1e3:.1f} M pushes/s), twin {tw1:.2f} / "
+          f"({pushes_w / k1_ms / 1e3:.1f} M pushes/s), with a host wait a "
+          f"launch {k1w:.4f} ms, twin {tw1:.2f} / "
           f"{tw2:.2f} ms ({pushes_w / tw_ms / 1e3:.3f} M pushes/s)")
-    out = dict(max_abs_err=psd_err, ms=k1_ms, plain_ms=tw_ms,
-               pushes=pushes_w, tally_bytes=touched, window=win)
+    out = dict(max_abs_err=psd_err, ms=k1_ms, waited_ms=k1w, plain_ms=tw_ms,
+               pushes=pushes_w, tally_bytes=touched, window=win,
+               instance=inst)
     if not drain:
         return out
 
@@ -411,83 +321,46 @@ def hold_k1(tag, tabs, st0, fresh_tal, drain: bool = True) -> dict:
     return dict(out, drain=drained, reasons=rk)
 
 
+def k1_full_drain(tag, case, cap: int, repeats: int = 3):
+    """K1 alone drains the case's population at the helix cap `cap`,
+    `repeats` times (scripts/workloads.py timed_drain: wall ms ending in
+    a synchronize, K1 launches, pushes and pushes/s; here also the host's
+    waits for a launch inside the drain); returns the fastest."""
+    from montecarloscattering_jl_tpu_torch.ops import mega
+    from montecarloscattering_jl_tpu_torch.scripts import workloads as wl
+
+    runs = []
+    for _ in range(repeats):
+        waits = mega.HOST_WAITS
+        runs.append(dict(wl.timed_drain(case, cap),
+                         host_waits=mega.HOST_WAITS - waits))
+    print(f"{tag} full drain at a {cap}-step cap, K1 alone: "
+          f"{json.dumps(runs)}")
+    if any(r["host_waits"] >= r["launches"] for r in runs):
+        fail(f"{tag}: the drain waits on the host once a launch")
+    return max(runs, key=lambda r: r["pushes_per_s"])
+
+
 def kernel_vs_twin(dev) -> dict:
     """K1 against its twin on the flagship population (phase k1), with
-    the bound of its window."""
-    from montecarloscattering_jl_tpu_torch.engine.run import TransportEngine
-    from montecarloscattering_jl_tpu_torch.engine.setup import build_setup
-    from montecarloscattering_jl_tpu_torch.ops import mega, state as stt
-    from montecarloscattering_jl_tpu_torch.utils import load_config
+    the bound of its window, and K1's full drains."""
+    from montecarloscattering_jl_tpu_torch.ops import mega
+    from montecarloscattering_jl_tpu_torch.scripts import workloads as wl
 
-    cfg = load_config(CFG)
-    setup = build_setup(cfg)
-    eng = TransportEngine(setup, device=dev)
-    grids = eng.segment_grids(setup.profile)
-    sc = eng.segment_scalars(0, 2, setup.profile.bmag2)
-    ss = eng.step_static(0)
-    mega.check_supported(ss)
-    tabs = mega.mega_tables(grids, sc, ss, dev)
-    st0 = flagship_population(setup, cfg, dev)
-    b = setup.bins
-    fresh_tal = lambda: stt.make_tallies(setup.nb, b.n_mom, b.n_theta, dev)
-    out = hold_k1("flagship", tabs, st0, fresh_tal)
+    case = wl.flagship_case(dev)
+    out = hold_k1("flagship", case["tabs"], case["st0"], case["fresh_tal"])
     out["bound_ms"], out["bound_by"] = bound(
-        LANES * K1_STATE_BYTES + out["tally_bytes"],
+        wl.LANES * K1_STATE_BYTES + out["tally_bytes"],
         out["pushes"] * K1_OPS_PER_PUSH)
     print(f"flagship window bound: {out['bound_ms']:.6f} ms "
           f"({out['bound_by']}; {out['tally_bytes']} B of tally entries "
           f"touched)")
+    out["full_drain"] = k1_full_drain("flagship", case,
+                                      mega.MAX_HELIX_STEPS)
+    out["science_drain"] = k1_full_drain(
+        "science protons", wl.flag_case(wl.FLAG_CASES[0], dev),
+        wl.SCIENCE_CAP)
     return out
-
-
-def load_variant(path: str, replace=(), **fields):
-    """A config file with text replacements, loaded through a temporary
-    copy, then with `fields` set on the RunConfig."""
-    from montecarloscattering_jl_tpu_torch.utils import load_config
-
-    text = open(path).read()
-    for old, new in replace:
-        if old not in text:
-            fail(f"{path}: {old!r} not found")
-        text = text.replace(old, new)
-    with tempfile.TemporaryDirectory() as d:
-        p = os.path.join(d, os.path.basename(path))
-        with open(p, "w") as f:
-            f.write(text)
-        cfg = load_config(p)
-    for k, v in fields.items():
-        setattr(cfg, k, v)
-    return cfg
-
-
-def science_variant(cfg) -> None:
-    """Scattering, DSA and smoothing on, the geometric pcut ladder and
-    the larger particle counts of the science runs, in place."""
-    from montecarloscattering_jl_tpu_torch.utils.config import (
-        auto_pcut_ladder, check_pcuts)
-
-    cfg.dont_scatter = cfg.dont_dsa = False
-    cfg.do_smoothing = True
-    cfg.pcuts = auto_pcut_ladder(cfg.pcuts[0], SCIENCE_PCUTS_PER_DECADE,
-                                 cfg.emax, cfg.emax_per_aa, cfg.pmax)
-    check_pcuts(cfg.pcuts, cfg.emax, cfg.emax_per_aa, cfg.pmax)
-    cfg.n_pts_inj *= SCIENCE_PTS_MULT
-    cfg.n_pts_pcut *= SCIENCE_PTS_MULT
-    cfg.n_pts_pcut_hi *= SCIENCE_PTS_MULT
-
-
-# (tag, species, science switches, flags that must be on, alpha of the
-# custom f(r_g) law or None)
-_PROTON_FLAGS = ("do_tcuts", "do_retro", "use_custom_eps_b",
-                 "do_energy_transfer")
-_ELECTRON_FLAGS = ("do_rad_losses",) + _PROTON_FLAGS
-FLAG_CASES = (("protons", 0, True, _PROTON_FLAGS, None),
-              ("electrons", 1, True, _ELECTRON_FLAGS, None),
-              ("protons-shipped", 0, False, ("dont_scatter", "dont_dsa",
-                                             "do_tcuts", "do_retro"), None),
-              ("protons-frg", 0, True, _PROTON_FLAGS, FRG_ALPHA),
-              ("electrons-frg", 1, True, _ELECTRON_FLAGS, FRG_ALPHA),
-              ("protons-frg-alpha1", 0, True, _PROTON_FLAGS, 1.0))
 
 
 def hold_alpha1(tag, tabs, tabs_std, st0, fresh_tal) -> None:
@@ -498,8 +371,9 @@ def hold_alpha1(tag, tabs, tabs_std, st0, fresh_tal) -> None:
     import torch
 
     from montecarloscattering_jl_tpu_torch.ops import mega
+    from montecarloscattering_jl_tpu_torch.scripts import workloads as wl
 
-    s_f, s_s = clone_state(st0), clone_state(st0)
+    s_f, s_s = wl.clone_state(st0), wl.clone_state(st0)
     mega.launch(s_f, tabs, fresh_tal(), 1, 10_000)
     mega.launch(s_s, tabs_std, fresh_tal(), 1, 10_000)
     torch.cuda.synchronize()
@@ -514,54 +388,25 @@ def kernel_vs_twin_flags(dev) -> dict:
     flags): the baseline (electron density 1) at the science variant's
     switches for protons and electrons, and at the shipped switches for
     protons, on flag_population's lanes."""
-    import numpy as np
-
-    from montecarloscattering_jl_tpu_torch.engine.run import (
-        TransportEngine, populate_eps_target)
-    from montecarloscattering_jl_tpu_torch.engine.setup import build_setup
-    from montecarloscattering_jl_tpu_torch.ops import mega, state as stt
+    from montecarloscattering_jl_tpu_torch.ops import mega
+    from montecarloscattering_jl_tpu_torch.scripts import workloads as wl
 
     out = {}
-    for tag, i_ion, science, want, frg_alpha in FLAG_CASES:
-        cfg = load_variant(BASELINE, replace=[("DENZ_ION = [1.0, 0.0]",
-                                               "DENZ_ION = [1.0, 1.0]")])
-        if science:
-            science_variant(cfg)
-        if frg_alpha is not None:
-            cfg.use_custom_frg = True
-            cfg.frg_alpha, cfg.frg_rg0_rg = frg_alpha, FRG_RG0_RG
-        setup = build_setup(cfg)
-        eng = TransportEngine(setup, device=dev)
-        prof = setup.profile
-        eps = populate_eps_target(cfg.energy_transfer_frac, cfg.u0,
-                                  cfg.gamma0, setup.u2, setup.gamma2, prof)
-        grids = eng.segment_grids(prof, eps_target=eps,
-                                  recv_pool=np.full(setup.nb, RECV_PER_ZONE))
-        st0, p_top = flag_population(cfg, setup, i_ion, dev)
-        # a pcut above every lane: the window saves none of them
-        i_pcut = next(i for i, p in enumerate(cfg.pcuts) if p > 2.0 * p_top)
-        sc = eng.segment_scalars(i_ion, i_pcut, prof.bmag2)
-        ss = eng.step_static(i_ion)
-        off = [f for f in want if not getattr(ss, f)]
-        if off:
-            fail(f"flags {tag}: {off} are off in the config")
-        mega.check_supported(ss)
-        tabs = mega.mega_tables(grids, sc, ss, dev)
-        if bool(tabs.flags & mega.FLAG_CUSTOM_FRG) != (frg_alpha is not None):
-            fail(f"flags {tag}: the f(r_g) bit is {tabs.flags:#x}")
-        b = setup.bins
-        fresh_tal = lambda: stt.make_tallies(
-            setup.nb, b.n_mom, b.n_theta, dev,
-            n_tcut_slots=eng.n_tcut_slots)
+    for case in wl.FLAG_CASES:
+        tag, i_ion, science, want, frg_alpha, word = case
+        c = wl.flag_case(case, dev)
+        tabs, st0, fresh_tal = c["tabs"], c["st0"], c["fresh_tal"]
         if frg_alpha == 1.0:
             # the window only, and one step against the standard law
             out[tag] = hold_k1(f"flags {tag}", tabs, st0, fresh_tal,
-                               drain=False)
-            std = dataclasses.replace(ss, frg_rg0_cm=0.0)
+                               drain=False, word=word)
+            std = dataclasses.replace(c["ss"], frg_rg0_cm=0.0)
             hold_alpha1(f"flags {tag}", tabs,
-                        mega.mega_tables(grids, sc, std, dev), st0, fresh_tal)
+                        mega.mega_tables(c["grids"], c["sc"], std, dev), st0,
+                        fresh_tal)
             continue
-        r = out[tag] = hold_k1(f"flags {tag}", tabs, st0, fresh_tal)
+        r = out[tag] = hold_k1(f"flags {tag}", tabs, st0, fresh_tal,
+                               word=word)
         w, d = r["window"], r["drain"]
         fired = {
             "tcut weight": d["weight_coupled"] if "do_tcuts" in want
@@ -655,13 +500,14 @@ def drive(cfg, dev, p_dtype, tag: str, cap: int = 0) -> tuple:
         mega.MAX_HELIX_STEPS = xla_step.MAX_HELIX_STEPS = cap
     try:
         with tempfile.TemporaryDirectory() as out:
-            mega.LAUNCHES = mega.TWIN_CALLS = 0
+            mega.LAUNCHES = mega.TWIN_CALLS = mega.HOST_WAITS = 0
             hist.LAUNCHES = hist.BAND_LAUNCHES = hist.PLAIN_CALLS = 0
             t0 = time.perf_counter()
             res = run(cfg, device=dev, out_dir=out, p_dtype=p_dtype)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            counts = dict(k1=mega.LAUNCHES, twin=mega.TWIN_CALLS,
+            counts = dict(k1=mega.LAUNCHES, k1_host_waits=mega.HOST_WAITS,
+                          twin=mega.TWIN_CALLS,
                           k2=hist.LAUNCHES, k3=hist.BAND_LAUNCHES,
                           hist_plain=hist.PLAIN_CALLS)
             written = {}
@@ -679,6 +525,9 @@ def drive(cfg, dev, p_dtype, tag: str, cap: int = 0) -> tuple:
         if counts["k1"] <= 0 or counts["twin"] != 0 or counts["k2"] != 0:
             fail(f"{tag}: {counts} (every drain must launch K1, none the "
                  f"twin or the XLA engine)")
+        if counts["k1_host_waits"] >= counts["k1"]:
+            fail(f"{tag}: {counts} (the drains wait on the host once a "
+                 f"launch)")
     elif (counts["k2"] <= 0 or counts["hist_plain"] != 0
           or counts["k1"] != 0 or counts["twin"] != 0):
         fail(f"{tag}: {counts} (every deposit must launch K2, no K1)")
@@ -727,11 +576,12 @@ def main_path(dev, p_dtype, n_itrs: int, x_spec: bool) -> dict:
     import torch
 
     from montecarloscattering_jl_tpu_torch.utils import load_config
+    from montecarloscattering_jl_tpu_torch.scripts import workloads as wl
 
-    cfg = load_config(CFG)
+    cfg = load_config(wl.CFG)
     cfg.n_itrs = n_itrs
     cfg.do_smoothing = True
-    cfg.n_pts_inj = cfg.n_pts_pcut = cfg.n_pts_pcut_hi = LANES
+    cfg.n_pts_inj = cfg.n_pts_pcut = cfg.n_pts_pcut_hi = wl.LANES
     if x_spec:
         cfg.x_spec = [-0.5 * cfg.rg0, 0.5 * cfg.rg0]
     if p_dtype == torch.float64:
@@ -759,13 +609,15 @@ def science_path(dev) -> dict:
     (phase science)."""
     import torch
 
-    cfg = load_variant(BASELINE, n_itrs=1)
-    science_variant(cfg)
+    from montecarloscattering_jl_tpu_torch.scripts import workloads as wl
+
+    cfg = wl.load_variant(wl.BASELINE, n_itrs=1)
+    wl.science_variant(cfg)
     print(f"science: {len(cfg.pcuts)} pcuts, {cfg.n_pts_inj} / "
           f"{cfg.n_pts_pcut} / {cfg.n_pts_pcut_hi} particles, helix cap "
-          f"{SCIENCE_CAP}")
+          f"{wl.SCIENCE_CAP}")
     res, counts, wall, written = drive(cfg, dev, torch.float32, "science",
-                                       cap=SCIENCE_CAP)
+                                       cap=wl.SCIENCE_CAP)
     print(f"science: coupled CSV lines: weights "
           f"{written['mc_coupled_weights.csv']}, spectra "
           f"{written['mc_coupled_spectra.csv']}")
@@ -877,7 +729,9 @@ def sed_path(dev) -> dict:
 def electron_variant():
     """examples/03 with photon production off and the baseline's
     energy-transfer fraction, 1 iteration."""
-    return load_variant(ELECTRONS, replace=[
+    from montecarloscattering_jl_tpu_torch.scripts import workloads as wl
+
+    return wl.load_variant(ELECTRONS, replace=[
         ("calculate-photon-production = true",
          "calculate-photon-production = false"),
         ("energy-transfer-frac = 0.0", "energy-transfer-frac = 0.1")],
@@ -907,7 +761,9 @@ def shipped_path(dev) -> dict:
     iteration (phase shipped)."""
     import torch
 
-    cfg = load_variant(BASELINE, n_itrs=1)
+    from montecarloscattering_jl_tpu_torch.scripts import workloads as wl
+
+    cfg = wl.load_variant(wl.BASELINE, n_itrs=1)
     res, counts, wall, written = drive(cfg, dev, torch.float64, "shipped")
     print(f"shipped: {res.n_pushes} pushes and {res.n_trajectories} "
           f"trajectories (the JAX package on the CPU, --f32: "
@@ -931,9 +787,10 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     from montecarloscattering_jl_tpu_torch.ops import build
+    from montecarloscattering_jl_tpu_torch.scripts import workloads as wl
 
     t_start = time.perf_counter()
-    card = card_line()
+    card = wl.card_line()
     print(f"nvidia-smi: {card}")
     name = torch.cuda.get_device_name(0)
     print(f"torch: {torch.__version__} cuda {torch.version.cuda}; "
@@ -959,7 +816,10 @@ def main() -> int:
         t0 = time.perf_counter()
         done[phase] = fn(dev)
         print(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"kernels": kernel_records(done)}))
+    # after the phases: an instance's resident blocks are known once it
+    # has launched
+    instances = k1_instances(build.LOGS.get("mega_step", ""))
+    print(json.dumps({"kernels": kernel_records(done, instances)}))
     print(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -968,11 +828,39 @@ def main() -> int:
     return 0
 
 
-def kernel_records(done) -> list:
+def k1_instances(ptxas_log: str) -> list:
+    """Every K1 instance with its flag word (ops/mega.py INSTANCES), its
+    registers and local-memory bytes a thread from the CUDA runtime and,
+    where this run compiled the source (``-Xptxas -v``), its stack frame
+    and spill bytes."""
+    import re
+
+    from montecarloscattering_jl_tpu_torch.ops import mega
+
+    said = {}
+    for blk in re.split(r"Compiling entry function '", ptxas_log)[1:]:
+        m = re.match(r"\w*mega_step_kernelILi(n?)(\d+)E", blk)
+        regs = re.search(r"Used (\d+) registers", blk)
+        mem = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                        r"stores, (\d+) bytes spill loads", blk)
+        if m and regs and mem:
+            word = -int(m.group(2)) if m.group(1) else int(m.group(2))
+            said[word] = dict(ptxas_registers=int(regs.group(1)),
+                              stack_bytes=int(mem.group(1)),
+                              spill_store_bytes=int(mem.group(2)),
+                              spill_load_bytes=int(mem.group(3)))
+    return [dict(mega.instance_attrs(i), **said.get(word, {}))
+            for i, word in enumerate(mega.INSTANCES)]
+
+
+def kernel_records(done, instances) -> list:
     """The kernels line: every kernel with its main-path launches (K1 on
     the flagship f32, science, electrons32 and sed paths, K2 on the f64
-    flagship, shipped and electron paths), its error against its plain version,
-    its time, its plain version's, its bound and the library call's."""
+    flagship, shipped and electron paths), its error against its plain
+    version, its time, its plain version's, its bound and the library
+    call's.  K2's and K4's ``ms`` and ``library_ms`` are device times
+    under CUDA-graph replay (``eager_ms`` and ``library_eager_ms``: the
+    eager calls'); K1 carries its full drains and its instances."""
     src = "montecarloscattering_jl_tpu_torch/csrc/"
     hp, k1 = done["hist"], done["k1"]
     k2, k3, k4 = (hp["K2 (69,632 records)"], hp["K3 band=2048"],
@@ -986,17 +874,32 @@ def kernel_records(done) -> list:
                          plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                          bound_by=r["bound_by"],
                          library_ms=r.get("library_ms"))
+    eager = lambda r: dict(eager_ms=r["eager_ms"],
+                           library_eager_ms=r["library_eager_ms"])
     return [
         {"name": "K1 mega_step", "route": "cuda",
          "source": src + "mega_step.cu",
          "replaces": "montecarloscattering_jl_tpu/ops/pallas_step.py:225",
          "launches": k1_launches, **rec(k1),
+         "waited_ms": k1["waited_ms"],
+         "full_drain": k1["full_drain"],
+         "science_drain": k1["science_drain"],
+         "drain_pushes_per_s": k1["full_drain"]["pushes_per_s"],
+         "instances": instances,
          "note": "timed on the flagship's 64-step window at 65,536 "
-                 "lanes; no single PyTorch call computes a helix step"},
+                 "lanes, enqueued only (waited_ms: through mega.launch, "
+                 "with validation and one host wait a launch); no single "
+                 "PyTorch call computes a helix step; "
+                 "full_drain: the same lanes to the config's helix cap"},
         {"name": "K2 psd_scatter", "route": "cuda",
          "source": src + "psd_hist.cu",
          "replaces": "montecarloscattering_jl_tpu/ops/pallas_hist.py:149",
-         "launches": k2_launches, **rec(k2)},
+         "launches": k2_launches, **rec(k2), **eager(k2),
+         "wide_ms": hp["K2 (69,632 records, int64 zones, float64 "
+                       "weights)"]["ms"],
+         "note": "ms and library_ms under CUDA-graph replay, as the "
+                 "path launches it; wide_ms: on the helix step's int64 "
+                 "zones and float64 weights"},
         {"name": "K3 psd_scatter_band", "route": "cuda",
          "source": src + "psd_hist.cu",
          "replaces": "scripts/probe_hist.py:97",
@@ -1006,7 +909,7 @@ def kernel_records(done) -> list:
         {"name": "K4 = K2 psd_scatter", "route": "cuda",
          "source": src + "psd_hist.cu",
          "replaces": "scripts/probe_hist.py:173",
-         "launches": k2_launches, **rec(k4),
+         "launches": k2_launches, **rec(k4), **eager(k4),
          "note": "runs K2's kernel at P4's 2^16 records"}]
 
 

@@ -6,22 +6,53 @@
 // PyTorch version of one launch, which this file mirrors statement by
 // statement, is montecarloscattering_jl_tpu_torch/ops/mega.py::step_twin.
 //
-// What bounds it on this card: the f32/f64 ALU work of one push
-// (two Threefry-2x32-20 blocks, ~10 hypot/sqrt, cos, sin, acos, two log,
-// a binary search) plus atomic traffic on the tally cells of the zones
-// around the shock, where most crossings land.  There is no reuse to
-// stage and no matrix to feed the tensor cores, so the design keeps
-// everything a lane touches in registers: one thread per lane, a
-// register-resident S-step loop, the zone table in shared memory, the
-// four flux channels in a per-block shared accumulator flushed once per
-// launch, the escape and pressure sums in per-thread registers reduced
-// per warp, and only the PSD difference array deposited straight into
-// global memory by f32 atomicAdd.
+// What bounds it on this card: the f32/f64 ALU work of one push (two
+// Threefry-2x32-20 blocks, ~10 hypot/sqrt, cos, sin, acos, two log, a
+// zone lookup), a dependent chain that one thread walks alone.  There is
+// no reuse to stage and no matrix to feed the tensor cores.  What holds it
+// above that bound, and what the design does about each:
+//   * Same-address atomics.  Lanes injected together cross the same zone
+//     boundaries in the same momentum and angle bin, and atomics on one
+//     address retire one after another (in L2 for the PSD, as a
+//     compare-and-swap loop in shared memory for the f64 flux).  The
+//     lanes of a warp that reach a tally together group equal addresses
+//     with __match_any_sync, and one lane of each group adds the group's
+//     sum (agg_add): the flux channels on (lo, hi), the PSD on (cell, lo,
+//     hi), the pool and tcut tallies on their own keys.
+//   * Dead threads and host round trips.  A launch is persistent: the
+//     grid is at most what the card holds at once, each thread claims a
+//     lane (its own index first, then the next unclaimed one from a
+//     device cursor), runs it for up to n_steps steps or to its end,
+//     stores it and claims another, until no lane is left.  A thread
+//     never idles while a lane waits, a lane that is not ACTIVE costs one
+//     4-byte read, and with n_steps at the helix cap one launch is a
+//     whole drain: the host waits for nothing in between.
+//   * The length of one step.  A drain ends with its longest lanes, a
+//     few threads that each walk the step's dependent chain alone, so
+//     the chain's length is the drain's time.  What only a rare branch
+//     reads is computed inside that branch: the frame re-transform where
+//     the zone's flow speed changed, the shock-frame momenta where a
+//     boundary was crossed, the diffusion length beyond 1.1 PRP, a second
+//     reflection try after a first was refused, and the step's second
+//     Threefry block (u[4..7]) at a reflection or a PRP return.  The same
+//     operations give the same bits; the common step drops eight of its
+//     ten hypots and half its RNG.  The zone lookup tries the lane's last
+//     zone and its neighbours before the binary search; the kernel is a
+//     template over the static flag word, so the flagship's instance
+//     carries none of the retro walk's, the energy transfer's or the
+//     f(r_g) law's code (kInstances; every other combination runs the
+//     instance that reads the flags at run time).
+// Everything a lane touches stays in registers; the zone table and the
+// four flux channels of the block live in shared memory, flushed once a
+// launch; the escape and pressure sums are per-thread registers reduced
+// per warp.  Per-lane results do not depend on which thread runs a lane
+// or when: the RNG counter is the lane's own step count.
 //
 // The static flags of the megakernel's cfg (no-scatter, no-DSA,
 // radiative losses, the retro walk, tcuts, energy transfer, custom
-// eps_B, the custom f(r_g) mean-free-path law) are runtime bits of
-// si[SI_FLAGS], uniform across a launch.
+// eps_B, the custom f(r_g) mean-free-path law) are bits of si[SI_FLAGS],
+// uniform across a launch, compile-time constants in the specialised
+// instances.
 // Their tallies go to global memory by f64 atomicAdd: the ion pool as a
 // (lo, hi+1) difference pair into pool_diff, the tcut crossings into
 // weight_coupled / spectra_coupled at the lane's final momentum bin.
@@ -40,7 +71,10 @@
 #include <stdint.h>
 
 #define ZMAX 128
-#define BLOCK 128
+// threads a block, and the blocks an SM must hold (the register cap:
+// 65,536 / (K1_BLOCK * K1_MIN_BLOCKS) a thread)
+#define K1_BLOCK 128
+#define K1_MIN_BLOCKS 4
 
 enum { ACTIVE = 0, SAVED = 1, FINISHED = 2 };
 enum { R_DOWNSTREAM = 1, R_UPSTREAM_PMAX = 2, R_AGE = 3, R_RADIATED = 4 };
@@ -70,6 +104,25 @@ enum {
   FLAG_RETRO = 8, FLAG_TCUTS = 16, FLAG_ENERGY_TRANSFER = 32,
   FLAG_CUSTOM_EPS_B = 64, FLAG_CUSTOM_FRG = 128
 };
+// An instance's compile-time word: the flag bits, CT_ELECTRON for an
+// electron species; CT_RUNTIME reads both from si at run time.  A proton
+// word never carries FLAG_RAD_LOSSES (the loss acts on electrons only).
+enum { CT_ELECTRON = 256, CT_RUNTIME = -1 };
+enum {
+  CT_SCIENCE = FLAG_RETRO | FLAG_TCUTS | FLAG_ENERGY_TRANSFER |
+               FLAG_CUSTOM_EPS_B
+};
+// ops/mega.py INSTANCES lists the same words in the same order
+constexpr int kInstances[] = {
+    0,
+    CT_ELECTRON | FLAG_RAD_LOSSES,
+    CT_SCIENCE,
+    CT_ELECTRON | FLAG_RAD_LOSSES | CT_SCIENCE,
+    FLAG_CUSTOM_FRG,
+    CT_SCIENCE | FLAG_CUSTOM_FRG,
+    CT_ELECTRON | FLAG_RAD_LOSSES | CT_SCIENCE | FLAG_CUSTOM_FRG,
+    CT_RUNTIME};
+constexpr int kNumInstances = sizeof(kInstances) / sizeof(int);
 
 __device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
   return (x << r) | (x >> (32 - r));
@@ -96,6 +149,21 @@ __device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
   }
   *y0 = x0;
   *y1 = x1;
+}
+
+// a 16-bit integer as a uniform in (0, 1)
+__device__ __forceinline__ float unit16(uint32_t h) {
+  return ((float)h + 0.5f) * (1.0f / 65536.0f);
+}
+
+// u[4 + j] of a step (j in 0..3): the j-th 16-bit half of the step's
+// second Threefry block
+__device__ __forceinline__ float u_hi(uint32_t k0, uint32_t k1, int nsteps,
+                                      int j) {
+  uint32_t w2, w3;
+  threefry2x32(k0, k1, (uint32_t)nsteps, 1u, &w2, &w3);
+  const uint32_t w = j < 2 ? w2 : w3;
+  return unit16((j & 1) ? w >> 16 : w & 0xFFFFu);
 }
 
 // jnp.hypot: max * sqrt(1 + (min/max)^2), 0 at 0
@@ -157,6 +225,62 @@ __device__ __forceinline__ int zone_of(const double* xg, int nb, double x) {
   return lo - 1;
 }
 
+// zone_of(xg, nb, x), trying zone h (in [-1, nb - 1]) and its two
+// neighbours first: the same index by construction
+__device__ __forceinline__ int zone_near(const double* xg, int nb, double x,
+                                         int h) {
+  const bool ge = h < 0 || xg[h] <= x;
+  const bool lt = h + 1 >= nb || x < xg[h + 1];
+  if (ge && lt) return h;
+  if (ge) {                       // at or beyond the next boundary
+    if (x >= xg[h + 1] && (h + 2 >= nb || x < xg[h + 2])) return h + 1;
+  } else if (h > 0 && xg[h - 1] <= x && x < xg[h]) {
+    return h - 1;
+  } else if (h == 0 && x < xg[0]) {
+    return -1;
+  }
+  return zone_of(xg, nb, x);
+}
+
+// The sums of x[0..N) over each group of lanes of `mask` (the lanes
+// converged at the call) that hold the same key, valid on the group's
+// lowest lane, for which it returns true.  Each round a lane adds the
+// values of its next higher peer still in, and the peers at odd
+// positions drop out.
+template <int N, typename T, typename KeyT>
+__device__ __forceinline__ bool group_sums(unsigned mask, KeyT key,
+                                           T (&x)[N]) {
+  const int lane = threadIdx.x & 31;
+  unsigned peers = __match_any_sync(mask, key);
+  const bool leader = lane == __ffs(peers) - 1;
+  int pos = __popc(peers & ((1u << lane) - 1u));     // peers below me
+  peers &= 0xfffffffeu << lane;                      // peers above me
+  while (__any_sync(mask, peers != 0u)) {
+    const int next = __ffs(peers);                   // 0: none left
+    const int src = next ? next - 1 : lane;
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const T t = __shfl_sync(mask, x[j], src);
+      if (next) x[j] += t;
+    }
+    peers &= __ballot_sync(mask, (pos & 1) == 0);
+    pos >>= 1;
+  }
+  return leader;
+}
+
+// The next unclaimed index of a device cursor, one atomicAdd for the
+// lanes converged at the call
+__device__ __forceinline__ int claim(int* cursor) {
+  const unsigned mask = __activemask();
+  const int lane = threadIdx.x & 31;
+  const int leader = __ffs(mask) - 1;
+  int base = 0;
+  if (lane == leader) base = atomicAdd(cursor, __popc(mask));
+  base = __shfl_sync(mask, base, leader);
+  return base + __popc(mask & ((1u << lane) - 1u));
+}
+
 __device__ __forceinline__ double warp_sum(double v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
@@ -169,30 +293,65 @@ __device__ __forceinline__ int warp_sum_i(int v) {
   return v;
 }
 
-__global__ void __launch_bounds__(BLOCK)
-mega_step_kernel(float* __restrict__ w_g, float* __restrict__ pb_g,
-                 float* __restrict__ pperp_g, float* __restrict__ phi_g,
-                 float* __restrict__ uxp_g, float* __restrict__ xnp_g,
-                 float* __restrict__ tstep_g, double* __restrict__ x_g,
-                 double* __restrict__ prp_g, double* __restrict__ acct_g,
-                 int* __restrict__ status_g, int* __restrict__ reason_g,
-                 int* __restrict__ nsteps_g, int* __restrict__ flags_g,
-                 int* __restrict__ tcut_g,
-                 const int* __restrict__ key0_g,
-                 const int* __restrict__ key1_g,
-                 const double* __restrict__ xg_g,
-                 const float* __restrict__ zf_g,
-                 const float* __restrict__ sf_g,
-                 const double* __restrict__ sd_g,
-                 const int* __restrict__ si_g,
-                 const double* __restrict__ tc_g,
-                 const float* __restrict__ et_g,
-                 const double* __restrict__ rp_g, float* __restrict__ psd_g,
-                 double* __restrict__ flux_g, double* __restrict__ esc_g,
-                 double* __restrict__ pool_g, double* __restrict__ wc_g,
-                 double* __restrict__ sc_g, double* __restrict__ cnt_g,
-                 int* __restrict__ n_active_g, int n, int n_steps,
-                 int max_helix) {
+// the launch's arrays: a lane's state (in place), the segment's tables,
+// the tallies (added to in place), and scratch = {cursor, live lanes}
+struct K1Args {
+  float *w, *pb, *pperp, *phi, *uxp, *xnp, *tstep;
+  double *x, *prp, *acct;
+  int *status, *reason, *nsteps, *flags, *tcut;
+  const int *key0, *key1;
+  const double* xg;
+  const float *zf, *sf;
+  const double* sd;
+  const int* si;
+  const double* tc;
+  const float* et;
+  const double* rp;
+  float* psd;
+  double *flux, *esc, *pool, *wc, *sc, *cnt;
+  int* scratch;
+  int n, n_steps, max_helix;
+};
+
+template <int CT>
+__global__ void __launch_bounds__(K1_BLOCK, K1_MIN_BLOCKS)
+mega_step_kernel(const K1Args a) {
+  float* __restrict__ const w_g = a.w;
+  float* __restrict__ const pb_g = a.pb;
+  float* __restrict__ const pperp_g = a.pperp;
+  float* __restrict__ const phi_g = a.phi;
+  float* __restrict__ const uxp_g = a.uxp;
+  float* __restrict__ const xnp_g = a.xnp;
+  float* __restrict__ const tstep_g = a.tstep;
+  double* __restrict__ const x_g = a.x;
+  double* __restrict__ const prp_g = a.prp;
+  double* __restrict__ const acct_g = a.acct;
+  int* __restrict__ const status_g = a.status;
+  int* __restrict__ const reason_g = a.reason;
+  int* __restrict__ const nsteps_g = a.nsteps;
+  int* __restrict__ const flags_g = a.flags;
+  int* __restrict__ const tcut_g = a.tcut;
+  const int* __restrict__ const key0_g = a.key0;
+  const int* __restrict__ const key1_g = a.key1;
+  const double* __restrict__ const xg_g = a.xg;
+  const float* __restrict__ const zf_g = a.zf;
+  const float* __restrict__ const sf_g = a.sf;
+  const double* __restrict__ const sd_g = a.sd;
+  const int* __restrict__ const si_g = a.si;
+  const double* __restrict__ const tc_g = a.tc;
+  const float* __restrict__ const et_g = a.et;
+  const double* __restrict__ const rp_g = a.rp;
+  float* __restrict__ const psd_g = a.psd;
+  double* __restrict__ const flux_g = a.flux;
+  double* __restrict__ const esc_g = a.esc;
+  double* __restrict__ const pool_g = a.pool;
+  double* __restrict__ const wc_g = a.wc;
+  double* __restrict__ const sc_g = a.sc;
+  double* __restrict__ const cnt_g = a.cnt;
+  int* const cursor_g = a.scratch;
+  int* const n_active_g = a.scratch + 1;
+  const int n = a.n, n_steps = a.n_steps, max_helix = a.max_helix;
+
   __shared__ double xg[ZMAX];
   __shared__ float zux[ZMAX], zgsf[ZMAX], zgef[ZMAX], zb[ZMAX];
   __shared__ double flux_s[4 * ZMAX];
@@ -204,10 +363,11 @@ mega_step_kernel(float* __restrict__ w_g, float* __restrict__ pb_g,
   const int n_theta = si_g[SI_N_THETA];
   const float bpd_mom = (float)si_g[SI_BPD_MOM];
   const float bpd_theta = (float)si_g[SI_BPD_THETA];
-  const bool is_el = si_g[SI_IS_ELECTRON] != 0;
+  const bool is_el =
+      CT >= 0 ? (CT & CT_ELECTRON) != 0 : si_g[SI_IS_ELECTRON] != 0;
   const int i_shock = si_g[SI_I_SHOCK];
   const int n_tc = si_g[SI_N_TCUT];
-  const int fl = si_g[SI_FLAGS];
+  const int fl = CT >= 0 ? (CT & 255) : si_g[SI_FLAGS];
   const bool dont_scatter = (fl & FLAG_DONT_SCATTER) != 0;
   const bool dont_dsa = (fl & FLAG_DONT_DSA) != 0;
   const bool rad_on = (fl & FLAG_RAD_LOSSES) != 0 && is_el;
@@ -260,19 +420,34 @@ mega_step_kernel(float* __restrict__ w_g, float* __restrict__ pb_g,
   double s_retro = 0.0, s_recv = 0.0, s_rad = 0.0;
   int live = 0;
 
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n && status_g[i] == ACTIVE) {
-    const float w_lane = w_g[i];
-    float pb = pb_g[i], pperp = pperp_g[i], phi = phi_g[i];
-    float uxp = uxp_g[i], xnp = xnp_g[i], tstep = tstep_g[i];
-    double x = x_g[i], prp = prp_g[i], acct = acct_g[i];
-    int status = ACTIVE, reason = reason_g[i], nsteps = nsteps_g[i];
-    int flags = flags_g[i];
-    int tcut = tcut_g[i];
-    const uint32_t k0 = (uint32_t)key0_g[i], k1 = (uint32_t)key1_g[i];
-
-    for (int s = 0; s < n_steps; ++s) {
-      if (status != ACTIVE) break;
+  // the persistent lane loop: `next` is the index this thread tries to
+  // claim (its own first, then from the cursor), `i` the lane it holds
+  const int n_threads = gridDim.x * blockDim.x;
+  int next = blockIdx.x * blockDim.x + threadIdx.x;
+  int i = -1, left = 0, zh = -1;
+  float w_lane = 0.0f, pb = 0.0f, pperp = 0.0f, phi = 0.0f;
+  float uxp = 0.0f, xnp = 0.0f, tstep = 0.0f;
+  double x = 0.0, prp = 0.0, acct = 0.0;
+  int status = FINISHED, reason = 0, nsteps = 0, flags = 0, tcut = 0;
+  uint32_t k0 = 0u, k1 = 0u;
+  for (;;) {
+    if (i < 0) {
+      while (next < n && status_g[next] != ACTIVE)
+        next = n_threads + claim(cursor_g);
+      if (next >= n) break;
+      i = next;
+      left = n_steps;
+      w_lane = w_g[i];
+      pb = pb_g[i], pperp = pperp_g[i], phi = phi_g[i];
+      uxp = uxp_g[i], xnp = xnp_g[i], tstep = tstep_g[i];
+      x = x_g[i], prp = prp_g[i], acct = acct_g[i];
+      status = ACTIVE, reason = reason_g[i], nsteps = nsteps_g[i];
+      flags = flags_g[i];
+      tcut = tcut_g[i];
+      k0 = (uint32_t)key0_g[i], k1 = (uint32_t)key1_g[i];
+      zh = zone_of(xg, nb, x);
+    }
+    {
       bool retro = (flags & FL_RETRO) != 0;
       const bool jret = (flags & FL_JRET) != 0;
       bool dwf = (flags & FL_DW) != 0;
@@ -280,21 +455,22 @@ mega_step_kernel(float* __restrict__ w_g, float* __restrict__ pb_g,
       const bool norm = !retro;
       bool do_b3 = norm && !jret;
 
-      float u[8];
+      // the step's eight uniforms are 16-bit halves of two Threefry
+      // blocks: u[0..3] of block 0, drawn every step; u[4..7] of block 1,
+      // which only the reflection at the shock and the PRP return read,
+      // drawn where they do (u_hi)
+      float u[4];
       {
-        uint32_t w0, w1, w2, w3;
+        uint32_t w0, w1;
         threefry2x32(k0, k1, (uint32_t)nsteps, 0u, &w0, &w1);
-        threefry2x32(k0, k1, (uint32_t)nsteps, 1u, &w2, &w3);
-        const uint32_t ws[4] = {w0, w1, w2, w3};
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          u[2 * j] = ((float)(ws[j] & 0xFFFFu) + 0.5f) * (1.0f / 65536.0f);
-          u[2 * j + 1] = ((float)(ws[j] >> 16) + 0.5f) * (1.0f / 65536.0f);
-        }
+        u[0] = unit16(w0 & 0xFFFFu);
+        u[1] = unit16(w0 >> 16);
+        u[2] = unit16(w1 & 0xFFFFu);
+        u[3] = unit16(w1 >> 16);
       }
 
       // ---- zone fields from position --------------------------------
-      const int ig = zone_of(xg, nb, x);
+      const int ig = zone_near(xg, nb, x, zh);
       const int igc = ig < 0 ? 0 : ig;
       const float ux = zux[igc], gsf = zgsf[igc], gef = zgef[igc];
       float bmag = zb[igc];
@@ -306,19 +482,19 @@ mega_step_kernel(float* __restrict__ w_g, float* __restrict__ pb_g,
       float gamma_pf = hyp(ptot / mc, one);
 
       // ---- Code Block 3 ---------------------------------------------
-      const bool changed = do_b3 && (ux != uxp);
-      {
+      // (a value that only a rare branch reads is computed inside that
+      // branch, here and below: the same bits, a shorter common step)
+      if (do_b3 && (ux != uxp)) {
         const float beta_old = uxp / c;
         const float gsf_old =
             one / sqrtf(fmaxp(1.0f - beta_old * beta_old, tiny30));
         const float px_sk_t = gsf_old * (pb + gamma_pf * m * uxp);
         const float pt_sk_t = hyp(px_sk_t, pperp);
         const float g_sk_t = hyp(pt_sk_t / mc, one);
-        const float pb_tr = gsf * (px_sk_t - g_sk_t * m * ux);
-        if (changed) pb = pb_tr;
+        pb = gsf * (px_sk_t - g_sk_t * m * ux);
+        ptot = hyp(pb, pperp);
+        gamma_pf = hyp(ptot / mc, one);
       }
-      ptot = hyp(pb, pperp);
-      gamma_pf = hyp(ptot / mc, one);
       if (do_b3) uxp = ux;
 
       // downstream escape with scattering off
@@ -329,10 +505,10 @@ mega_step_kernel(float* __restrict__ w_g, float* __restrict__ pb_g,
       }
 
       // pmax escape (both frames)
-      {
+      if (do_b3 && ptot > pmax_cutoff) {
         const float px_sk0 = gsf * (pb + gamma_pf * m * ux);
         const float pt_sk0 = hyp(px_sk0, pperp);
-        if (do_b3 && ptot > pmax_cutoff && pt_sk0 > pmax_cutoff) {
+        if (pt_sk0 > pmax_cutoff) {
           status = FINISHED;
           reason = R_UPSTREAM_PMAX;
           do_b3 = false;
@@ -433,27 +609,29 @@ mega_step_kernel(float* __restrict__ w_g, float* __restrict__ pb_g,
       if (moving) {
         bool done = false;
         float pb_m = pb, phi_m = phi;
-        const float u_inj[2] = {u[5], u[6]};
-        const float u_phi[2] = {u[7], u[3]};
 #pragma unroll
         for (int kk = 0; kk < 2; ++kk) {
+          if (done) break;
           const float phi_try = floor_mod(phi_m + two_pi / xnp, two_pi);
           const float dx =
               gsf * (pb_m * tstep / (gamma_pf * m) + ux * tstep);
           const double x_try = x_old + (double)dx;
           const bool cross_up = (x_try <= 0.0) && (x_old > 0.0) && !injf &&
                                 (dont_dsa || inj_frac < 1.0f);
-          const bool fail = dont_dsa || u_inj[kk] > inj_frac;
-          const bool refl = !done && cross_up && fail;
-          const bool accept = !done && !refl;
-          if (accept) {
+          // the injection draw: u[5], then u[6]
+          const bool refl =
+              cross_up &&
+              (dont_dsa || u_hi(k0, k1, nsteps, 1 + kk) > inj_frac);
+          if (!refl) {
             dx_acc = dx;
             phi_fin = phi_try;
+            done = true;
+          } else if (pb_m < 0.0f) {
+            pb_m = -pb_m;
+          } else {
+            // the new phase: u[7], then u[3]
+            phi_m = (kk == 0 ? u_hi(k0, k1, nsteps, 3) : u[3]) * two_pi;
           }
-          done = done || accept;
-          const bool neg = pb_m < 0.0f;
-          if (refl && neg) pb_m = -pb_m;
-          if (refl && !neg) phi_m = u_phi[kk] * two_pi;
         }
         if (!done) {
           const float phi_try = floor_mod(phi_m + two_pi / xnp, two_pi);
@@ -477,26 +655,34 @@ mega_step_kernel(float* __restrict__ w_g, float* __restrict__ pb_g,
 
       // ---- tallies (all_flux) ----------------------------------------
       int ig_new = ig;
-      if (moving) ig_new = clampi(zone_of(xg, nb, x), 0, nb - 2);
-
-      const float px_sk = gsf * (pb + gamma_pf * m * ux);
-      const float pt_sk = hyp(px_sk, pperp);
-      const float g_sk = hyp(pt_sk / mc, one);
-      const float pz_sk = -pperp * sinf(phi);
-      const bool spike = pt_sk > fabsf(px_sk) * spike_away;
-      const float inv_vx =
-          spike ? fabsf(spike_away / ux)
-                : fabsf(g_sk * m / (px_sk == 0.0f ? tiny30 : px_sk));
-      const bool rel = (g_sk - 1.0f) > e_rel;
-      const float e_add = rel ? (g_sk - 1.0f) * e0 * w_lane
-                              : pt_sk * pt_sk / (2.0f * m) * w_lane;
+      zh = ig;
+      if (moving) {
+        zh = zone_near(xg, nb, x, ig);
+        ig_new = clampi(zh, 0, nb - 2);
+      }
 
       const bool moved_down = x > x_old;
       int lo_z = moved_down ? ig + 1 : ig_new + 1;
       const int hi_z = moved_down ? ig_new : ig;
       if (!moved_down && injf && lo_z < i_grid_feb + 1) lo_z = i_grid_feb + 1;
       const bool crossed = moving && (hi_z >= lo_z);
+      // escaping flux at the upstream FEB
+      const bool esc_cross = moving && injf && x < feb_up && x_old >= feb_up;
+      float px_sk = 0.0f, pt_sk = 0.0f, g_sk = 0.0f, e_add = 0.0f;
+      if (crossed || esc_cross) {
+        px_sk = gsf * (pb + gamma_pf * m * ux);
+        pt_sk = hyp(px_sk, pperp);
+        g_sk = hyp(pt_sk / mc, one);
+        const bool rel = (g_sk - 1.0f) > e_rel;
+        e_add = rel ? (g_sk - 1.0f) * e0 * w_lane
+                    : pt_sk * pt_sk / (2.0f * m) * w_lane;
+      }
       if (crossed) {
+        const float pz_sk = -pperp * sinf(phi);
+        const bool spike = pt_sk > fabsf(px_sk) * spike_away;
+        const float inv_vx =
+            spike ? fabsf(spike_away / ux)
+                  : fabsf(g_sk * m / (px_sk == 0.0f ? tiny30 : px_sk));
         const int lo_c = clampi(lo_z, 0, nb - 1);
         const int hi_c = clampi(hi_z, 0, nb - 1);
         const float sign = moved_down ? 1.0f : -1.0f;
@@ -504,11 +690,16 @@ mega_step_kernel(float* __restrict__ w_g, float* __restrict__ pb_g,
         const float v_pxz = fabsf(pz_sk) * w_lane * g0u0 * 1.0f;
         const float v_en = sign * e_add * g0u0 * 1.0f;
         const float v_n = injf ? 0.0f : 1.0f;
-        const float vals[4] = {v_pxx, v_pxz, v_en, v_n};
+        // the lanes of the warp that crossed the same range add once
+        const unsigned crossers = __activemask();
+        double vals[4] = {(double)v_pxx, (double)v_pxz, (double)v_en,
+                          (double)v_n};
+        if (group_sums(crossers, lo_c * ZMAX + hi_c, vals)) {
 #pragma unroll
-        for (int ch = 0; ch < 4; ++ch) {
-          atomicAdd(&flux_s[ch * nz + lo_c], (double)vals[ch]);
-          atomicAdd(&flux_s[ch * nz + hi_c + 1], -(double)vals[ch]);
+          for (int ch = 0; ch < 4; ++ch) {
+            atomicAdd(&flux_s[ch * nz + lo_c], vals[ch]);
+            atomicAdd(&flux_s[ch * nz + hi_c + 1], -vals[ch]);
+          }
         }
 
         // psd bins (get_psd_bins.jl:16-39, 73-97)
@@ -525,13 +716,15 @@ mega_step_kernel(float* __restrict__ w_g, float* __restrict__ pb_g,
         jt = clampi(jt, 0, n_theta);
         const int kind = injf ? 0 : 1;
         const long cell = (long)((ipb * 2 + kind) * (n_theta + 1) + jt);
-        const float psd_w = w_lane * inv_vx * 1.0f;
-        atomicAdd(&psd_g[cell * nz + lo_c], psd_w);
-        atomicAdd(&psd_g[cell * nz + hi_c + 1], -psd_w);
+        float psd_w[1] = {w_lane * inv_vx * 1.0f};
+        if (group_sums(crossers, (cell * ZMAX + lo_c) * ZMAX + hi_c,
+                       psd_w)) {
+          atomicAdd(&psd_g[cell * nz + lo_c], psd_w[0]);
+          atomicAdd(&psd_g[cell * nz + hi_c + 1], -psd_w[0]);
+        }
       }
 
-      // escaping flux at the upstream FEB
-      if (moving && injf && x < feb_up && x_old >= feb_up) {
+      if (esc_cross) {
         s_en += (double)(e_add * g0u0);
         s_px += (double)(-px_sk * w_lane * g0u0);
       }
@@ -541,25 +734,27 @@ mega_step_kernel(float* __restrict__ w_g, float* __restrict__ pb_g,
         const int lo_c = clampi(lo_z, 0, nb - 1);
         const int hi_t = min(clampi(hi_z, 0, nb - 1), i_shock);
         const bool xfer = crossed && !injf && (x_old <= 0.0) && (hi_t >= lo_c);
-        float g_f;
-        if (is_el) {
+        float g_f = gamma_pf;
+        if (xfer && is_el) {
           const float gain = (float)(rp_g[hi_t + 1] - rp_g[lo_c]) * ewf;
-          const bool takes = xfer && (gain > 0.0f);
-          g_f = takes ? gamma_pf + gain / e0 : gamma_pf;
-          if (takes) s_recv += (double)((g_f - gamma_pf) * e0 * w_lane);
-        } else {
+          if (gain > 0.0f) {
+            g_f = gamma_pf + gain / e0;
+            s_recv += (double)((g_f - gamma_pf) * e0 * w_lane);
+          }
+        } else if (xfer) {
           const float eps_stop = et_g[hi_t];
           const float eps_start = et_g[igc];
-          g_f = 1.0f + (gamma_pf - 1.0f) * (1.0f - eps_stop) /
-                           fmaxp(1.0f - eps_start, tiny30);
-          const bool donate = xfer && (eps_stop > 0.0f);
-          g_f = donate ? fmaxp(g_f, 1.0f) : gamma_pf;
-          if (donate) {
+          if (eps_stop > 0.0f) {
+            g_f = fmaxp(1.0f + (gamma_pf - 1.0f) * (1.0f - eps_stop) /
+                                   fmaxp(1.0f - eps_start, tiny30),
+                        1.0f);
             const float n_range = (float)(hi_t - lo_c + 1);
-            const float inc =
-                (gamma_pf - g_f) * e0 * w_lane / fmaxp(n_range, 1.0f);
-            atomicAdd(&pool_g[lo_c], (double)inc);
-            atomicAdd(&pool_g[hi_t + 1], -(double)inc);
+            double inc[1] = {(double)(
+                (gamma_pf - g_f) * e0 * w_lane / fmaxp(n_range, 1.0f))};
+            if (group_sums(__activemask(), lo_c * ZMAX + hi_t, inc)) {
+              atomicAdd(&pool_g[lo_c], inc[0]);
+              atomicAdd(&pool_g[hi_t + 1], -inc[0]);
+            }
           }
         }
         float scale = 1.0f;
@@ -575,16 +770,17 @@ mega_step_kernel(float* __restrict__ w_g, float* __restrict__ pb_g,
 
       // ---- downstream logic ------------------------------------------
       bool jret_new = false;
-      float v_fac;
-      if (is_el && ptot < pe_crit)
-        v_fac = (pe_crit * c * gden) * pe_crit / (m * gamma_e_crit * u2);
-      else
-        v_fac = (ptot * c * gden) * ptot / (m * gamma_pf * u2);
-      const float l_diff = eta3 * v_fac;
-
       const bool esc_feb_dw = moving && (feb_dw > 0.0) && (x > feb_dw);
-      const bool esc_far = moving && !esc_feb_dw && (x > 1.1 * prp) &&
-                           (x > (double)(6.91f * l_diff));
+      bool esc_far = false;
+      if (moving && !esc_feb_dw && (x > 1.1 * prp)) {
+        float v_fac;
+        if (is_el && ptot < pe_crit)
+          v_fac = (pe_crit * c * gden) * pe_crit / (m * gamma_e_crit * u2);
+        else
+          v_fac = (ptot * c * gden) * ptot / (m * gamma_pf * u2);
+        const float l_diff = eta3 * v_fac;
+        esc_far = x > (double)(6.91f * l_diff);
+      }
       const bool do_ret = moving && !esc_feb_dw && !esc_far;
 
       const bool past_end = do_ret && (x >= x_stop);
@@ -611,7 +807,7 @@ mega_step_kernel(float* __restrict__ w_g, float* __restrict__ pb_g,
           // enter the backward walk at the PRP
           retro = true;
           s_retro += 1.0;
-          phi = u[4] * two_pi;
+          phi = u_hi(k0, k1, nsteps, 0) * two_pi;
           x = prp;
         } else {
           // analytic return
@@ -621,7 +817,7 @@ mega_step_kernel(float* __restrict__ w_g, float* __restrict__ pb_g,
           const float pb_ret = ptot * mu;
           pb = pb_ret;
           pperp = sqrtf(fmaxp(ptot * ptot - pb_ret * pb_ret, 0.0f));
-          phi = u[4] * two_pi;
+          phi = u_hi(k0, k1, nsteps, 0) * two_pi;
           x = prp;
           jret_new = true;
         }
@@ -704,8 +900,12 @@ mega_step_kernel(float* __restrict__ w_g, float* __restrict__ pb_g,
       if (fire) {
         const int ip_pf = mom_bin(hyp(pb, pperp), tiny37, inv_ln10, log_pmin,
                                   bpd_mom, psd_mom_min, n_mom);
-        atomicAdd(&sc_g[ip_pf * n_tc + fire_slot], (double)w_lane);
-        atomicAdd(&wc_g[fire_slot], (double)w_lane);
+        const unsigned firing = __activemask();
+        double w_sc[1] = {(double)w_lane}, w_wc[1] = {(double)w_lane};
+        if (group_sums(firing, ip_pf * n_tc + fire_slot, w_sc))
+          atomicAdd(&sc_g[ip_pf * n_tc + fire_slot], w_sc[0]);
+        if (group_sums(firing, fire_slot, w_wc))
+          atomicAdd(&wc_g[fire_slot], w_wc[0]);
       }
 
       // helix cap
@@ -719,6 +919,8 @@ mega_step_kernel(float* __restrict__ w_g, float* __restrict__ pb_g,
               (retro ? FL_RETRO : 0) | (jret_new ? FL_JRET : 0);
     }
 
+    // the lane ended or its n_steps are over: store it, take another
+    if (status == ACTIVE && --left > 0) continue;
     pb_g[i] = pb;
     pperp_g[i] = pperp;
     phi_g[i] = phi;
@@ -733,7 +935,9 @@ mega_step_kernel(float* __restrict__ w_g, float* __restrict__ pb_g,
     nsteps_g[i] = nsteps;
     flags_g[i] = flags;
     tcut_g[i] = tcut;
-    live = status == ACTIVE ? 1 : 0;
+    live += status == ACTIVE ? 1 : 0;
+    i = -1;
+    next = n_threads + claim(cursor_g);
   }
 
   __syncthreads();
@@ -761,6 +965,67 @@ mega_step_kernel(float* __restrict__ w_g, float* __restrict__ pb_g,
   }
 }
 
+// blocks of one instance the card holds at once (0: not asked yet)
+static int g_resident[kNumInstances];
+
+template <int I>
+static int launch_instance(const K1Args& a, cudaStream_t stream) {
+  auto kernel = mega_step_kernel<kInstances[I]>;
+  if (g_resident[I] == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                          K1_BLOCK, 0);
+    if (err != cudaSuccess) return (int)err;
+    if (sms * per_sm <= 0) return (int)cudaErrorLaunchOutOfResources;
+    g_resident[I] = sms * per_sm;
+  }
+  int grid = (a.n + K1_BLOCK - 1) / K1_BLOCK;
+  if (grid > g_resident[I]) grid = g_resident[I];
+  kernel<<<grid, K1_BLOCK, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int mcs_mega_num_instances() { return kNumInstances; }
+
+// the compile-time word of instance i (CT_RUNTIME for the generic one)
+extern "C" int mcs_mega_instance_word(int i) {
+  return i >= 0 && i < kNumInstances ? kInstances[i] : -2;
+}
+
+// registers a thread and bytes of local memory (stack and spills) a
+// thread of instance i, and the blocks of it the card holds at once
+// (after its first launch, else 0)
+extern "C" int mcs_mega_instance_attrs(int i, int* regs, int* local_bytes,
+                                       int* resident) {
+  const void* fn = nullptr;
+  switch (i) {
+    case 0: fn = (const void*)mega_step_kernel<kInstances[0]>; break;
+    case 1: fn = (const void*)mega_step_kernel<kInstances[1]>; break;
+    case 2: fn = (const void*)mega_step_kernel<kInstances[2]>; break;
+    case 3: fn = (const void*)mega_step_kernel<kInstances[3]>; break;
+    case 4: fn = (const void*)mega_step_kernel<kInstances[4]>; break;
+    case 5: fn = (const void*)mega_step_kernel<kInstances[5]>; break;
+    case 6: fn = (const void*)mega_step_kernel<kInstances[6]>; break;
+    case 7: fn = (const void*)mega_step_kernel<kInstances[7]>; break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  cudaFuncAttributes at;
+  const cudaError_t err = cudaFuncGetAttributes(&at, fn);
+  if (err != cudaSuccess) return (int)err;
+  *regs = at.numRegs;
+  *local_bytes = (int)at.localSizeBytes;
+  *resident = g_resident[i];
+  return 0;
+}
+
+// Launch instance `instance` on `stream`.  `word` is the launch's flag
+// word (flags, CT_ELECTRON for electrons, a proton's FLAG_RAD_LOSSES
+// cleared): a specialised instance runs only the word it was compiled
+// for.  scratch = {0, 0} on entry; scratch[1] is the ACTIVE count after.
 extern "C" int mcs_mega_launch(
     float* w, float* pb, float* pperp, float* phi, float* uxp, float* xnp,
     float* tstep, double* x, double* prp, double* acct, int* status,
@@ -768,13 +1033,27 @@ extern "C" int mcs_mega_launch(
     const int* key1, const double* xg, const float* zf, const float* sf,
     const double* sd, const int* si, const double* tc, const float* et,
     const double* rp, float* psd, double* flux, double* esc, double* pool,
-    double* wc, double* sc, double* cnt, int* n_active, int n, int n_steps,
-    int max_helix, void* stream) {
-  if (n <= 0) return (int)cudaSuccess;
-  const int grid = (n + BLOCK - 1) / BLOCK;
-  mega_step_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
-      w, pb, pperp, phi, uxp, xnp, tstep, x, prp, acct, status, reason,
-      nsteps, flags, tcut, key0, key1, xg, zf, sf, sd, si, tc, et, rp, psd,
-      flux, esc, pool, wc, sc, cnt, n_active, n, n_steps, max_helix);
-  return (int)cudaGetLastError();
+    double* wc, double* sc, double* cnt, int* scratch, int n, int n_steps,
+    int max_helix, int instance, int word, void* stream) {
+  static_assert(kNumInstances == 8, "the switches list 8 instances");
+  if (instance < 0 || instance >= kNumInstances ||
+      (kInstances[instance] != CT_RUNTIME && kInstances[instance] != word))
+    return (int)cudaErrorInvalidValue;
+  if (n <= 0 || n_steps <= 0) return (int)cudaSuccess;
+  const K1Args a = {w,    pb,     pperp, phi,  uxp, xnp, tstep, x,  prp,
+                    acct, status, reason, nsteps, flags, tcut, key0, key1,
+                    xg,   zf,     sf,    sd,   si,  tc,  et,    rp, psd,
+                    flux, esc,    pool,  wc,   sc,  cnt, scratch, n,
+                    n_steps, max_helix};
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (instance) {
+    case 0: return launch_instance<0>(a, st);
+    case 1: return launch_instance<1>(a, st);
+    case 2: return launch_instance<2>(a, st);
+    case 3: return launch_instance<3>(a, st);
+    case 4: return launch_instance<4>(a, st);
+    case 5: return launch_instance<5>(a, st);
+    case 6: return launch_instance<6>(a, st);
+    default: return launch_instance<7>(a, st);
+  }
 }

@@ -7,6 +7,7 @@ flags, so a changed source rebuilds and an unchanged one is reused.
 Libraries are loaded with ctypes.  Nothing here runs at import: a
 kernel is built at its wrapper's first launch, or ahead of time by
 ``build_all`` (chip_smoke.py builds every source in parallel).
+``LOGS[name]`` keeps what ``-Xptxas -v`` said of a verbose build.
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 # -fmad=false: every product rounds once, as in the plain versions
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false")
+
+LOGS: dict[str, str] = {}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -75,6 +78,7 @@ def build_all(names, verbose: bool = False) -> dict[str, Path]:
             failed.append(f"{name}: nvcc failed ({proc.returncode}):\n{log}")
             continue
         if verbose:
+            LOGS[name] = log
             print(f"[{name}]\n{log}")
         os.replace(tmp, out[name])
     if failed:

@@ -11,7 +11,13 @@ nzc], in place.
   engine's exact scatter (pallas_hist.py:297-302): flat indices
   cell * nzc + lo and cell * nzc + hi + 1, an index outside the array
   dropped.  A PSD on the CPU takes ``psd_scatter_plain``; one on a CUDA
-  device launches K2 (csrc/psd_hist.cu) or raises.
+  device launches K2 (csrc/psd_hist.cu) or raises.  lo and hi may be
+  int32 or int64 and w float32 or float64 (rounded to float32 as a cast
+  does), so the helix step passes its own tensors.  ``ScatterLaunch``
+  is the prepared form: it validates the tensors and builds the kernel's
+  arguments once, and each ``launch()`` after that is one foreign call
+  (what a caller that adds into the same tensors again and again, or
+  times the kernel, wants).
 * ``psd_scatter_band`` (K3): only records whose cell lies in [blo,
   blo + band), blo the least cell of a nonzero record (P3's contract),
   and whose boundary index lies in [0, nzc).  The plain version is
@@ -47,7 +53,7 @@ def _lib():
     if _LIB is None:
         lib = build.library("psd_hist")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.mcs_psd_scatter.argtypes = [p] * 5 + [i] * 3 + [p]
+        lib.mcs_psd_scatter.argtypes = [p] * 5 + [i] * 5 + [p]
         lib.mcs_psd_scatter.restype = i
         lib.mcs_psd_scatter_band.argtypes = [p] * 6 + [i] * 6 + [p]
         lib.mcs_psd_scatter_band.restype = i
@@ -55,17 +61,26 @@ def _lib():
     return _LIB
 
 
-def _check(psd, cell, lo, hi, w) -> None:
+_ZONE_DTYPES = (torch.int32, torch.int64)
+_WEIGHT_DTYPES = (torch.float32, torch.float64)
+
+
+def _check(psd, cell, lo, hi, w, wide: bool = False) -> None:
+    """Raise ValueError on what the kernels do not take.  With `wide`
+    (K2), lo and hi may be int64 (both) and w float64."""
     if psd.dim() != 2 or psd.dtype != torch.float32 \
             or not psd.is_contiguous():
         raise ValueError(f"psd: want a contiguous float32 [n_cells, nzc] "
                          f"array, got {psd.dtype} {tuple(psd.shape)}")
     n = w.shape[0]
-    for name, a, dt in (("cell", cell, torch.int32), ("lo", lo, torch.int32),
-                        ("hi", hi, torch.int32), ("w", w, torch.float32)):
-        if a.dtype != dt or a.shape != (n,) or a.device != psd.device \
+    zone = (lo.dtype,) if wide and lo.dtype in _ZONE_DTYPES \
+        else (torch.int32,)
+    weight = _WEIGHT_DTYPES if wide else (torch.float32,)
+    for name, a, dts in (("cell", cell, (torch.int32,)), ("lo", lo, zone),
+                         ("hi", hi, zone), ("w", w, weight)):
+        if a.dtype not in dts or a.shape != (n,) or a.device != psd.device \
                 or not a.is_contiguous():
-            raise ValueError(f"{name}: want contiguous {dt} [{n}] on "
+            raise ValueError(f"{name}: want contiguous {dts[0]} [{n}] on "
                              f"{psd.device}, got {a.dtype} "
                              f"{tuple(a.shape)} on {a.device}")
 
@@ -91,8 +106,10 @@ def _add_entries(psd, flat_idx, vals, ok) -> None:
 
 
 def psd_scatter_plain(psd, cell, lo, hi, w) -> None:
-    """K2's plain version: two masked index_add_s on the flat PSD."""
+    """K2's plain version: two masked index_add_s on the flat PSD (w
+    rounded to float32 first, lo and hi of either integer width)."""
     n_flat = psd.numel()
+    w = w.to(torch.float32)
     base = cell.long() * psd.shape[1]
     nz = w != 0
     for idx, v in ((base + lo.long(), w), (base + hi.long() + 1, -w)):
@@ -122,26 +139,47 @@ def psd_scatter_band_plain(psd, cell, lo, hi, w, band: int) -> None:
 # wrappers
 # ---------------------------------------------------------------------------
 
+class ScatterLaunch:
+    """K2 on one set of tensors, validated once: ``launch()`` adds the
+    records as they stand then into `psd` in place (the plain version
+    for a PSD on the CPU, K2 on the current stream for one on a CUDA
+    device).  The tensors must outlive the object."""
+
+    def __init__(self, psd, cell, lo, hi, w):
+        _check(psd, cell, lo, hi, w, wide=True)
+        self.tensors = (psd, cell, lo, hi, w)
+        self.device = psd.device
+        if self.device.type == "cpu":
+            return
+        if psd.numel() >= 2 ** 31:
+            raise ValueError(f"psd: K2 indexes fewer than 2^31 entries, got "
+                             f"{tuple(psd.shape)}")
+        if self.device.type != "cuda":
+            raise ValueError(f"no histogram kernel for device {self.device}")
+        n_cells, nzc = psd.shape
+        i = ctypes.c_int
+        self._fn = _lib().mcs_psd_scatter
+        self._args = (_ptr(cell), _ptr(lo), _ptr(hi), _ptr(w), _ptr(psd),
+                      i(w.shape[0]), i(n_cells), i(nzc),
+                      i(lo.dtype == torch.int64),
+                      i(w.dtype == torch.float64))
+
+    def launch(self) -> None:
+        global LAUNCHES, PLAIN_CALLS
+        if self.device.type == "cpu":
+            PLAIN_CALLS += 1
+            psd_scatter_plain(*self.tensors)
+            return
+        err = self._fn(*self._args, _stream(self.device))
+        if err != 0:
+            raise RuntimeError(f"K2 launch failed: CUDA error {err}")
+        LAUNCHES += 1
+
+
 def psd_scatter(psd, cell, lo, hi, w) -> None:
     """Add the records into `psd` in place: the plain version for a PSD
     on the CPU, K2 for one on a CUDA device."""
-    global LAUNCHES, PLAIN_CALLS
-    _check(psd, cell, lo, hi, w)
-    dev = psd.device
-    if dev.type == "cpu":
-        PLAIN_CALLS += 1
-        psd_scatter_plain(psd, cell, lo, hi, w)
-        return
-    if dev.type != "cuda":
-        raise ValueError(f"no histogram kernel for device {dev}")
-    n_cells, nzc = psd.shape
-    err = _lib().mcs_psd_scatter(
-        _ptr(cell), _ptr(lo), _ptr(hi), _ptr(w), _ptr(psd),
-        ctypes.c_int(w.shape[0]), ctypes.c_int(n_cells), ctypes.c_int(nzc),
-        _stream(dev))
-    if err != 0:
-        raise RuntimeError(f"K2 launch failed: CUDA error {err}")
-    LAUNCHES += 1
+    ScatterLaunch(psd, cell, lo, hi, w).launch()
 
 
 def band_tile_rows(nzc: int, band: int) -> int:

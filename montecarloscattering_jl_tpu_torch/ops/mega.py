@@ -1,4 +1,5 @@
-"""The transport kernel K1: S helix steps per launch, one lane a thread.
+"""The transport kernel K1: helix steps in a persistent launch, one lane
+a thread at a time.
 
 Replaces montecarloscattering_jl_tpu/ops/pallas_step.py::_mega_kernel /
 _mega_body (the Pallas megakernel) on an NVIDIA Hopper card.  This
@@ -10,9 +11,19 @@ module holds:
   on the card.
 * ``launch``: the wrapper.  A state on the CPU takes the twin; a state
   on a CUDA device launches K1 (csrc/mega_step.cu) or raises.
-* ``drain``: the drive, a host loop of launches until no lane is ACTIVE
-  or the helix-cap bound on launches is reached (pallas_step.py:1650).
+  ``K1Launch`` is its prepared form: the tensors validated and the
+  kernel's arguments built once, each ``enqueue`` one foreign call that
+  waits for nothing.
+* ``drain``: the drive.  On the CPU a host loop of twin launches until
+  no lane is ACTIVE or the helix-cap bound on launches is reached
+  (pallas_step.py:1650).  On a CUDA device one K1 launch with the helix
+  cap as its step count: the kernel's threads claim lanes from a device
+  cursor until every lane has ended, so the host waits for nothing
+  (where launches begin and end cannot change a lane's trajectory).
 * ``check_supported``: the static-flag gate of this kernel.
+* ``instance_of``: K1 is compiled once per flag word of ``INSTANCES``
+  (the flags as compile-time constants) and once with the flags read at
+  run time, which serves every other word.
 
 Every static flag of the megakernel's cfg runs: no-scatter, no-DSA,
 radiative losses, the retro walk, tcuts, the energy transfer, custom
@@ -64,6 +75,9 @@ ZMAX = 128             # zone-table capacity: nb + 1 <= ZMAX
 # chip_smoke.py zeroes them around the main path and reads them back)
 LAUNCHES = 0
 TWIN_CALLS = 0
+# times `launch` made the host wait for a K1 launch's ACTIVE count
+# (`drain` on a CUDA device makes none)
+HOST_WAITS = 0
 
 # f32 scalar vector `sf` (the kernel reads the same indices)
 (SF_M, SF_MC, SF_E0, SF_INV_Q, SF_PCUT, SF_PCUT_PREV, SF_PMAX, SF_U2,
@@ -93,8 +107,40 @@ _FLAG_NAMES = (("dont_scatter", FLAG_DONT_SCATTER),
                ("do_energy_transfer", FLAG_ENERGY_TRANSFER),
                ("use_custom_eps_b", FLAG_CUSTOM_EPS_B))
 
+# K1's instances (csrc/mega_step.cu kInstances, the same words in the
+# same order): the flag bits, CT_ELECTRON for an electron species;
+# CT_RUNTIME is the instance that reads both at run time.  A proton's
+# word never carries FLAG_RAD_LOSSES: the loss acts on electrons only.
+CT_ELECTRON, CT_RUNTIME = 256, -1
+CT_SCIENCE = (FLAG_RETRO | FLAG_TCUTS | FLAG_ENERGY_TRANSFER
+              | FLAG_CUSTOM_EPS_B)
+INSTANCES = (0,
+             CT_ELECTRON | FLAG_RAD_LOSSES,
+             CT_SCIENCE,
+             CT_ELECTRON | FLAG_RAD_LOSSES | CT_SCIENCE,
+             FLAG_CUSTOM_FRG,
+             CT_SCIENCE | FLAG_CUSTOM_FRG,
+             CT_ELECTRON | FLAG_RAD_LOSSES | CT_SCIENCE | FLAG_CUSTOM_FRG,
+             CT_RUNTIME)
+
 _N_REFLECT_TRIES = 2
 _U_BLOCK = 64          # steps of uniforms the twin draws at once
+
+
+def flag_word(flags: int, is_electron: bool) -> int:
+    """The word K1's instances are keyed by."""
+    if is_electron:
+        return flags | CT_ELECTRON
+    return flags & ~FLAG_RAD_LOSSES
+
+
+def instance_of(flags: int, is_electron: bool) -> int:
+    """Index into INSTANCES of the K1 instance that runs these flags:
+    the one compiled for exactly this word, else the run-time one."""
+    word = flag_word(flags, is_electron)
+    if word in INSTANCES:
+        return INSTANCES.index(word)
+    return INSTANCES.index(CT_RUNTIME)
 
 
 def check_supported(ss: StepStatic) -> None:
@@ -786,11 +832,32 @@ def _lib():
     if _LIB is None:
         lib = build.library("mega_step")
         fn = lib.mcs_mega_launch
-        fn.argtypes = [ctypes.c_void_p] * 33 + [ctypes.c_int] * 3 + [
+        fn.argtypes = [ctypes.c_void_p] * 33 + [ctypes.c_int] * 5 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        lib.mcs_mega_instance_word.argtypes = [ctypes.c_int]
+        lib.mcs_mega_instance_attrs.argtypes = [ctypes.c_int] + [
+            ctypes.POINTER(ctypes.c_int)] * 3
+        built = tuple(lib.mcs_mega_instance_word(i)
+                      for i in range(lib.mcs_mega_num_instances()))
+        if built != INSTANCES:
+            raise RuntimeError(f"K1 was built with the instances {built}, "
+                               f"ops/mega.py lists {INSTANCES}")
         _LIB = lib
     return _LIB
+
+
+def instance_attrs(i: int) -> dict:
+    """Registers a thread, bytes of local memory (stack and spills) a
+    thread, and the blocks the card holds at once (0 before its first
+    launch) of K1's instance `i`, from the CUDA runtime."""
+    regs, local, resident = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = _lib().mcs_mega_instance_attrs(
+        i, ctypes.byref(regs), ctypes.byref(local), ctypes.byref(resident))
+    if err != 0:
+        raise RuntimeError(f"K1 instance {i}: CUDA error {err}")
+    return dict(word=INSTANCES[i], registers=regs.value,
+                local_bytes=local.value, resident_blocks=resident.value)
 
 
 _STATE_SPEC = (
@@ -844,50 +911,75 @@ def _check(st: ParticleState, tb: MegaTables, tl: Tallies) -> None:
         raise ValueError(f"nb + 1 = {nz} exceeds the {ZMAX}-zone table")
 
 
-def k1_launch(st: ParticleState, tb: MegaTables, tl: Tallies,
-              n_steps: int, max_helix: int) -> int:
-    """Launch K1 once on the current stream; returns the ACTIVE count."""
-    global LAUNCHES
-    n = st.weight.shape[0]
-    n_active = torch.zeros(1, dtype=torch.int32, device=st.weight.device)
-    ptr = lambda a: ctypes.c_void_p(a.data_ptr())
-    args = [ptr(getattr(st, name)) for name, _ in _STATE_SPEC]
-    args += [ptr(tb.xg), ptr(tb.zf), ptr(tb.sf), ptr(tb.sd), ptr(tb.si),
-             ptr(tb.tc), ptr(tb.et), ptr(tb.rp)]
-    args += [ptr(tl.psd_diff), ptr(tl.flux_diff), ptr(tl.esc),
-             ptr(tl.pool_diff), ptr(tl.weight_coupled),
-             ptr(tl.spectra_coupled), ptr(tl.counts), ptr(n_active)]
-    stream = torch.cuda.current_stream(st.weight.device).cuda_stream
-    err = _lib().mcs_mega_launch(*args, ctypes.c_int(n), ctypes.c_int(n_steps),
-                                 ctypes.c_int(max_helix),
-                                 ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"K1 launch failed: CUDA error {err}")
-    LAUNCHES += 1
-    return int(n_active.item())
+class K1Launch:
+    """K1 on one state, table set and tally set on a CUDA device,
+    validated once.  ``enqueue`` launches on the current stream and
+    returns at once with the count of lanes still ACTIVE as a 0-dim int32
+    tensor on the device.  The tensors must outlive the object."""
+
+    def __init__(self, st: ParticleState, tb: MegaTables, tl: Tallies):
+        _check(st, tb, tl)
+        self.device = st.weight.device
+        if self.device.type != "cuda":
+            raise ValueError(f"no transport kernel for device {self.device}")
+        self.instance = instance_of(tb.flags, tb.is_electron)
+        ptr = lambda a: ctypes.c_void_p(a.data_ptr())
+        self._fn = _lib().mcs_mega_launch
+        self._args = (
+            [ptr(getattr(st, name)) for name, _ in _STATE_SPEC]
+            + [ptr(a) for a in (tb.xg, tb.zf, tb.sf, tb.sd, tb.si, tb.tc,
+                                tb.et, tb.rp, tl.psd_diff, tl.flux_diff,
+                                tl.esc, tl.pool_diff, tl.weight_coupled,
+                                tl.spectra_coupled, tl.counts)])
+        self._n = ctypes.c_int(st.weight.shape[0])
+        self._tail = (ctypes.c_int(self.instance),
+                      ctypes.c_int(flag_word(tb.flags, tb.is_electron)))
+
+    def enqueue(self, n_steps: int, max_helix: int) -> torch.Tensor:
+        global LAUNCHES
+        if n_steps < 1:
+            raise ValueError(f"n_steps = {n_steps}")
+        # the kernel's lane cursor and its count of lanes left ACTIVE
+        scratch = torch.zeros(2, dtype=torch.int32, device=self.device)
+        stream = torch.cuda.current_stream(self.device).cuda_stream
+        err = self._fn(*self._args, ctypes.c_void_p(scratch.data_ptr()),
+                       self._n, ctypes.c_int(n_steps),
+                       ctypes.c_int(max_helix), *self._tail,
+                       ctypes.c_void_p(stream))
+        if err != 0:
+            raise RuntimeError(f"K1 launch failed: CUDA error {err}")
+        LAUNCHES += 1
+        return scratch[1]
 
 
 def launch(st: ParticleState, tb: MegaTables, tl: Tallies,
            n_steps: int = STEPS, max_helix: int | None = None) -> int:
     """One launch of `n_steps` steps: the twin for a state on the CPU,
-    K1 for a state on a CUDA device.  Returns the ACTIVE count."""
+    K1 for a state on a CUDA device.  Returns the ACTIVE count (and so
+    waits for the launch)."""
     if max_helix is None:
         max_helix = MAX_HELIX_STEPS
-    _check(st, tb, tl)
-    dev = st.weight.device
-    if dev.type == "cpu":
+    if st.weight.device.type == "cpu":
+        _check(st, tb, tl)
         return step_twin(st, tb, tl, n_steps, max_helix)
-    if dev.type == "cuda":
-        return k1_launch(st, tb, tl, n_steps, max_helix)
-    raise ValueError(f"no transport kernel for device {dev}")
+    global HOST_WAITS
+    left = K1Launch(st, tb, tl).enqueue(n_steps, max_helix)
+    HOST_WAITS += 1
+    return int(left)
 
 
 def drain(st: ParticleState, tb: MegaTables, tl: Tallies,
           n_steps: int = STEPS, max_helix: int | None = None) -> None:
-    """Launch until no lane is ACTIVE or the helix cap bounds the
-    launch count (MAX_HELIX_STEPS // S + 2, pallas_step.py:1650)."""
+    """Step every lane until none is ACTIVE: each to its end or to the
+    helix cap.  On the CPU, twin launches of `n_steps` steps until the
+    count is 0 or the cap bounds the launches (MAX_HELIX_STEPS // S + 2,
+    pallas_step.py:1650).  On a CUDA device one K1 launch of `max_helix`
+    steps, which leaves no lane ACTIVE; the host does not wait for it."""
     if max_helix is None:
         max_helix = MAX_HELIX_STEPS
+    if st.weight.device.type != "cpu":
+        K1Launch(st, tb, tl).enqueue(max(max_helix, 1), max_helix)
+        return
     max_launches = max_helix // n_steps + 2
     n_act = int((st.status == ACTIVE).sum())
     k = 0

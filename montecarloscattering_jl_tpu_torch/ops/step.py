@@ -393,10 +393,11 @@ def helix_step(st: ParticleState, tl: Tallies, tb: StepTables,
                              ss.n_mom)
     jt_sk = psd_bin_angle(px_sk, pt_sk, ss.cos_fine, ss.dcos, ss.theta_min,
                           ss.bins_per_dec_theta, ss.n_theta)
-    psd_w = (weight * abs_inv_vx * on).to(torch.float32)
+    # K2 reads the step's own tensors (int64 zones, weights in the
+    # momentum dtype, which it rounds to float32): no casts here
+    psd_w = weight * abs_inv_vx * on
     cell = (ip_sk * 2 + (~inj).to(torch.int32)) * (ss.n_theta + 1) + jt_sk
-    hist.psd_scatter(tl.psd_diff, cell, lo_c.to(torch.int32),
-                     hi_c.to(torch.int32), psd_w)
+    hist.psd_scatter(tl.psd_diff, cell, lo_c, hi_c, psd_w)
 
     if ss.do_energy_transfer:
         # ion -> electron energy transfer on upstream pre-injection zone

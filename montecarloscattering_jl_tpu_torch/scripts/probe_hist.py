@@ -14,6 +14,14 @@ beside its plain version (ops/hist.py) on the same records:
   K4 = K2   K2 at P4's 2^16 records (P4's one-record-at-a-time scatter
             is K2's function)
 
+and K2 on more inputs at the path's record count: every record on one
+address (the worst case of same-address atomics); the synthetic records
+as the helix step hands them over (int64 zones, float64 weights); and,
+when run as a script, the float64 helix step's own records
+(``step_records``): the flagship's injected population, 69,632 lanes,
+stepped eagerly, its (cell, lo, hi, w) kept at steps STEP_RECORDS, early
+(every lane at the shock) and late in the segment.
+
 For each it reports ms and ns/record of the kernel and of the plain
 version, the kernel's max abs error against the plain version, the
 largest entry, and both against the float64 NumPy reference
@@ -27,7 +35,27 @@ of the records' (lo, +w) and (hi + 1, -w) entries into the flat PSD
 (the library call; K3's band filter has none, and the port never calls
 it).
 
-Usage: python -m montecarloscattering_jl_tpu_torch.scripts.probe_hist
+K2, K4 and their ``index_add_`` are timed two ways.  ``ms`` and
+``library_ms`` are device time a launch under CUDA-graph replay
+(``graph_ms``: GRAPH_LAUNCHES launches captured into one graph, CUDA
+events around its replays), which is how the transport path launches K2
+(ops/step.py replays 64-step blocks) and leaves the host out.
+``eager_ms`` and ``library_eager_ms`` are CUDA events around eager calls
+from Python (``time_ms``; K2 through its prepared ``ScatterLaunch``):
+where the host needs longer to make a call than the card to run it,
+they read the host.  K3 is timed eagerly only.
+
+Usage, by path:
+
+    python montecarloscattering_jl_tpu_torch/scripts/probe_hist.py \\
+        [--root DIR --narrow]
+
+``--root`` is the root of the checkout whose wrappers and engine are
+imported (default: the one this file lies in); an older commit unpacked
+with ``git archive`` serves as the parent of a comparison, timed by this
+file.  ``--narrow`` is for a checkout whose K2 takes int32 zones and
+float32 weights only and has no prepared launch: it is called through
+``psd_scatter``, and the int64 / float64 case is left out.
 """
 
 from __future__ import annotations
@@ -37,8 +65,6 @@ import sys
 import numpy as np
 import torch
 
-from ..ops import hist
-
 R = 2 ** 21
 BAND = 2048              # the cell span synth draws from (probe's BAND)
 N_CELLS = 4428           # the flagship's 2 * (n_mom + 1) * (n_theta + 1)
@@ -47,6 +73,9 @@ CROSS_RATE = 0.25
 R4 = 2 ** 16             # P4's record count
 RECORD_BYTES = 16        # cell, lo, hi (int32) and w (float32)
 HBM_BYTES_S = 3.35e12    # H100 SXM
+GRAPH_LAUNCHES = 64      # launches captured into one graph (graph_ms)
+PATH_RECORDS = 69_632    # the flagship batch: one record a lane a step
+STEP_RECORDS = (2, 256, 2048)   # helix steps whose records are kept
 
 
 def synth(r: int, rng: np.random.Generator):
@@ -108,8 +137,34 @@ def time_ms(fn, n: int = 20) -> float:
     return start.elapsed_time(end) / n
 
 
+def graph_ms(fn, n: int = GRAPH_LAUNCHES, replays: int = 10) -> float:
+    """Mean device ms of one fn() among n captured into one CUDA graph,
+    by CUDA events around `replays` replays after a warm-up replay."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (n * replays)
+
+
 def _case(dev, records, want, kernel, plain, library: bool,
-          touched: int) -> dict:
+          touched: int, narrow: bool = False) -> dict:
+    from montecarloscattering_jl_tpu_torch.ops import hist
+
     args = [torch.from_numpy(a).to(dev) for a in records]
     new = lambda: torch.zeros(N_CELLS, NZC, dtype=torch.float32,
                               device=dev)
@@ -119,18 +174,30 @@ def _case(dev, records, want, kernel, plain, library: bool,
     torch.cuda.synchronize()
     psd = new()
     n = len(records[0])
-    ms = time_ms(lambda: kernel(psd, *args))
     plain_ms = time_ms(lambda: plain(psd, *args))
-    library_ms = None
+    library_ms = eager_ms = library_eager_ms = None
     if library:
+        # K2: through its prepared launch, eagerly and under graph replay,
+        # and one index_add_ of the same entries the same two ways
+        if narrow:
+            k2 = lambda: hist.psd_scatter(psd, *args)
+        else:
+            k2 = hist.ScatterLaunch(psd, *args).launch
+        eager_ms = time_ms(k2)
+        ms = graph_ms(k2)
         cell, lo, hi, w = args
         base = cell.long() * NZC
         idx = torch.cat([base + lo.long(), base + hi.long() + 1])
-        vals = torch.cat([w, -w])
+        vals = torch.cat([w, -w]).to(torch.float32)
         flat = psd.view(-1)
-        library_ms = time_ms(lambda: flat.index_add_(0, idx, vals))
+        library_eager_ms = time_ms(lambda: flat.index_add_(0, idx, vals))
+        library_ms = graph_ms(lambda: flat.index_add_(0, idx, vals))
+    else:
+        ms = time_ms(lambda: kernel(psd, *args))
     bound_ms = (n * RECORD_BYTES + 2 * touched * 4) / HBM_BYTES_S * 1e3
-    return dict(records=n, touched_entries=touched, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+    return dict(records=n, touched_entries=touched, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, eager_ms=eager_ms,
+                library_eager_ms=library_eager_ms,
                 bound_ms=bound_ms, bound_by="bytes",
                 ns_per_record=ms * 1e6 / n,
                 plain_ns_per_record=plain_ms * 1e6 / n,
@@ -140,16 +207,63 @@ def _case(dev, records, want, kernel, plain, library: bool,
                 plain_rel_err_f64=max_rel_err(ref, want))
 
 
-def run(device) -> dict:
+def step_records(dev, workloads, steps=STEP_RECORDS) -> dict:
+    """{step: (cell, lo, hi, w)} as int32 / float32 NumPy arrays: what
+    the float64 helix step (ops/step.py helix_step) hands K2 at those
+    step numbers, from the flagship's injected population at
+    PATH_RECORDS lanes stepped eagerly (`workloads`: the
+    scripts/workloads.py module)."""
+    from montecarloscattering_jl_tpu_torch.engine.run import TransportEngine
+    from montecarloscattering_jl_tpu_torch.engine.setup import build_setup
+    from montecarloscattering_jl_tpu_torch.ops import hist, rng, step
+    from montecarloscattering_jl_tpu_torch.ops import state as stt
+    from montecarloscattering_jl_tpu_torch.utils import load_config
+
+    cfg = load_config(workloads.CFG)
+    setup = build_setup(cfg)
+    eng = TransportEngine(setup, device=dev)
+    prof = setup.profile
+    tb = step.step_tables(eng.segment_grids(prof),
+                          eng.segment_scalars(0, 2, prof.bmag2),
+                          eng.step_static(0), dev)
+    st = workloads.flagship_population(setup, cfg, dev, PATH_RECORDS,
+                                       p_dtype=torch.float64)
+    tl = stt.make_tallies(setup.nb, setup.bins.n_mom, setup.bins.n_theta,
+                          dev)
+    kept, now = {}, [0]
+    k2 = hist.psd_scatter
+
+    def keeping(psd, cell, lo, hi, w):
+        if now[0] in steps:
+            kept[now[0]] = tuple(
+                a.to(dt).cpu().numpy() for a, dt in zip(
+                    (cell, lo, hi, w), (torch.int32,) * 3 + (torch.float32,)))
+        k2(psd, cell, lo, hi, w)
+
+    hist.psd_scatter = keeping
+    try:
+        for now[0] in range(1, max(steps) + 1):
+            step.helix_step(st, tl, tb, rng.lane_uniforms_xla(
+                st.key0, st.key1, st.nsteps), step.MAX_HELIX_STEPS)
+    finally:
+        hist.psd_scatter = k2
+    return kept
+
+
+def run(device, narrow: bool = False, extra: dict | None = None) -> dict:
     """Time and check every kernel against its plain version on `device`
-    (a CUDA device); returns {name: numbers}."""
+    (a CUDA device); returns {name: numbers}.  `extra`: more K2 cases,
+    {name: (cell, lo, hi, w)} of int32 / float32 NumPy records.  `narrow`:
+    see the module's text."""
+    from montecarloscattering_jl_tpu_torch.ops import hist
+
     dev = torch.device(device)
     if dev.type != "cuda":
         raise ValueError("probe_hist measures the kernels on a CUDA card")
     rng = np.random.default_rng(42)
     recs = synth(R, rng)
     recs4 = synth(R4, rng)
-    path = synth(69_632, rng)
+    path = synth(PATH_RECORDS, rng)
     cases = {
         "K2 (69,632 records)": (path, ref_result(*path), hist.psd_scatter,
                                 hist.psd_scatter_plain, True,
@@ -163,6 +277,26 @@ def run(device) -> dict:
             lambda p, *a, _b=band: hist.psd_scatter_band(p, *a, _b),
             lambda p, *a, _b=band: hist.psd_scatter_band_plain(p, *a, _b),
             False, touched_entries(*recs, band))
+    # the worst case of same-address atomics: every record of the path's
+    # batch on one (cell, lo, hi)
+    n = PATH_RECORDS
+    one = (np.full(n, 2000, np.int32), np.full(n, 40, np.int32),
+           np.full(n, 41, np.int32), path[3] + np.float32(0.5))
+    cases["K2 (69,632 records on one address)"] = (
+        one, ref_result(*one), hist.psd_scatter, hist.psd_scatter_plain,
+        True, touched_entries(*one))
+    for name, records in (extra or {}).items():
+        cases[name] = (records, ref_result(*records), hist.psd_scatter,
+                       hist.psd_scatter_plain, True,
+                       touched_entries(*records))
+    if not narrow:
+        # the synthetic records as the helix step hands them over,
+        # against the plain version on the same tensors
+        wide = (path[0], path[1].astype(np.int64), path[2].astype(np.int64),
+                path[3].astype(np.float64))
+        cases["K2 (69,632 records, int64 zones, float64 weights)"] = (
+            wide, ref_result(*path), hist.psd_scatter,
+            hist.psd_scatter_plain, True, touched_entries(*path))
     cases["K4 = K2 (2^16 records)"] = (recs4, ref_result(*recs4),
                                         hist.psd_scatter,
                                         hist.psd_scatter_plain, True,
@@ -170,9 +304,11 @@ def run(device) -> dict:
     out = {}
     for name, (records, want, kernel, plain, lib, touched) in cases.items():
         r = out[name] = _case(dev, records, want, kernel, plain, lib,
-                              touched)
-        lib_txt = ("none" if r["library_ms"] is None
-                   else f"{r['library_ms']:8.4f} ms")
+                              touched, narrow)
+        lib_txt = ("none" if r["library_ms"] is None else
+                   f"{r['library_ms']:8.4f} ms under graph replay (eager: "
+                   f"kernel {r['eager_ms']:.4f}, index_add_ "
+                   f"{r['library_eager_ms']:.4f} ms)")
         print(f"{name:24s} kernel {r['ms']:8.4f} ms "
               f"({r['ns_per_record']:6.3f} ns/record), plain "
               f"{r['plain_ms']:8.4f} ms ({r['plain_ns_per_record']:6.3f} "
@@ -185,8 +321,35 @@ def run(device) -> dict:
     return out
 
 
-if __name__ == "__main__":
+def main() -> int:
+    import argparse
+    import importlib.util
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=os.path.dirname(os.path.dirname(here)))
+    ap.add_argument("--narrow", action="store_true")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
-        sys.exit("probe_hist: no CUDA device")
-    print("device:", torch.cuda.get_device_name(0))
-    run("cuda:0")
+        print("probe_hist: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.abspath(args.root))
+    from montecarloscattering_jl_tpu_torch.ops import hist
+    spec = importlib.util.spec_from_file_location(
+        "workloads", os.path.join(here, "workloads.py"))
+    workloads = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(workloads)
+    print(f"card: {workloads.card_line()}; wrappers from {hist.__file__}")
+    dev = torch.device("cuda:0")
+    kept = step_records(dev, workloads)
+    for k, (_, _, _, w) in kept.items():
+        print(f"helix step {k}: {int((w != 0).sum())} nonzero records of "
+              f"{w.size}")
+    run(dev, args.narrow,
+        {f"K2 (helix step {k}'s records)": v for k, v in kept.items()})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

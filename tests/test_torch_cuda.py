@@ -1,7 +1,9 @@
 """The port's kernels against their plain PyTorch versions on a CUDA
 card: K1 (csrc/mega_step.cu) against its twin (the custom f(r_g) law
 on and off), K2 and K3
-(csrc/psd_hist.cu) against ops/hist.py's plain versions, and the XLA
+(csrc/psd_hist.cu) against ops/hist.py's plain versions (K2 also on
+one address and on int64 / float64 records), every compiled instance of
+K1 on lanes that reach its branches, a drain in one launch, and the XLA
 engine's float64 segment (ops/step.py, K2 inside, replayed as a CUDA
 graph) against the same segment on the CPU; and the batched emission
 functions (models/emission/device.py) on the card against the per-zone
@@ -119,6 +121,72 @@ def test_k1_matches_twin(population, n_steps, kind):
         assert abs(float(a - b)) <= 1e-4 * float(b) + 1e-300, name
 
 
+# every instance of K1 (ops/mega.py INSTANCES) on lanes that reach its
+# branches: scripts/workloads.py's flag cases, plus the two words they leave out
+@pytest.mark.parametrize("tag,word", [
+    ("protons", 120), ("electrons", 380), ("protons-shipped", -1),
+    ("protons-frg", 248), ("electrons-frg", 508), ("flagship", 0),
+    ("flagship-frg", 128), ("electrons-rad", 260)])
+def test_k1_instance_matches_twin(card, population, tag, word):
+    """The instance compiled for the case's flag word is the one that
+    runs (no config falls silently to the run-time instance where a
+    specialised one exists), and it gives the twin's lanes: integer
+    fields equal on every lane, float fields bit for bit, tally totals to
+    1e-4 (sums in another order)."""
+    from montecarloscattering_jl_tpu_torch.scripts import workloads as cs
+    if tag.startswith("flagship"):
+        st0, tabs, fresh = population
+        tabs = tabs["ion-frg" if tag.endswith("frg") else "ion"]
+    else:
+        base = "electrons" if tag == "electrons-rad" else tag
+        case = next(c for c in cs.FLAG_CASES if c[0] == base)
+        c = cs.flag_case(case, card, LANES)
+        st0, tabs, fresh = c["st0"], c["tabs"], c["fresh_tal"]
+        if tag == "electrons-rad":
+            # the electrons of examples/03 and 04: radiative losses only
+            only = dataclasses.replace(
+                c["ss"], do_retro=False, do_tcuts=False,
+                do_energy_transfer=False, use_custom_eps_b=False)
+            tabs = mega.mega_tables(c["grids"], c["sc"], only, card)
+    prepared = mega.K1Launch(_clone(st0), tabs, fresh())
+    assert mega.INSTANCES[prepared.instance] == word
+    s_k, t_k, s_t, t_t = _clone(st0), fresh(), _clone(st0), fresh()
+    mega.launch(s_k, tabs, t_k, n_steps=48)
+    mega.step_twin(s_t, tabs, t_t, 48, mega.MAX_HELIX_STEPS)
+    torch.cuda.synchronize()
+    assert int((s_t.nsteps - st0.nsteps).sum()) > LANES
+    for name in ("status", "reason", "nsteps", "flags", "tcut", "pb",
+                 "pperp", "phi", "x", "prp_x", "acctime", "t_step",
+                 "ux_prev", "xn_per"):
+        assert torch.equal(getattr(s_k, name), getattr(s_t, name)), name
+    for name in ("psd_diff", "flux_diff", "esc", "pool_diff",
+                 "weight_coupled", "spectra_coupled", "counts"):
+        a = getattr(t_k, name).double().abs().sum()
+        b = getattr(t_t, name).double().abs().sum()
+        assert abs(float(a - b)) <= 1e-4 * float(b) + 1e-300, name
+    attrs = mega.instance_attrs(prepared.instance)
+    assert attrs["word"] == word and 0 < attrs["registers"] <= 255
+    assert attrs["resident_blocks"] > 0
+
+
+def test_k1_drain_is_one_launch_without_a_host_wait(population):
+    """A drain on the card: one K1 launch, no host wait, no lane left
+    ACTIVE, the lanes the twin's drain gives."""
+    st0, tabs, fresh = population
+    tabs = tabs["ion"]
+    s_k, t_k, s_t, t_t = _clone(st0), fresh(), _clone(st0), fresh()
+    before = (mega.LAUNCHES, mega.HOST_WAITS, mega.TWIN_CALLS)
+    mega.drain(s_k, tabs, t_k, max_helix=300)
+    assert (mega.LAUNCHES, mega.HOST_WAITS, mega.TWIN_CALLS) == (
+        before[0] + 1, before[1], before[2])
+    while mega.step_twin(s_t, tabs, t_t, 100, 300):
+        pass
+    torch.cuda.synchronize()
+    assert not bool((s_k.status == 0).any())
+    for name in ("status", "reason", "nsteps", "flags", "pb", "pperp", "x"):
+        assert torch.equal(getattr(s_k, name), getattr(s_t, name)), name
+
+
 def test_wrapper_raises_on_bad_input(population):
     st0, tabs, fresh = population
     tabs = tabs["ion"]
@@ -158,6 +226,38 @@ def test_k2_matches_plain(card, n):
     assert hist.LAUNCHES == before + 1
 
 
+@pytest.mark.parametrize("zones,weights", [
+    (torch.int32, torch.float32), (torch.int64, torch.float32),
+    (torch.int32, torch.float64), (torch.int64, torch.float64)])
+@pytest.mark.parametrize("n", [1, 31, 69_632, (1 << 18) + 5])
+def test_k2_one_address_and_wide_entry(card, n, zones, weights):
+    """The adversarial input of the warp aggregation: every record on
+    one (cell, lo, hi), so every warp folds to one atomic a side; and on
+    random records with zero weights and out-of-range cells.  In each
+    dtype the step hands over, within 1e-4 of the largest entry (f32
+    sums in another order; float64 weights round to float32 first)."""
+    from montecarloscattering_jl_tpu_torch.ops import hist
+    g = np.random.default_rng(n)
+    w = torch.from_numpy(g.uniform(0.5, 1.5, n)).to(card, weights)
+    same = (torch.full((n,), 2000, dtype=torch.int32, device=card),
+            torch.full((n,), 40, dtype=zones, device=card),
+            torch.full((n,), 41, dtype=zones, device=card), w)
+    cell, lo, hi, w32 = _records(n, card, seed=n)
+    cell = torch.where(torch.arange(n, device=card) % 97 == 0,
+                       cell + 100_000, cell)       # dropped, not wrapped
+    mixed = (cell, lo.to(zones), hi.to(zones), w32.to(weights))
+    _hist_pair(card, hist.psd_scatter, hist.psd_scatter_plain, same)
+    if n > 1000:          # fewer records may all have zero weight
+        _hist_pair(card, hist.psd_scatter, hist.psd_scatter_plain, mixed)
+    got = torch.zeros(4428, 102, device=card)
+    hist.psd_scatter(got, *same)
+    torch.cuda.synchronize()
+    total = float(w.to(torch.float32).double().sum())
+    assert abs(float(got[2000, 40]) - total) <= 1e-4 * total
+    assert abs(float(got[2000, 42]) + total) <= 1e-4 * total
+    assert int(torch.count_nonzero(got)) == 2
+
+
 @pytest.mark.parametrize("band", [1024, 2048])
 def test_k3_matches_plain(card, band):
     from montecarloscattering_jl_tpu_torch.ops import hist
@@ -175,7 +275,9 @@ def test_hist_wrapper_raises_on_bad_input(card):
     with pytest.raises(ValueError):
         hist.psd_scatter(psd, cell.cpu(), lo, hi, w)
     with pytest.raises(ValueError):
-        hist.psd_scatter(psd, cell, lo, hi, w.double())
+        hist.psd_scatter(psd, cell, lo, hi, w.half())
+    with pytest.raises(ValueError):
+        hist.psd_scatter(psd, cell, lo.long(), hi, w)
 
 
 def test_xla_segment_matches_cpu(card):

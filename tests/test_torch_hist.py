@@ -252,3 +252,98 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
         build.build_all(["psd_hist"])
     assert sorted(p.name for p in build.CSRC.glob("*.cu")) == [
         "mega_step.cu", "psd_hist.cu"]
+
+
+# ---------------------------------------------------------------------------
+# K2 on the helix step's own tensors: int64 zones, float64 weights
+# ---------------------------------------------------------------------------
+
+def _wide_case(name):
+    """Records that stress the wide entry: as _case, plus every record
+    on one address, and float64 weights that are not float32 values."""
+    if name == "one_address":
+        n = 4096
+        recs = (np.full(n, 77, np.int32), np.full(n, 40, np.int32),
+                np.full(n, 41, np.int32),
+                np.linspace(0.5, 1.5, n).astype(np.float32))
+        return np.zeros((N_CELLS, NZC), np.float32), recs
+    return _case(name)
+
+
+@pytest.mark.parametrize("w_dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("z_dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("name", ["existing", "overflow", "wild", "sparse",
+                                  "all_padding", "one_address"])
+def test_k2_wide_entry_matches_plain_on_casts(name, z_dtype, w_dtype):
+    """int64 lo / hi and float64 w through the wrapper give, bit for bit,
+    what the plain version gives on their int32 / float32 casts (zero
+    weights, duplicates and out-of-range indices included): on the CPU
+    the wrapper rounds w to float32 as the cast does and adds in the
+    same order, so the tolerance is 0."""
+    psd0, (cell, lo, hi, w) = _wide_case(name)
+    # float64 weights between float32 values: the rounding must happen
+    w_wide = w.astype(w_dtype)
+    if w_dtype == np.float64:
+        w_wide = w_wide * (1.0 + 2.0 ** -30)
+    got = torch.from_numpy(psd0.copy())
+    hist.psd_scatter(got, torch.from_numpy(cell),
+                     torch.from_numpy(lo.astype(z_dtype)),
+                     torch.from_numpy(hi.astype(z_dtype)),
+                     torch.from_numpy(w_wide))
+    want = torch.from_numpy(psd0.copy())
+    hist.psd_scatter_plain(want, torch.from_numpy(cell),
+                           torch.from_numpy(lo), torch.from_numpy(hi),
+                           torch.from_numpy(w_wide.astype(np.float32)))
+    assert torch.equal(got, want)
+    if name != "all_padding":
+        assert not torch.equal(got, torch.from_numpy(psd0))
+
+
+@pytest.mark.parametrize("bad", ["mixed_zones", "half_weights",
+                                 "int64_cell", "short_lo", "strided_w"])
+def test_k2_wide_entry_raises(bad):
+    psd = torch.zeros(N_CELLS, NZC)
+    cell, lo, hi, w = (torch.from_numpy(a) for a in _case("band")[1])
+    args = {"mixed_zones": (cell, lo.long(), hi, w),
+            "half_weights": (cell, lo, hi, w.half()),
+            "int64_cell": (cell.long(), lo.long(), hi.long(), w),
+            "short_lo": (cell, lo[:-1], hi, w),
+            "strided_w": (cell, lo, hi, w.repeat(2)[::2])}[bad]
+    with pytest.raises(ValueError):
+        hist.psd_scatter(psd, *args)
+
+
+def test_scatter_launch_validates_once_and_reads_live_tensors():
+    """A prepared launch adds the records as they stand at each launch
+    (two launches add twice; a weight changed in between counts), takes
+    the plain version on the CPU and counts it."""
+    psd0, recs = _case("band")
+    cell, lo, hi, w = (torch.from_numpy(a.copy()) for a in recs)
+    psd = torch.from_numpy(psd0.copy())
+    prepared = hist.ScatterLaunch(psd, cell, lo.long(), hi.long(),
+                                  w.double())
+    before = (hist.PLAIN_CALLS, hist.LAUNCHES)
+    prepared.launch()
+    once = psd.clone()
+    prepared.launch()
+    assert (hist.PLAIN_CALLS, hist.LAUNCHES) == (before[0] + 2, before[1])
+    np.testing.assert_allclose(psd.numpy(), 2.0 * once.numpy(), rtol=1e-6,
+                               atol=1e-6)
+    want = torch.from_numpy(psd0.copy())
+    hist.psd_scatter_plain(want, cell, lo, hi, w)
+    assert torch.equal(once, want)
+
+
+@pytest.mark.parametrize("n_cells,ok", [(2 ** 16 - 1, True), (2 ** 16, False)])
+def test_k2_refuses_a_psd_its_int_index_cannot_span(n_cells, ok):
+    """K2 forms flat indices as int32 after its range test, so the
+    wrapper refuses a PSD of 2^31 entries or more off the CPU (shown on
+    meta tensors, which allocate nothing); one entry fewer passes on to
+    the device check."""
+    meta = dict(device="meta")
+    psd = torch.empty(n_cells, 2 ** 15, **meta)
+    recs = (torch.empty(8, dtype=torch.int32, **meta),) * 3 + (
+        torch.empty(8, **meta),)
+    with pytest.raises(ValueError,
+                       match="device meta" if ok else r"2\^31 entries"):
+        hist.ScatterLaunch(psd, *recs)
