@@ -34,10 +34,12 @@ Run from the root of a checkout:  python3 chip_smoke.py
    on the card, through the histogram probe (scripts/probe_hist.py): K2
    at the main path's shape (one record per lane of the 69,632-lane
    batch into the 4,428 x 102 PSD) and on the probe's 2^21 records, K3
-   at bands 1,024 and 2,048, K2 at the probe's 2^16-record P4 shape;
-   each timed beside its plain version and, for K2/K4, beside one
-   ``index_add_`` of the same records (the library call, never used by
-   the port), and checked against float64.  K2/K4 and the
+   at bands 1,024 and 2,048 and on the edge cases of its contract (the
+   band at cell 0, a band past the array's end, all weights zero, wild
+   boundary indices, one address), K2 at the probe's 2^16-record P4
+   shape; each timed beside its plain version and, for K2/K4, beside
+   one ``index_add_`` of the same records (the library call, never used
+   by the port), and checked against float64.  Every kernel and the
    ``index_add_`` are timed under CUDA-graph replay, the way the
    transport path launches K2, and eagerly; K2 also on the helix step's
    own tensors (int64 zones, float64 weights).
@@ -453,7 +455,10 @@ def hist_phase(dev) -> dict:
     out = ph.run(dev)
     for name, r in out.items():
         err, scale = r["max_abs_err"], r["max_abs_psd"]
-        if not scale > 0 or not math.isfinite(err) or err > HIST_TOL * scale:
+        # a record set that touches no entry (all weights zero) must
+        # leave the PSD exactly zero: err 0 and, below, no error vs f64
+        if (not (scale > 0 or r["touched_entries"] == 0)
+                or not math.isfinite(err) or err > HIST_TOL * scale):
             fail(f"{name}: max abs err {err!r} against the plain version "
                  f"(max |psd| {scale!r})")
         if not r["rel_err_f64"] < 1e-4:
@@ -904,8 +909,11 @@ def kernel_records(done, instances) -> list:
          "source": src + "psd_hist.cu",
          "replaces": "scripts/probe_hist.py:97",
          "launches": done["f64"]["k3"], **rec(k3),
-         "note": "probe kernel, off the main path; timed at band 2,048; "
-                 "its band filter has no single PyTorch call"},
+         "eager_ms": k3["eager_ms"], "bound_share": k3["bound_share"],
+         "note": "probe kernel, off the main path; timed at band 2,048 "
+                 "at 2^21 records, ms under CUDA-graph replay; one "
+                 "cooperative launch; its band filter has no single "
+                 "PyTorch call"},
         {"name": "K4 = K2 psd_scatter", "route": "cuda",
          "source": src + "psd_hist.cu",
          "replaces": "scripts/probe_hist.py:173",

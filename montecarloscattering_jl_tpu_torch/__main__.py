@@ -15,7 +15,10 @@ import time
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="montecarloscattering_jl_tpu_torch",
-        description="Nonlinear Monte Carlo DSA shock runs on a CUDA card")
+        description="Nonlinear Monte Carlo DSA shock runs on a CUDA card",
+        epilog="MCS_I_APPROX (environment): the dN/dp rebinning's cell "
+               "spreading, 0 uniform, 1 isosceles, 2 scalene (default), "
+               "3 exact overlap, as in the JAX package's CLI")
     ap.add_argument("config", nargs="?", default="mc_in.toml",
                     help="TOML run configuration (default: mc_in.toml)")
     ap.add_argument("-o", "--out-dir", default=".",

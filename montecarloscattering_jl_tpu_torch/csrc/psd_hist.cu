@@ -34,25 +34,44 @@
 // skipped before any atomic.  An index outside the flat array is dropped,
 // as JAX's scatter drops it.
 //
-// K3 `psd_scatter_band_kernel` replaces scripts/probe_hist.py::
-// _band_kernel (P3/P3c), K2's prototype: only records whose cell lies in
-// the band [blo, blo + band) contribute, blo being the least cell of a
-// nonzero record (read from device memory, so the host never waits for
-// it).  The grid is (band tiles x record chunks): each block zeroes a
-// shared-memory slab of `tile_rows` cells x nzc boundaries, adds its
-// chunk's in-tile records there with shared-memory atomics, and adds the
-// slab's nonzero entries into the global array.  It privatises the
-// contended shock-zone cells in shared memory at the price of reading
-// every record once per tile.
+// K3 replaces scripts/probe_hist.py::_band_kernel (P3/P3c), K2's
+// prototype: only records whose cell lies in the band [blo, blo + band)
+// contribute, blo being the least cell of a nonzero record (2^30 when
+// there is none), and each boundary index outside [0, nzc) is dropped.
+// On the TPU the band was a VMEM window for a one-hot MXU contraction;
+// here it is only a filter on K2's deposit, and blo is found on the card
+// with no host wait.  `psd_scatter_band_fused` is one cooperative launch
+// of as many blocks as the card holds at once:
+//   * each thread loads its first kHold records' cell and w into
+//     registers (a warp's 32 lanes on 32 consecutive records), folds the
+//     cells of its nonzero ones with __reduce_min_sync over the warp and
+//     through shared memory over the block, and the block adds one
+//     atomicMin to a device word (the same-address atomics are one per
+//     block, not one per record);
+//   * a grid barrier (cooperative_groups::this_grid().sync());
+//   * every thread reads blo and deposits the band's records from the
+//     same registers as K2 deposits (one atomicAdd per distinct address
+//     of a warp), loading lo and hi only for records in the band; a
+//     thread's records past the first kHold are read again (none at the
+//     probe's 2^21 records on an H100).
+// Bound: bytes, as K2: every record is read once.  The device word
+// holds blo as the unsigned cell ^ 0x80000000 (unsigned order is then
+// signed order), set to 0xffffffff by a memset before the launch:
+// INT_MAX, "no nonzero record", which the deposit clamps to 2^30.
+// A two-launch design (a min kernel, then K2's deposit with a
+// compile-time band filter, reading cell and w again from L2) measured
+// 2-9% slower on the probe's records and was dropped (PERF.md).
 //
-// Both kernels allocate nothing and launch on the caller's stream; the C
-// entry points return cudaGetLastError() of the launch.
+// Every kernel here allocates nothing and launches on the caller's
+// stream; the C entry points return cudaGetLastError() of the launches.
 
 #include <cuda_runtime.h>
+#include <cooperative_groups.h>
 
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kNoBand = 1 << 30;                   // blo with no record
 
 // The sum of `x` over the lanes of `peers` (a __match_any_sync group of a
 // converged warp), valid on the group's lowest lane: each round a lane
@@ -82,6 +101,16 @@ __device__ __forceinline__ void warp_add(float* psd, int idx, float v) {
     atomicAdd(psd + idx, sum);
 }
 
+// v at psd[a] and -v at psd[b] (a or b < 0: none on this lane), one
+// atomicAdd per distinct address of the warp a side; every lane of the
+// warp calls it.  A row without an entry costs one ballot.
+__device__ __forceinline__ void warp_deposit(float* psd, int a, int b,
+                                             float v) {
+  if (__ballot_sync(kFull, a >= 0 || b >= 0) == 0u) return;
+  warp_add(psd, a, v);
+  warp_add(psd, b, -v);
+}
+
 template <typename ZoneT, typename WeightT>
 __global__ void psd_scatter_kernel(const int* __restrict__ cell,
                                    const ZoneT* __restrict__ lo,
@@ -107,57 +136,91 @@ __global__ void psd_scatter_kernel(const int* __restrict__ cell,
       if (v != 0.0f && fa >= 0 && fa < n_flat) a = (int)fa;
       if (v != 0.0f && fb >= 0 && fb < n_flat) b = (int)fb;
     }
-    // a row without a nonzero record costs one ballot
-    if (__ballot_sync(kFull, a >= 0 || b >= 0) == 0u) continue;
-    warp_add(psd, a, v);
-    warp_add(psd, b, -v);
-  }
-}
-
-__global__ void psd_scatter_band_kernel(const int* __restrict__ cell,
-                                        const int* __restrict__ lo,
-                                        const int* __restrict__ hi,
-                                        const float* __restrict__ w,
-                                        const int* __restrict__ blo_ptr,
-                                        float* __restrict__ psd, int n_rec,
-                                        int n_cells, int nzc, int band,
-                                        int tile_rows, int chunk) {
-  extern __shared__ float slab[];
-  const int blo = *blo_ptr;
-  // this tile's cells: [t_lo, t_hi) within the band and the array
-  const long long t0 = (long long)blo + (long long)blockIdx.x * tile_rows;
-  const long long t_end = min(min(t0 + tile_rows, (long long)blo + band),
-                              (long long)n_cells);
-  const int t_lo = (int)max(t0, 0LL);
-  const int rows = (int)(t_end - t_lo);
-  if (rows <= 0) return;                           // block-uniform
-  const int n_slab = rows * nzc;
-  for (int j = threadIdx.x; j < n_slab; j += blockDim.x) slab[j] = 0.0f;
-  __syncthreads();
-
-  const int r0 = blockIdx.y * chunk;
-  const int r1 = min(r0 + chunk, n_rec);
-  for (int i = r0 + threadIdx.x; i < r1; i += blockDim.x) {
-    const float v = w[i];
-    if (v == 0.0f) continue;
-    const int local = cell[i] - t_lo;
-    if (local < 0 || local >= rows) continue;
-    const int za = lo[i];
-    const int zb = hi[i] + 1;
-    if (za >= 0 && za < nzc) atomicAdd(slab + local * nzc + za, v);
-    if (zb >= 0 && zb < nzc) atomicAdd(slab + local * nzc + zb, -v);
-  }
-  __syncthreads();
-
-  float* out = psd + (long long)t_lo * nzc;
-  for (int j = threadIdx.x; j < n_slab; j += blockDim.x) {
-    const float v = slab[j];
-    if (v != 0.0f) atomicAdd(out + j, v);
+    warp_deposit(psd, a, b, v);
   }
 }
 
 constexpr int kThreads = 256;
-constexpr int kBandThreads = 512;
+constexpr int kMaxBlocks = 132 * 32;               // grid-stride beyond
+constexpr int kHold = 16;                          // records a thread holds
+
+// K3's deposit of record i (its cell c and weight v held): the band
+// [b_lo, b_hi) is already cut to the array, and each boundary index
+// outside [0, nzc) is dropped.
+__device__ __forceinline__ void band_deposit(float* psd, long long i,
+                                             int n_rec, int c, float v,
+                                             const int* lo, const int* hi,
+                                             long long b_lo, long long b_hi,
+                                             int nzc) {
+  int a = -1, b = -1;
+  if (i < n_rec && v != 0.0f && c >= b_lo && c < b_hi) {
+    const long long za = lo[i], zb = (long long)hi[i] + 1;
+    if (za >= 0 && za < nzc) a = (int)((long long)c * nzc + za);
+    if (zb >= 0 && zb < nzc) b = (int)((long long)c * nzc + zb);
+  }
+  warp_deposit(psd, a, b, v);
+}
+
+// The least cell of a nonzero record is kept as the unsigned
+// cell ^ 0x80000000, whose order is the cells' signed order.
+__device__ __forceinline__ unsigned cell_key(int c) {
+  return (unsigned)c ^ 0x80000000u;
+}
+
+// K3 in one cooperative launch: the min pass over records held in
+// registers, a grid barrier, the deposit from the same registers.
+__global__ void __launch_bounds__(kThreads)
+psd_scatter_band_fused(const int* __restrict__ cell,
+                       const int* __restrict__ lo,
+                       const int* __restrict__ hi,
+                       const float* __restrict__ w, unsigned* key,
+                       float* __restrict__ psd, int n_rec, int n_cells,
+                       int nzc, int band) {
+  __shared__ unsigned warp_min[kThreads / 32];
+  const long long T = (long long)gridDim.x * kThreads;
+  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
+  int c[kHold];
+  float v[kHold];
+  unsigned m = 0xffffffffu;
+#pragma unroll
+  for (int k = 0; k < kHold; ++k) {
+    const long long i = k * T + t;
+    c[k] = 0;
+    v[k] = 0.0f;
+    if (i < n_rec) {
+      v[k] = w[i];
+      c[k] = cell[i];
+    }
+    if (v[k] != 0.0f) m = min(m, cell_key(c[k]));
+  }
+  for (long long i = kHold * T + t; i < n_rec; i += T)
+    if (w[i] != 0.0f) m = min(m, cell_key(cell[i]));
+  m = __reduce_min_sync(kFull, m);
+  if ((threadIdx.x & 31) == 0) warp_min[threadIdx.x >> 5] = m;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    m = threadIdx.x < kThreads / 32 ? warp_min[threadIdx.x] : 0xffffffffu;
+    m = __reduce_min_sync(kFull, m);
+    if (threadIdx.x == 0 && m != 0xffffffffu) atomicMin(key, m);
+  }
+  cooperative_groups::this_grid().sync();
+  // the key through L2: this SM never cached it
+  const int least = (int)(__ldcg(key) ^ 0x80000000u);
+  if (least >= kNoBand) return;                    // grid-uniform
+  const long long b_lo = max((long long)least, 0LL);
+  const long long b_hi = min((long long)least + band, (long long)n_cells);
+#pragma unroll
+  for (int k = 0; k < kHold; ++k)
+    band_deposit(psd, k * T + t, n_rec, c[k], v[k], lo, hi, b_lo, b_hi,
+                 nzc);
+  // warp-uniform trip count past the held records
+  for (long long r0 = kHold * T + (t & ~31LL); r0 < n_rec; r0 += T) {
+    const long long i = r0 + (threadIdx.x & 31);
+    const float vi = i < n_rec ? w[i] : 0.0f;
+    const int ci = i < n_rec ? cell[i] : 0;
+    band_deposit(psd, i, n_rec, ci, vi, lo, hi, b_lo, b_hi, nzc);
+  }
+}
 
 }  // namespace
 
@@ -166,7 +229,7 @@ static int launch_scatter(const int* cell, const void* lo, const void* hi,
                           const void* w, float* psd, int n_rec, int n_flat,
                           int nzc, cudaStream_t stream) {
   int blocks = (n_rec + kThreads - 1) / kThreads;
-  if (blocks > 132 * 32) blocks = 132 * 32;        // grid-stride beyond
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;     // grid-stride beyond
   psd_scatter_kernel<ZoneT, WeightT><<<blocks, kThreads, 0, stream>>>(
       cell, (const ZoneT*)lo, (const ZoneT*)hi, (const WeightT*)w, psd, n_rec,
       n_flat, nzc);
@@ -197,24 +260,33 @@ extern "C" int mcs_psd_scatter(const int* cell, const void* lo,
                                     nzc, s);
 }
 
+// K3: the key (one unsigned of scratch on the device) set to 0xffffffff,
+// then one cooperative launch of as many blocks as the card holds.
 extern "C" int mcs_psd_scatter_band(const int* cell, const int* lo,
                                     const int* hi, const float* w,
-                                    const int* blo, float* psd, int n_rec,
+                                    unsigned* key, float* psd, int n_rec,
                                     int n_cells, int nzc, int band,
-                                    int tile_rows, int n_chunks,
                                     void* stream) {
   if (n_rec <= 0 || band <= 0) return 0;
-  const int smem = tile_rows * nzc * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      psd_scatter_band_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+  if ((long long)n_cells * nzc >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;             // int flat indices
+  static int grid = 0;                             // one card a process
+  if (grid == 0) {
+    int dev = 0, sms = 0, per = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per, psd_scatter_band_fused, kThreads, 0);
+    grid = sms * per;
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = cudaMemsetAsync(key, 0xff, sizeof(unsigned), s);
   if (err != cudaSuccess) return (int)err;
-  const int n_tiles = (band + tile_rows - 1) / tile_rows;
-  const int chunk = (n_rec + n_chunks - 1) / n_chunks;
-  dim3 grid(n_tiles, n_chunks);
-  psd_scatter_band_kernel<<<grid, kBandThreads, smem,
-                            (cudaStream_t)stream>>>(
-      cell, lo, hi, w, blo, psd, n_rec, n_cells, nzc, band, tile_rows,
-      chunk);
+  void* args[] = {(void*)&cell, (void*)&lo, (void*)&hi, (void*)&w,
+                  (void*)&key, (void*)&psd, (void*)&n_rec, (void*)&n_cells,
+                  (void*)&nzc, (void*)&band};
+  err = cudaLaunchCooperativeKernel((const void*)psd_scatter_band_fused,
+                                    dim3(grid), dim3(kThreads), args, 0, s);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

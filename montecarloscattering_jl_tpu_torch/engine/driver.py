@@ -9,6 +9,7 @@ resume.
 from __future__ import annotations
 
 import logging
+import os
 import time
 from dataclasses import dataclass, field
 
@@ -88,11 +89,17 @@ def ion_finalize(setup: RunSetup, res: IonResult, prof, i_ion: int,
                  want_d2n_ef: bool) -> IonFinal:
     """Per-species reductions: dN/dp in 3 frames, zone populations,
     normalization, pressures, ISM-frame d2N (ion_finalize.jl:25-59).
-    The rebinning runs on the PSD's device; the ~1e50-scale zone
-    normalizations stay on the host in float64."""
+    The rebinning runs on the PSD's device, its cell spreading chosen by
+    the environment variable MCS_I_APPROX (0, 1, 2 or 3; default 2); the
+    ~1e50-scale zone normalizations stay on the host in float64."""
     cfg, bins = setup.cfg, setup.bins
     s = cfg.species[i_ion]
     e0 = s.rest_energy
+
+    # cell-weight spreading mode, read as the JAX driver reads it
+    # (driver.py:112): 2, the reference's scalene triangle
+    # (particle_counter.jl:72), unless MCS_I_APPROX says otherwise
+    i_approx = int(os.environ.get("MCS_I_APPROX", "2"))
 
     zone_pop, zone_vol = red.zone_populations(
         setup.x_grid_cm, setup.i_shock, s.number_density, cfg.beta0,
@@ -101,7 +108,7 @@ def ion_finalize(setup: RunSetup, res: IonResult, prof, i_ion: int,
 
     dn_cr, dn_th, d2n_tot, d2n_ef = red.ion_reduce_device(
         res.psd, res.therm_psd, bins, e0, prof.gamma_sf, prof.ux_sk,
-        cfg.gamma0, want_ef=want_d2n_ef)
+        cfg.gamma0, i_approx=i_approx, want_ef=want_d2n_ef)
     psd = res.psd.cpu().numpy()
     therm = res.therm_psd.cpu().numpy()
     if want_d2n_ef:

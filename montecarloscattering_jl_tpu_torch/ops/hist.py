@@ -19,9 +19,12 @@ nzc], in place.
   (what a caller that adds into the same tensors again and again, or
   times the kernel, wants).
 * ``psd_scatter_band`` (K3): only records whose cell lies in [blo,
-  blo + band), blo the least cell of a nonzero record (P3's contract),
-  and whose boundary index lies in [0, nzc).  The plain version is
-  ``psd_scatter_band_plain``.
+  blo + band) and in the array, blo the least cell of a nonzero record
+  (P3's contract; 2^30, and nothing added, when there is none), and
+  whose boundary index lies in [0, nzc).  On a CUDA device it is one
+  cooperative launch (the least cell into a device word, a grid barrier,
+  then K2's deposit with the band's filter) and no host wait.  The plain
+  version is ``psd_scatter_band_plain``.
 
 Neither kernel has the TPU's band window, bf16 operands or stochastic
 rounding: f32 atomics add every record into the full array.  The plain
@@ -43,8 +46,6 @@ LAUNCHES = 0
 BAND_LAUNCHES = 0
 PLAIN_CALLS = 0
 
-SMEM_BYTES = 180 * 1024      # K3's slab budget (of 227 KB a block)
-BAND_CHUNKS = 512            # K3 blocks: about this many over all tiles
 _LIB = None
 
 
@@ -55,7 +56,7 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.mcs_psd_scatter.argtypes = [p] * 5 + [i] * 5 + [p]
         lib.mcs_psd_scatter.restype = i
-        lib.mcs_psd_scatter_band.argtypes = [p] * 6 + [i] * 6 + [p]
+        lib.mcs_psd_scatter_band.argtypes = [p] * 6 + [i] * 4 + [p]
         lib.mcs_psd_scatter_band.restype = i
         _LIB = lib
     return _LIB
@@ -118,9 +119,10 @@ def psd_scatter_plain(psd, cell, lo, hi, w) -> None:
 
 def band_low(cell, w) -> torch.Tensor:
     """P3's band offset: the least cell of a nonzero record (2^30 when
-    there is none), a 0-dim int32 tensor on the records' device."""
-    big = torch.tensor(2 ** 30, dtype=torch.int32, device=cell.device)
-    return torch.where(w != 0, cell, big).min()
+    there is none, an empty record set included), a 0-dim int32 tensor
+    on the records' device."""
+    big = torch.full((1,), 2 ** 30, dtype=torch.int32, device=cell.device)
+    return torch.cat([torch.where(w != 0, cell, big), big]).min()
 
 
 def psd_scatter_band_plain(psd, cell, lo, hi, w, band: int) -> None:
@@ -182,15 +184,6 @@ def psd_scatter(psd, cell, lo, hi, w) -> None:
     ScatterLaunch(psd, cell, lo, hi, w).launch()
 
 
-def band_tile_rows(nzc: int, band: int) -> int:
-    """Cell rows of one K3 slab: as many as SMEM_BYTES holds, a multiple
-    of 32 (448 at nzc = 102), at most the band."""
-    rows = (SMEM_BYTES // (4 * nzc)) // 32 * 32
-    if rows < 1:
-        raise ValueError(f"nzc = {nzc}: one cell row exceeds the slab")
-    return min(rows, band)
-
-
 def psd_scatter_band(psd, cell, lo, hi, w, band: int) -> None:
     """Add the band's records into `psd` in place: the plain version for
     a PSD on the CPU, K3 for one on a CUDA device."""
@@ -205,17 +198,15 @@ def psd_scatter_band(psd, cell, lo, hi, w, band: int) -> None:
         return
     if dev.type != "cuda":
         raise ValueError(f"no histogram kernel for device {dev}")
+    if psd.numel() >= 2 ** 31:
+        raise ValueError(f"psd: K3 indexes fewer than 2^31 entries, got "
+                         f"{tuple(psd.shape)}")
     n_cells, nzc = psd.shape
-    rows = band_tile_rows(nzc, band)
-    n_tiles = -(-band // rows)
-    n = w.shape[0]
-    n_chunks = max(1, min(-(-n // 1024), BAND_CHUNKS // n_tiles))
-    blo = band_low(cell, w)
+    key = torch.empty(1, dtype=torch.int32, device=dev)  # blo, on the card
     err = _lib().mcs_psd_scatter_band(
-        _ptr(cell), _ptr(lo), _ptr(hi), _ptr(w), _ptr(blo), _ptr(psd),
-        ctypes.c_int(n), ctypes.c_int(n_cells), ctypes.c_int(nzc),
-        ctypes.c_int(band), ctypes.c_int(rows), ctypes.c_int(n_chunks),
-        _stream(dev))
+        _ptr(cell), _ptr(lo), _ptr(hi), _ptr(w), _ptr(key), _ptr(psd),
+        ctypes.c_int(w.shape[0]), ctypes.c_int(n_cells), ctypes.c_int(nzc),
+        ctypes.c_int(band), _stream(dev))
     if err != 0:
         raise RuntimeError(f"K3 launch failed: CUDA error {err}")
     BAND_LAUNCHES += 1

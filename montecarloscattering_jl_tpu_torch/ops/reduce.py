@@ -3,8 +3,9 @@
 Counterpart of the JAX package's ops/reduce.py on the slice's path:
 
 * ``ion_reduce_device`` (``_ion_reduce_prog``, reduce.py:237-352): dN/dp
-  in the shock, plasma and ISM frames by corner-transform rebinning with
-  the scalene-triangle cell spreading (i_approx = 2, the reference's
+  in the shock, plasma and ISM frames by corner-transform rebinning, the
+  cell weight spread by ``i_approx`` as ``_rebin_matrix`` spreads it
+  (reduce.py:150-189; 2, the scalene triangle, is the reference's
   production choice, particle_counter.jl:72), and the center-point
   boosted d2N (thermo_calcs.jl:179-208).  It runs in torch on the PSD's
   device in float64: the reference ran it in float32 only because f64
@@ -63,22 +64,99 @@ def _triangle_cdf(x, lo, peak, hi):
     return torch.where(tinyw, (x >= lo).to(x.dtype), cdf)
 
 
-def rebin_matrix(corner_lp: torch.Tensor,
-                 edges_log: torch.Tensor) -> torch.Tensor:
+def _uniform_cdf(x, lo, hi):
+    """CDF of a uniform distribution on [lo, hi] (i_approx = 0,
+    uniform_cell_distribution!, transformers.jl:177-202)."""
+    width = hi - lo
+    tinyw = width <= 1.0e-12
+    cdf = torch.clamp((x - lo) / torch.clamp(width, min=1.0e-30), 0.0, 1.0)
+    return torch.where(tinyw, (x >= lo).to(x.dtype), cdf)
+
+
+def _trapezoid_cdf(x, lo, b1, b2):
+    """CDF of alpha + beta*u + gamma*v for (u, v) uniform on the unit
+    square: a trapezoidal distribution on [lo, lo+b1+b2] with plateau
+    [lo+m, lo+M], m = min(b1, b2), M = max(b1, b2); robust to
+    degenerate spans."""
+    m = torch.minimum(b1, b2)
+    big = torch.maximum(b1, b2)
+    tot = m + big
+    tiny = tot <= 1.0e-12
+    s = x - lo
+    m_s = torch.clamp(m, min=1.0e-30)
+    big_s = torch.clamp(big, min=1.0e-30)
+    ramp_up = s * s / (2.0 * m_s * big_s)
+    plateau = (2.0 * s - m) / (2.0 * big_s)
+    ramp_dn = 1.0 - (tot - s) ** 2 / (2.0 * m_s * big_s)
+    cdf = torch.where(s <= m, ramp_up, torch.where(s <= big, plateau,
+                                                   ramp_dn))
+    cdf = torch.where(s <= 0.0, 0.0, torch.where(s >= tot, 1.0, cdf))
+    return torch.where(tiny, (s >= 0.0).to(x.dtype), cdf)
+
+
+_EXACT_SUBDIV = 4   # i_approx = 3 bilinear subdivision per cell axis
+
+
+def _exact_cdf(c00, c10, c01, c11, e):
+    """i_approx = 3: the exact-overlap CDF of the transformed cell.  The
+    cell's log-p surface is the bilinear interpolation of its four
+    corners over the (u, v) unit square, cut into _EXACT_SUBDIV^2
+    subcells; each subcell's restriction, linearized (the cross term
+    dropped), gets the exact trapezoidal CDF.  The reference reserves
+    the mode and errors on it (transformers.jl:132-134); this follows
+    the JAX package's implementation of its intent.  c** are [n_cells, 1]
+    corner columns, `e` is [1, n_edges]; returns [n_cells, n_edges]."""
+    k = _EXACT_SUBDIV
+    beta_full = c10 - c00
+    gamma_full = c01 - c00
+    delta = c11 - c10 - c01 + c00
+    cdf = 0.0
+    for r in range(k):
+        for s in range(k):
+            u0 = r / k
+            v0 = s / k
+            alpha = (c00 + beta_full * u0 + gamma_full * v0
+                     + delta * u0 * v0)
+            beta = (beta_full + delta * v0) / k
+            gamma = (gamma_full + delta * u0) / k
+            lo = (alpha + torch.clamp(beta, max=0.0)
+                  + torch.clamp(gamma, max=0.0))
+            cdf = cdf + _trapezoid_cdf(e, lo, beta.abs(), gamma.abs())
+    return cdf / (k * k)
+
+
+def rebin_matrix(corner_lp: torch.Tensor, edges_log: torch.Tensor,
+                 i_approx: int = 2) -> torch.Tensor:
     """[n_cells, n_bins] fraction matrix from the cell corner log-p grid
-    (get_transform_dN, transformers.jl:106-148, i_approx = 2): cell
-    (i, j) owns corners (i..i+1, j..j+1); their min and max bound the
-    cell, the mean of the two middle ones is the triangle's peak."""
-    stack = torch.stack([corner_lp[:-1, :-1], corner_lp[1:, :-1],
-                         corner_lp[:-1, 1:], corner_lp[1:, 1:]], dim=-1)
-    lo = stack.min(dim=-1).values
-    hi = stack.max(dim=-1).values
-    peak = (stack.sum(dim=-1) - lo - hi) / 2.0
+    (get_transform_dN, transformers.jl:106-148): cell (i, j) owns
+    corners (i..i+1, j..j+1), and its weight is spread by `i_approx` as
+    the JAX package's ``_rebin_matrix`` spreads it:
+      0  uniform on [p_lo, p_hi] (the corners' min and max)
+      1  isosceles triangle peaked at the midpoint
+      3  exact bilinear-cell overlap (``_exact_cdf``)
+      any other value (2, the reference's production choice): scalene
+         triangle peaked at the mean of the two middle corners."""
+    c00, c10 = corner_lp[:-1, :-1], corner_lp[1:, :-1]
+    c01, c11 = corner_lp[:-1, 1:], corner_lp[1:, 1:]
     # the last bin extends to +inf so overflow lands there, as the
     # reference clamps to the top bin (transformers.jl:68-92)
     e = torch.cat([edges_log[:-1], edges_log.new_tensor([1.0e9])])
-    cdf = _triangle_cdf(e[None, :], lo.reshape(-1, 1), peak.reshape(-1, 1),
-                        hi.reshape(-1, 1))
+    if i_approx == 3:
+        cdf = _exact_cdf(c00.reshape(-1, 1), c10.reshape(-1, 1),
+                         c01.reshape(-1, 1), c11.reshape(-1, 1), e[None, :])
+        return cdf[:, 1:] - cdf[:, :-1]
+    stack = torch.stack([c00, c10, c01, c11], dim=-1)
+    lo = stack.min(dim=-1).values
+    hi = stack.max(dim=-1).values
+    if i_approx == 1:
+        peak = (lo + hi) / 2.0
+    else:
+        peak = (stack.sum(dim=-1) - lo - hi) / 2.0
+    lo, hi, peak = lo.reshape(-1, 1), hi.reshape(-1, 1), peak.reshape(-1, 1)
+    if i_approx == 0:
+        cdf = _uniform_cdf(e[None, :], lo, hi)
+    else:
+        cdf = _triangle_cdf(e[None, :], lo, peak, hi)
     return cdf[:, 1:] - cdf[:, :-1]
 
 
@@ -116,14 +194,15 @@ def d2n_boosted(total: torch.Tensor, gammas, betas, e0: float,
 
 def ion_reduce_device(psd, therm_psd, bins: PsdBins, e0: float,
                       gamma_sf_grid, ux_sk_grid, gamma0: float,
-                      want_ef: bool = False):
+                      i_approx: int = 2, want_ef: bool = False):
     """(dn_cr, dn_th, d2n_tot, d2n_ef) as float64 NumPy arrays.
 
     dn_cr / dn_th are the un-normalized dN/dp [n_mom+1, nb, 3] (shock,
     plasma, ISM frames); d2n_tot is the plasma-frame center-point
     boosted CR+thermal d2N for thermo_calcs; d2n_ef (when want_ef) the
     ISM-frame d2N/dp of the raw CR+thermal total, which the caller
-    multiplies by ``ef_zone_norm``.  `psd` / `therm_psd` are
+    multiplies by ``ef_zone_norm``.  `i_approx` selects the cell
+    spreading of ``rebin_matrix``.  `psd` / `therm_psd` are
     [n_mom+1, n_theta+1, nb] tensors (any float dtype) on the device
     the reduction runs on."""
     dev = psd.device
@@ -147,11 +226,11 @@ def ion_reduce_device(psd, therm_psd, bins: PsdBins, e0: float,
     for z in range(nb):
         g = float(gam[z])
         m = rebin_matrix(corner_logp(g, e0, mom_edges, cos_bounds),
-                         edges_log)
+                         edges_log, i_approx)
         dn_pf_cr[z] = torch.matmul((psd_t[z] / g).reshape(-1), m)
         dn_pf_th[z] = torch.matmul((th_t[z] / g).reshape(-1), m)
     m0 = rebin_matrix(corner_logp(gamma0, e0, mom_edges, cos_bounds),
-                      edges_log)
+                      edges_log, i_approx)
     dn_ef_cr = torch.matmul(psd_t.reshape(nb, -1) / gamma0, m0)
     dn_ef_th = torch.matmul(th_t.reshape(nb, -1) / gamma0, m0)
 

@@ -10,7 +10,11 @@ beside its plain version (ops/hist.py) on the same records:
             flagship's 69,632-lane batch) and at R records; its plain
             version is P0's counterpart
   K3        psd_scatter_band at bands 1,024 and 2,048 (P3's counterpart;
-            records outside the band contribute nothing)
+            records outside the band contribute nothing), and on the
+            edge cases of its contract (``k3_edge_cases``: the band at
+            cell 0, a band past the array's end, all weights zero,
+            boundary indices outside [0, nzc), every record on one
+            address)
   K4 = K2   K2 at P4's 2^16 records (P4's one-record-at-a-time scatter
             is K2's function)
 
@@ -25,7 +29,7 @@ stepped eagerly, its (cell, lo, hi, w) kept at steps STEP_RECORDS, early
 For each it reports ms and ns/record of the kernel and of the plain
 version, the kernel's max abs error against the plain version, the
 largest entry, and both against the float64 NumPy reference
-``ref_result`` (restricted to the band for K3).  Beside them: the bound,
+``ref_result`` (``band_ref`` for K3).  Beside them: the bound,
 the least time an H100 SXM could take (the records read once, and each
 PSD entry that a nonzero record -- within the band, for K3 -- adds to
 read and written once, 4 B each way, at 3.35 TB/s; the entries no
@@ -35,7 +39,7 @@ of the records' (lo, +w) and (hi + 1, -w) entries into the flat PSD
 (the library call; K3's band filter has none, and the port never calls
 it).
 
-K2, K4 and their ``index_add_`` are timed two ways.  ``ms`` and
+Every kernel, and K2's ``index_add_``, is timed two ways.  ``ms`` and
 ``library_ms`` are device time a launch under CUDA-graph replay
 (``graph_ms``: GRAPH_LAUNCHES launches captured into one graph, CUDA
 events around its replays), which is how the transport path launches K2
@@ -43,12 +47,12 @@ events around its replays), which is how the transport path launches K2
 ``eager_ms`` and ``library_eager_ms`` are CUDA events around eager calls
 from Python (``time_ms``; K2 through its prepared ``ScatterLaunch``):
 where the host needs longer to make a call than the card to run it,
-they read the host.  K3 is timed eagerly only.
+they read the host.
 
 Usage, by path:
 
     python montecarloscattering_jl_tpu_torch/scripts/probe_hist.py \\
-        [--root DIR --narrow]
+        [--root DIR [--narrow] [--eager-k3]] [--k3-only]
 
 ``--root`` is the root of the checkout whose wrappers and engine are
 imported (default: the one this file lies in); an older commit unpacked
@@ -56,6 +60,10 @@ with ``git archive`` serves as the parent of a comparison, timed by this
 file.  ``--narrow`` is for a checkout whose K2 takes int32 zones and
 float32 weights only and has no prepared launch: it is called through
 ``psd_scatter``, and the int64 / float64 case is left out.
+``--eager-k3`` is for a checkout whose K3 cannot be captured into a
+graph (one whose K3 wrapper copies 2^30 from the host on every call,
+as the slab kernel's did): K3 is timed eagerly only there.
+``--k3-only`` runs K3's cases alone.
 """
 
 from __future__ import annotations
@@ -99,20 +107,62 @@ def ref_result(cell, lo, hi, w) -> np.ndarray:
 
 
 def band_ref(cell, lo, hi, w, band: int) -> np.ndarray:
-    """ref_result of the records in [blo, blo + band), blo the least
-    cell of a nonzero record."""
-    blo = int(np.min(np.where(w != 0, cell, 2 ** 30)))
-    keep = (cell >= blo) & (cell < blo + band)
-    return ref_result(cell, lo, hi, np.where(keep, w, np.float32(0)))
+    """K3's contract in float64 NumPy: ref_result of the records with
+    w != 0 and blo <= cell < blo + band, blo the least cell of a nonzero
+    record (2^30 when there is none), cell inside the array, each
+    boundary index outside [0, NZC) dropped."""
+    flat = np.zeros((N_CELLS * NZC,), np.float64)
+    for idx, v in _band_entries(cell, lo, hi, w, band):
+        np.add.at(flat, idx, v)
+    return flat.reshape(N_CELLS, NZC)
+
+
+def _band_entries(cell, lo, hi, w, band: int):
+    """[(flat index, value)] of the +w and the -w side of K3's records,
+    a dropped entry as +0.0 at index 0 (adding it changes no sum)."""
+    cell = np.asarray(cell, np.int64)
+    w = np.asarray(w, np.float64)
+    blo = int(np.min(np.where(w != 0, cell, 2 ** 30), initial=2 ** 30))
+    keep = ((w != 0) & (cell >= blo) & (cell < blo + band) & (cell >= 0)
+            & (cell < N_CELLS))
+    out = []
+    for z, v in ((np.asarray(lo, np.int64), w),
+                 (np.asarray(hi, np.int64) + 1, -w)):
+        ok = keep & (z >= 0) & (z < NZC)
+        out.append((np.where(ok, cell * NZC + z, 0), np.where(ok, v, 0.0)))
+    return out
+
+
+def k3_edge_cases(r: int, rng: np.random.Generator) -> dict:
+    """{name: ((cell, lo, hi, w), band)}: the edge cases of K3's
+    contract, each on r synth records but "empty", which has none."""
+    cell, lo, hi, w = synth(r, rng)
+    at0 = cell - cell.min()
+    at0[0], w_at0 = 0, w.copy()
+    w_at0[0] = np.float32(1.0)
+    wild_lo = rng.integers(-6, NZC + 4, r).astype(np.int32)
+    one = (np.full(r, 2000, np.int32), np.full(r, 40, np.int32),
+           np.full(r, 41, np.int32), w + np.float32(0.5))
+    e = np.zeros(0, np.int32)
+    return {
+        "band at cell 0": ((at0, lo, hi, w_at0), 1024),
+        "band past the array's end": (
+            (cell + np.int32(N_CELLS - 1200 - int(BAND * 0.9)), lo, hi, w),
+            2048),
+        "all weights zero": ((cell, lo, hi, np.zeros_like(w)), 2048),
+        "wild lo / hi": ((cell, wild_lo, wild_lo + (hi - lo), w), 1024),
+        "one address": (one, 1024),
+        "empty": ((e, e, e, np.zeros(0, np.float32)), 1024),
+    }
 
 
 def touched_entries(cell, lo, hi, w, band: int = 0) -> int:
-    """The distinct PSD entries the nonzero records add to (those in
-    band_ref's band when `band` is given)."""
-    keep = w != 0
+    """The distinct PSD entries the nonzero records add to (K3's, by
+    its contract, when `band` is given)."""
     if band:
-        blo = int(np.min(np.where(keep, cell, 2 ** 30)))
-        keep &= (cell >= blo) & (cell < blo + band)
+        idx = [i[v != 0] for i, v in _band_entries(cell, lo, hi, w, band)]
+        return int(np.unique(np.concatenate(idx)).size)
+    keep = w != 0
     base = np.asarray(cell[keep], np.int64) * NZC
     return int(np.unique(np.concatenate([base + lo[keep],
                                          base + hi[keep] + 1])).size)
@@ -162,7 +212,11 @@ def graph_ms(fn, n: int = GRAPH_LAUNCHES, replays: int = 10) -> float:
 
 
 def _case(dev, records, want, kernel, plain, library: bool,
-          touched: int, narrow: bool = False) -> dict:
+          touched: int, narrow: bool = False, graph: bool = True) -> dict:
+    """One kernel on one record set: its result against the plain
+    version's and `want` (float64), and its times.  `library`: K2, timed
+    through its prepared launch beside one index_add_; `graph`: the
+    kernel is timed under graph replay as well as eagerly."""
     from montecarloscattering_jl_tpu_torch.ops import hist
 
     args = [torch.from_numpy(a).to(dev) for a in records]
@@ -175,16 +229,15 @@ def _case(dev, records, want, kernel, plain, library: bool,
     psd = new()
     n = len(records[0])
     plain_ms = time_ms(lambda: plain(psd, *args))
-    library_ms = eager_ms = library_eager_ms = None
+    library_ms = library_eager_ms = None
+    launch = lambda: kernel(psd, *args)
+    if library and not narrow:
+        # K2 through its prepared launch
+        launch = hist.ScatterLaunch(psd, *args).launch
+    eager_ms = time_ms(launch)
+    ms = graph_ms(launch) if graph else eager_ms
     if library:
-        # K2: through its prepared launch, eagerly and under graph replay,
-        # and one index_add_ of the same entries the same two ways
-        if narrow:
-            k2 = lambda: hist.psd_scatter(psd, *args)
-        else:
-            k2 = hist.ScatterLaunch(psd, *args).launch
-        eager_ms = time_ms(k2)
-        ms = graph_ms(k2)
+        # one index_add_ of the same entries, the same two ways
         cell, lo, hi, w = args
         base = cell.long() * NZC
         idx = torch.cat([base + lo.long(), base + hi.long() + 1])
@@ -192,13 +245,12 @@ def _case(dev, records, want, kernel, plain, library: bool,
         flat = psd.view(-1)
         library_eager_ms = time_ms(lambda: flat.index_add_(0, idx, vals))
         library_ms = graph_ms(lambda: flat.index_add_(0, idx, vals))
-    else:
-        ms = time_ms(lambda: kernel(psd, *args))
     bound_ms = (n * RECORD_BYTES + 2 * touched * 4) / HBM_BYTES_S * 1e3
     return dict(records=n, touched_entries=touched, ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, eager_ms=eager_ms,
                 library_eager_ms=library_eager_ms,
                 bound_ms=bound_ms, bound_by="bytes",
+                bound_share=bound_ms / ms,
                 ns_per_record=ms * 1e6 / n,
                 plain_ns_per_record=plain_ms * 1e6 / n,
                 max_abs_err=float((got - ref).abs().max()),
@@ -250,11 +302,12 @@ def step_records(dev, workloads, steps=STEP_RECORDS) -> dict:
     return kept
 
 
-def run(device, narrow: bool = False, extra: dict | None = None) -> dict:
+def run(device, narrow: bool = False, extra: dict | None = None,
+        eager_k3: bool = False, k3_only: bool = False) -> dict:
     """Time and check every kernel against its plain version on `device`
     (a CUDA device); returns {name: numbers}.  `extra`: more K2 cases,
-    {name: (cell, lo, hi, w)} of int32 / float32 NumPy records.  `narrow`:
-    see the module's text."""
+    {name: (cell, lo, hi, w)} of int32 / float32 NumPy records.
+    `narrow`, `eager_k3`, `k3_only`: see the module's text."""
     from montecarloscattering_jl_tpu_torch.ops import hist
 
     dev = torch.device(device)
@@ -264,60 +317,59 @@ def run(device, narrow: bool = False, extra: dict | None = None) -> dict:
     recs = synth(R, rng)
     recs4 = synth(R4, rng)
     path = synth(PATH_RECORDS, rng)
-    cases = {
-        "K2 (69,632 records)": (path, ref_result(*path), hist.psd_scatter,
-                                hist.psd_scatter_plain, True,
-                                touched_entries(*path)),
-        "K2 (2^21 records)": (recs, ref_result(*recs), hist.psd_scatter,
-                              hist.psd_scatter_plain, True,
-                              touched_entries(*recs))}
+    k2 = lambda records: (records, ref_result(*records), hist.psd_scatter,
+                          hist.psd_scatter_plain, True,
+                          touched_entries(*records))
+
+    def k3(records, band):
+        return (records, band_ref(*records, band),
+                lambda p, *a: hist.psd_scatter_band(p, *a, band),
+                lambda p, *a: hist.psd_scatter_band_plain(p, *a, band),
+                False, touched_entries(*records, band))
+
+    cases = {} if k3_only else {"K2 (69,632 records)": k2(path),
+                                "K2 (2^21 records)": k2(recs)}
     for band in (1024, 2048):
-        cases[f"K3 band={band}"] = (
-            recs, band_ref(*recs, band),
-            lambda p, *a, _b=band: hist.psd_scatter_band(p, *a, _b),
-            lambda p, *a, _b=band: hist.psd_scatter_band_plain(p, *a, _b),
-            False, touched_entries(*recs, band))
-    # the worst case of same-address atomics: every record of the path's
-    # batch on one (cell, lo, hi)
-    n = PATH_RECORDS
-    one = (np.full(n, 2000, np.int32), np.full(n, 40, np.int32),
-           np.full(n, 41, np.int32), path[3] + np.float32(0.5))
-    cases["K2 (69,632 records on one address)"] = (
-        one, ref_result(*one), hist.psd_scatter, hist.psd_scatter_plain,
-        True, touched_entries(*one))
-    for name, records in (extra or {}).items():
-        cases[name] = (records, ref_result(*records), hist.psd_scatter,
-                       hist.psd_scatter_plain, True,
-                       touched_entries(*records))
-    if not narrow:
-        # the synthetic records as the helix step hands them over,
-        # against the plain version on the same tensors
-        wide = (path[0], path[1].astype(np.int64), path[2].astype(np.int64),
-                path[3].astype(np.float64))
-        cases["K2 (69,632 records, int64 zones, float64 weights)"] = (
-            wide, ref_result(*path), hist.psd_scatter,
-            hist.psd_scatter_plain, True, touched_entries(*path))
-    cases["K4 = K2 (2^16 records)"] = (recs4, ref_result(*recs4),
-                                        hist.psd_scatter,
-                                        hist.psd_scatter_plain, True,
-                                        touched_entries(*recs4))
+        cases[f"K3 band={band}"] = k3(recs, band)
+    for name, (records, band) in k3_edge_cases(R, rng).items():
+        if len(records[0]):
+            cases[f"K3 {name} (band={band})"] = k3(records, band)
+    if not k3_only:
+        # the worst case of same-address atomics: every record of the
+        # path's batch on one (cell, lo, hi)
+        n = PATH_RECORDS
+        one = (np.full(n, 2000, np.int32), np.full(n, 40, np.int32),
+               np.full(n, 41, np.int32), path[3] + np.float32(0.5))
+        cases["K2 (69,632 records on one address)"] = k2(one)
+        for name, records in (extra or {}).items():
+            cases[name] = k2(records)
+        if not narrow:
+            # the synthetic records as the helix step hands them over,
+            # against the plain version on the same tensors
+            wide = (path[0], path[1].astype(np.int64),
+                    path[2].astype(np.int64), path[3].astype(np.float64))
+            cases["K2 (69,632 records, int64 zones, float64 weights)"] = (
+                wide,) + k2(path)[1:]
+        cases["K4 = K2 (2^16 records)"] = k2(recs4)
     out = {}
     for name, (records, want, kernel, plain, lib, touched) in cases.items():
+        graph = lib or not eager_k3
         r = out[name] = _case(dev, records, want, kernel, plain, lib,
-                              touched, narrow)
+                              touched, narrow, graph)
         lib_txt = ("none" if r["library_ms"] is None else
-                   f"{r['library_ms']:8.4f} ms under graph replay (eager: "
-                   f"kernel {r['eager_ms']:.4f}, index_add_ "
+                   f"{r['library_ms']:8.4f} ms under graph replay (eager "
                    f"{r['library_eager_ms']:.4f} ms)")
         print(f"{name:24s} kernel {r['ms']:8.4f} ms "
-              f"({r['ns_per_record']:6.3f} ns/record), plain "
+              f"{'under graph replay' if graph else 'eager'} "
+              f"({r['ns_per_record']:6.3f} ns/record; eager "
+              f"{r['eager_ms']:.4f} ms), plain "
               f"{r['plain_ms']:8.4f} ms ({r['plain_ns_per_record']:6.3f} "
               f"ns/record); kernel vs plain max abs err "
               f"{r['max_abs_err']:.3e} (max |psd| {r['max_abs_psd']:.3e}); "
               f"max rel err vs f64: kernel {r['rel_err_f64']:.2e}, plain "
               f"{r['plain_rel_err_f64']:.2e}; bound {r['bound_ms']:.6f} ms "
-              f"(bytes; {r['touched_entries']} PSD entries touched); "
-              f"index_add_ {lib_txt}")
+              f"(bytes; {r['touched_entries']} PSD entries touched; "
+              f"{r['bound_share']:.1%} of it reached); index_add_ {lib_txt}")
     return out
 
 
@@ -330,6 +382,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(here)))
     ap.add_argument("--narrow", action="store_true")
+    ap.add_argument("--eager-k3", action="store_true")
+    ap.add_argument("--k3-only", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("probe_hist: no CUDA device", file=sys.stderr)
@@ -342,12 +396,13 @@ def main() -> int:
     spec.loader.exec_module(workloads)
     print(f"card: {workloads.card_line()}; wrappers from {hist.__file__}")
     dev = torch.device("cuda:0")
-    kept = step_records(dev, workloads)
+    kept = {} if args.k3_only else step_records(dev, workloads)
     for k, (_, _, _, w) in kept.items():
         print(f"helix step {k}: {int((w != 0).sum())} nonzero records of "
               f"{w.size}")
     run(dev, args.narrow,
-        {f"K2 (helix step {k}'s records)": v for k, v in kept.items()})
+        {f"K2 (helix step {k}'s records)": v for k, v in kept.items()},
+        args.eager_k3, args.k3_only)
     return 0
 
 

@@ -258,14 +258,34 @@ def test_k2_one_address_and_wide_entry(card, n, zones, weights):
     assert int(torch.count_nonzero(got)) == 2
 
 
-@pytest.mark.parametrize("band", [1024, 2048])
+K3_EDGES = ("band at cell 0", "band past the array's end",
+            "all weights zero", "wild lo / hi", "one address", "empty")
+
+
+@pytest.mark.parametrize("band", [1024, 2048, *K3_EDGES])
 def test_k3_matches_plain(card, band):
+    """K3 at 2^21 probe records (bands 1,024 and 2,048) and on the edge
+    cases of its contract (scripts/probe_hist.py ``k3_edge_cases``),
+    against its plain version within 1e-4 of the largest entry; where no
+    record lies in the band the PSD stays exactly zero."""
     from montecarloscattering_jl_tpu_torch.ops import hist
+    from montecarloscattering_jl_tpu_torch.scripts import probe_hist as ph
+    if isinstance(band, int):
+        recs = _records(1 << 21, card)
+    else:
+        recs, band = ph.k3_edge_cases(1 << 21, np.random.default_rng(5))[band]
+        recs = [torch.from_numpy(a).to(card) for a in recs]
+    got = torch.zeros(ph.N_CELLS, ph.NZC, device=card)
+    want = torch.zeros_like(got)
     before = hist.BAND_LAUNCHES
-    _hist_pair(card, lambda p, *a: hist.psd_scatter_band(p, *a, band),
-               lambda p, *a: hist.psd_scatter_band_plain(p, *a, band),
-               _records(1 << 21, card))
+    hist.psd_scatter_band(got, *recs, band)
+    hist.psd_scatter_band_plain(want, *recs, band)
+    torch.cuda.synchronize()
     assert hist.BAND_LAUNCHES == before + 1
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-4 * scale
+    if scale == 0:
+        assert not bool(got.any())
 
 
 def test_hist_wrapper_raises_on_bad_input(card):

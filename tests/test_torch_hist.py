@@ -11,7 +11,8 @@ ops/hist.py) against the JAX package, on the CPU.
   its compensated-bf16 bound (2e-5 of the largest entry).
 * K3's plain version against the probe's float64 reference
   (scripts/probe_hist.py ``ref_result``) restricted to the band, on the
-  probe's own synthetic records (fewer of them): 1e-6 of the largest
+  probe's own synthetic records (fewer of them), and on the edge cases
+  of its contract against the probe's ``band_ref``: 1e-6 of the largest
   entry (float32 sums of a few records per entry).
 * The wrappers: a PSD on the CPU takes the plain version and is
   counted; malformed inputs raise.
@@ -218,9 +219,38 @@ def test_k3_plain_matches_probe_reference_in_band(jax_probe, band):
         tprobe.band_ref(*recs, band), want)
 
 
-def test_k3_tile_rows():
-    assert hist.band_tile_rows(102, 2048) == 448
-    assert hist.band_tile_rows(102, 100) == 100
+K3_EDGES = tuple(tprobe.k3_edge_cases(1, np.random.default_rng(0)))
+
+
+@pytest.mark.parametrize("case", K3_EDGES)
+def test_k3_wrapper_contract(case):
+    """The edge cases of K3's contract (the probe's ``k3_edge_cases``:
+    blo at cell 0, a band past the array's end, all weights zero, wild
+    boundary indices, one address, no records) through the wrapper on
+    the CPU (its plain version) against the probe's float64
+    ``band_ref``: 1e-6 of the largest entry, and exactly zero where no
+    record is in the band.  ``band_ref`` itself equals the JAX probe's
+    ``ref_result`` of the in-band records where every index is in
+    range."""
+    recs, band = tprobe.k3_edge_cases(
+        1 << 12, np.random.default_rng(3))[case]
+    want = tprobe.band_ref(*recs, band)
+    psd = torch.zeros(tprobe.N_CELLS, tprobe.NZC)
+    hist.psd_scatter_band(psd, *(torch.from_numpy(a) for a in recs), band)
+    got = psd.numpy()
+    assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
+    cell, lo, hi, w = recs
+    blo = int(np.min(np.where(w != 0, cell, 2 ** 30), initial=2 ** 30))
+    if case in ("all weights zero", "empty"):
+        assert blo == 2 ** 30 and not got.any()
+    elif case == "band at cell 0":
+        assert blo == 0 and got[:band].any() and not got[band:].any()
+    elif case == "band past the array's end":
+        assert blo + band > tprobe.N_CELLS and got[-100:].any()
+    elif case == "wild lo / hi":
+        assert ((lo < 0) | (hi + 1 >= tprobe.NZC))[w != 0].any()
+    else:
+        assert np.count_nonzero(got) == 2
 
 
 def test_wrappers_count_and_check():
