@@ -87,10 +87,27 @@ Run from the root of a checkout:  python3 chip_smoke.py
    PSD deposit went through K2 (none through its plain version, no K1
    launch), that the output files with mc_xspec.dat are written, that
    both detectors' spectra are positive, and the slope.
-11. ``shipped``: configs/baseline.toml as shipped (no-scatter, no-DSA)
+11. ``resume``: phase f64's run again, with a segment-boundary
+    checkpoint after every segment, stopped by MCS_MID_STOP_AFTER=1 at
+    the first save (before the second of its 4 segments) and resumed
+    from it to the end: every deposit of both runs through K2; against
+    phase f64's run, pushes, trajectories and exit reasons exactly (one
+    iteration of protons: no lane reads an atomically summed value),
+    fluxes and spectra within 1e-9 of their largest entry, the PSDs
+    within 1e-4 of max |psd|; the checkpoint's bytes and save times.
+12. ``shipped``: configs/baseline.toml as shipped (no-scatter, no-DSA)
     at float64 on the XLA engine, 1 iteration: every PSD deposit
     through K2, the coupled CSVs written, pushes and trajectories
     printed.
+13. ``nonlinear``: the nonlinear flagship (scripts/flagship_nonlinear.py
+    of the port) at 65,536 a pcut, 10 iterations on K1, an iteration
+    checkpoint each; uninterrupted, killed by the stop hook at its first
+    segment-boundary save of iteration 5, and resumed to iteration 10.
+    The max pxx_norm of the last odd iteration is below iteration 1's
+    and nearer 1 in both runs; iterations 1-4 of the killed run have the
+    uninterrupted run's pushes and trajectories; iterations 5-10 of the
+    resumed run agree with the uninterrupted run's within 3 times the
+    spread of two uninterrupted runs (NONLINEAR_SPREAD).
 
 Every phase that fails raises, so the script exits non-zero; it also
 exits non-zero without a CUDA device.  The line before the last is a
@@ -127,6 +144,23 @@ ELECTRON_CAP = 2_000
 # on every bin above EMISSION_FLOOR (tests/test_device_emission.py)
 SED_PER_PCUT = 16_384
 EMISSION_RTOL, EMISSION_FLOOR = 1e-5, 1e-90
+# phase resume: fluxes and spectra of the resumed f64 run against phase
+# f64's, relative to their largest entry (float64 atomics in another
+# order; the PSDs take HIST_TOL, float32 atomics)
+RESUME_FLUX_TOL = 1e-9
+# phase nonlinear: iterations, the kill at the first mid save of
+# iteration KILL_ITER + 1, the mid cadence in segments, and the spread
+# of two uninterrupted runs: the largest difference between two of eight
+# runs over iterations 1-10 (scripts/probe_driver.py --spread 8, NVIDIA
+# H100 80GB HBM3, 700 W).  After iteration 1 the profile is smoothed from
+# tallies that K1 sums with atomics in no fixed order, so two runs could
+# part; measured, they differ only in the last bits of the float64 flux
+# sums (max pxx_norm within 20 ulps), which the float32 zone fields K1
+# reads do not resolve: pushes, trajectories and escaping fractions are
+# the same in every run
+NONLINEAR_ITERS, KILL_ITER, NONLINEAR_MID_EVERY = 10, 4, 2
+NONLINEAR_SPREAD = dict(pushes=0, trajectories=0, px_esc_frac=0.0,
+                        en_esc_frac=0.0, pxx_norm_max=4.440892098500626e-15)
 # JAX CPU run of the shipped baseline (1 iteration, --f32, XLA engine),
 # for comparison with the port's counts
 SHIPPED_JAX_PUSHES, SHIPPED_JAX_TRAJECTORIES = 980_000, 196
@@ -486,46 +520,28 @@ def slope_of(res) -> tuple[float, float]:
     return slope, -(3 * setup.r_comp / (setup.r_comp - 1) - 2)
 
 
-def drive(cfg, dev, p_dtype, tag: str, cap: int = 0) -> tuple:
-    """One driven run through ``engine.driver.run``, the helix cap of
-    both engines set to `cap` for it when given; counts of every
-    kernel's launches set to 0 just before it and read just after.
-    Checks the engine each drain took, the output file set and the
-    reductions; returns (result, counts, wall seconds, files with their
-    line counts)."""
-    import numpy as np
+def zero_counts() -> None:
+    """Every kernel's launch count and the plain versions' calls to 0."""
+    from montecarloscattering_jl_tpu_torch.ops import hist, mega
+
+    mega.LAUNCHES = mega.TWIN_CALLS = mega.HOST_WAITS = 0
+    hist.LAUNCHES = hist.BAND_LAUNCHES = hist.PLAIN_CALLS = 0
+
+
+def read_counts() -> dict:
+    from montecarloscattering_jl_tpu_torch.ops import hist, mega
+
+    return dict(k1=mega.LAUNCHES, k1_host_waits=mega.HOST_WAITS,
+                twin=mega.TWIN_CALLS, k2=hist.LAUNCHES,
+                k3=hist.BAND_LAUNCHES, hist_plain=hist.PLAIN_CALLS)
+
+
+def check_engine(tag, counts, p_dtype) -> None:
+    """Every drain of a float32 run launched K1 (none the twin or the XLA
+    engine, and no drain waits on the host once a launch); every deposit
+    of a float64 run launched K2 (none its plain version, no K1)."""
     import torch
 
-    from montecarloscattering_jl_tpu_torch.engine.driver import run
-    from montecarloscattering_jl_tpu_torch.ops import hist, mega
-    from montecarloscattering_jl_tpu_torch.ops import step as xla_step
-
-    caps = (mega.MAX_HELIX_STEPS, xla_step.MAX_HELIX_STEPS)
-    if cap:
-        mega.MAX_HELIX_STEPS = xla_step.MAX_HELIX_STEPS = cap
-    try:
-        with tempfile.TemporaryDirectory() as out:
-            mega.LAUNCHES = mega.TWIN_CALLS = mega.HOST_WAITS = 0
-            hist.LAUNCHES = hist.BAND_LAUNCHES = hist.PLAIN_CALLS = 0
-            t0 = time.perf_counter()
-            res = run(cfg, device=dev, out_dir=out, p_dtype=p_dtype)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            counts = dict(k1=mega.LAUNCHES, k1_host_waits=mega.HOST_WAITS,
-                          twin=mega.TWIN_CALLS,
-                          k2=hist.LAUNCHES, k3=hist.BAND_LAUNCHES,
-                          hist_plain=hist.PLAIN_CALLS)
-            written = {}
-            for name in sorted(os.listdir(out)):
-                with open(os.path.join(out, name), "rb") as f:
-                    written[name] = sum(1 for _ in f)
-    finally:
-        mega.MAX_HELIX_STEPS, xla_step.MAX_HELIX_STEPS = caps
-    phases = {k: round(v, 3) for k, v in res.timers.totals.items()}
-    print(f"{tag}: {len(res.iterations)} iterations, "
-          f"{res.n_trajectories} trajectories, {res.n_pushes} pushes in "
-          f"{wall:.2f} s ({res.n_pushes / wall / 1e6:.2f} M pushes/s); "
-          f"launches {json.dumps(counts)}; phases {json.dumps(phases)}")
     if p_dtype == torch.float32:
         if counts["k1"] <= 0 or counts["twin"] != 0 or counts["k2"] != 0:
             fail(f"{tag}: {counts} (every drain must launch K1, none the "
@@ -536,6 +552,63 @@ def drive(cfg, dev, p_dtype, tag: str, cap: int = 0) -> tuple:
     elif (counts["k2"] <= 0 or counts["hist_plain"] != 0
           or counts["k1"] != 0 or counts["twin"] != 0):
         fail(f"{tag}: {counts} (every deposit must launch K2, no K1)")
+
+
+def drive(cfg, dev, p_dtype, tag: str, cap: int = 0, killed: bool = False,
+          **run_kw) -> tuple:
+    """One driven run through ``engine.driver.run`` (`run_kw`: its
+    checkpoint, resume and mid_every), the helix cap of both engines set
+    to `cap` for it when given; counts of every kernel's launches set to
+    0 just before it and read just after.  Checks the engine each drain
+    took, the output file set and the reductions; returns (result,
+    counts, wall seconds, files with their line counts).  With `killed`
+    the run must end in the stop hook's MidCheckpointStop: the result is
+    None and no file is written."""
+    import numpy as np
+    import torch
+
+    from montecarloscattering_jl_tpu_torch.engine.driver import run
+    from montecarloscattering_jl_tpu_torch.ops import mega
+    from montecarloscattering_jl_tpu_torch.ops import step as xla_step
+    from montecarloscattering_jl_tpu_torch.parallel.checkpoint import (
+        MidCheckpointStop)
+
+    caps = (mega.MAX_HELIX_STEPS, xla_step.MAX_HELIX_STEPS)
+    if cap:
+        mega.MAX_HELIX_STEPS = xla_step.MAX_HELIX_STEPS = cap
+    res = None
+    try:
+        with tempfile.TemporaryDirectory() as out:
+            zero_counts()
+            t0 = time.perf_counter()
+            try:
+                res = run(cfg, device=dev, out_dir=None if killed else out,
+                          p_dtype=p_dtype, **run_kw)
+            except MidCheckpointStop:
+                if not killed:
+                    raise
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+            written = {}
+            for name in sorted(os.listdir(out)):
+                with open(os.path.join(out, name), "rb") as f:
+                    written[name] = sum(1 for _ in f)
+    finally:
+        mega.MAX_HELIX_STEPS, xla_step.MAX_HELIX_STEPS = caps
+    if killed:
+        if res is not None:
+            fail(f"{tag}: the stop hook did not stop the run")
+        print(f"{tag}: stopped by the hook after {wall:.2f} s; launches "
+              f"{json.dumps(counts)}")
+        check_engine(tag, counts, p_dtype)
+        return None, counts, wall, written
+    phases = {k: round(v, 3) for k, v in res.timers.totals.items()}
+    print(f"{tag}: {len(res.iterations)} iterations, "
+          f"{res.n_trajectories} trajectories, {res.n_pushes} pushes in "
+          f"{wall:.2f} s ({res.n_pushes / wall / 1e6:.2f} M pushes/s); "
+          f"launches {json.dumps(counts)}; phases {json.dumps(phases)}")
+    check_engine(tag, counts, p_dtype)
     missing = [f for f in expected_files(cfg) if f not in written]
     if missing:
         fail(f"{tag}: output files missing: {missing} (got {written})")
@@ -575,9 +648,10 @@ def species_report(tag, res) -> list:
     return rows
 
 
-def main_path(dev, p_dtype, n_itrs: int, x_spec: bool) -> dict:
-    """The flagship config driven through one engine (phases f32, f64):
-    the slope of iteration 1, and the detector spectra with x_spec."""
+def flagship_config(p_dtype, n_itrs: int, x_spec: bool):
+    """The flagship config of phases f32, f64 and resume: smoothing on,
+    wl.LANES particles a pcut; with x_spec two detectors at -/+0.5 r_g0;
+    at float64 its first F64_PCUTS pcuts."""
     import torch
 
     from montecarloscattering_jl_tpu_torch.utils import load_config
@@ -591,8 +665,16 @@ def main_path(dev, p_dtype, n_itrs: int, x_spec: bool) -> dict:
         cfg.x_spec = [-0.5 * cfg.rg0, 0.5 * cfg.rg0]
     if p_dtype == torch.float64:
         cfg.pcuts = cfg.pcuts[:F64_PCUTS]
+    return cfg
+
+
+def main_path(dev, p_dtype, n_itrs: int, x_spec: bool) -> dict:
+    """The flagship config driven through one engine (phases f32, f64):
+    the slope of iteration 1, and the detector spectra with x_spec.
+    Returns the launch counts with the wall time and the result."""
+    cfg = flagship_config(p_dtype, n_itrs, x_spec)
     tag = f"{str(p_dtype).replace('torch.', '')} path"
-    res, counts, _, _ = drive(cfg, dev, p_dtype, tag)
+    res, counts, wall, _ = drive(cfg, dev, p_dtype, tag)
     slope, expect = slope_of(res)
     print(f"{tag}: iteration 1 downstream slope {slope:.4f} (expected "
           f"{expect:.4f} +- 0.45)")
@@ -606,7 +688,7 @@ def main_path(dev, p_dtype, n_itrs: int, x_spec: bool) -> dict:
         if not all(a > 0 and b > 0 and math.isfinite(a + b)
                    for a, b in tot):
             fail(f"{tag}: detector spectra {tot}")
-    return counts
+    return dict(counts, wall=wall, result=res)
 
 
 def science_path(dev) -> dict:
@@ -780,6 +862,174 @@ def shipped_path(dev) -> dict:
                 trajectories=res.n_trajectories)
 
 
+def resume_path(dev, f64) -> dict:
+    """Phase resume: phase f64's config with a segment-boundary
+    checkpoint after every segment, stopped (MCS_MID_STOP_AFTER=1) right
+    after the first save, i.e. before the second of its F64_PCUTS
+    segments, then resumed to the end; held against phase f64's own run
+    (`f64`): pushes, trajectories and exit reasons exactly, fluxes and
+    spectra within RESUME_FLUX_TOL of their largest entry, the PSDs
+    within HIST_TOL of max |psd|."""
+    import numpy as np
+    import torch
+
+    from montecarloscattering_jl_tpu_torch.parallel import checkpoint as ck
+
+    ref = f64["result"]
+    cfg = lambda: flagship_config(torch.float64, 1, True)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "ck.npz")
+        os.environ["MCS_MID_STOP_AFTER"] = "1"
+        try:
+            _, killed, wall_k, _ = drive(cfg(), dev, torch.float64,
+                                         "resume killed", checkpoint=path,
+                                         mid_every=1, killed=True)
+        finally:
+            del os.environ["MCS_MID_STOP_AFTER"]
+        mid = path + ".mid"
+        size = os.path.getsize(mid)
+        peek = ck.load_mid_checkpoint(mid)
+        where = (peek["mode"], peek["i_iter"], peek["i_ion"],
+                 peek["next_seg"])
+        if where != ("xla", 0, 0, 1):
+            fail(f"resume: the kill fell at {where}, not before segment 2")
+        state_b = sum(v.numel() * v.element_size()
+                      for v in vars(peek["state"]).values())
+        psd_b = peek["tal"].psd_diff.numel() * 4
+        res, counts, wall_r, _ = drive(cfg(), dev, torch.float64, "resume",
+                                       checkpoint=path, resume=mid,
+                                       mid_every=1)
+        if os.path.exists(mid):
+            fail("resume: the mid checkpoint outlived the iteration's")
+    t = res.timers
+    mid_ms = t.totals["mid_checkpoint"] / max(t.counts["mid_checkpoint"],
+                                              1) * 1e3
+    ck_ms = t.totals["checkpoint"] / t.counts["checkpoint"] * 1e3
+    print(f"resume: mid checkpoint {size} B on disk (psd_diff {psd_b} B, "
+          f"lane state {state_b} B of {peek['batch_size']} lanes); "
+          f"{t.counts['mid_checkpoint']} later mid saves, {mid_ms:.2f} ms "
+          f"each; iteration checkpoint {ck_ms:.2f} ms; wall killed "
+          f"{wall_k:.2f} s + resumed {wall_r:.2f} s against uninterrupted "
+          f"{f64['wall']:.2f} s")
+    if (res.n_pushes, res.n_trajectories) != (ref.n_pushes,
+                                              ref.n_trajectories):
+        fail(f"resume: {res.n_pushes} pushes, {res.n_trajectories} "
+             f"trajectories against {ref.n_pushes}, {ref.n_trajectories}")
+    fr, fg = ref.iterations[0], res.iterations[0]
+    for a, b in zip(fr.ion_finals, fg.ion_finals):
+        if not np.array_equal(a.reason_counts, b.reason_counts):
+            fail(f"resume: exit reasons {b.reason_counts} against "
+                 f"{a.reason_counts}")
+    worst = {}
+    for name, a, b, tol in (
+            [(f, getattr(fr.tallies, f), getattr(fg.tallies, f),
+              RESUME_FLUX_TOL) for f in ("pxx_flux", "pxz_flux",
+                                         "energy_flux")]
+            + [(f, getattr(fr.ion_finals[0], f), getattr(fg.ion_finals[0], f),
+                RESUME_FLUX_TOL) for f in ("spectra_sf", "spectra_pf")]
+            + [(f, getattr(fr.ion_finals[0], f), getattr(fg.ion_finals[0], f),
+                HIST_TOL) for f in ("psd", "therm_psd")]):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        scale = np.abs(a).max()
+        worst[name] = float(np.abs(b - a).max() / scale)
+        if not (scale > 0 and worst[name] <= tol):
+            fail(f"resume: {name} differs by {worst[name]!r} of its "
+                 f"largest entry (bound {tol})")
+    print(f"resume: against phase f64, largest difference over largest "
+          f"entry {json.dumps(worst)}")
+    both = {k: killed[k] + counts[k] for k in counts}
+    return dict(counts=both, wall_killed=wall_k, wall_resumed=wall_r,
+                mid_bytes=size, mid_ms=mid_ms, checkpoint_ms=ck_ms,
+                worst=worst)
+
+
+def nonlinear_path(dev) -> dict:
+    """Phase nonlinear: the nonlinear flagship (scripts/flagship_nonlinear
+    .py) at wl.LANES a pcut, NONLINEAR_ITERS iterations on K1 with an
+    iteration checkpoint each: an uninterrupted run; a run with
+    segment-boundary checkpoints every NONLINEAR_MID_EVERY segments
+    that the stop hook kills at its first save of iteration
+    KILL_ITER + 1; its resume to the end.  Gates: the odd iterations'
+    max pxx_norm decays towards 1 in both; iterations 1 to KILL_ITER of
+    the killed run equal the uninterrupted run's in pushes and
+    trajectories (the checkpoint's totals); after the kill the resumed
+    run agrees with the uninterrupted one within 3 NONLINEAR_SPREAD."""
+    import torch
+
+    from montecarloscattering_jl_tpu_torch.parallel import checkpoint as ck
+    from montecarloscattering_jl_tpu_torch.scripts import (
+        flagship_nonlinear as fn, workloads as wl)
+
+    cfg = lambda: fn.nonlinear_config(wl.LANES, NONLINEAR_ITERS)
+    f32 = torch.float32
+    with tempfile.TemporaryDirectory() as d:
+        pa, pk = os.path.join(d, "a.npz"), os.path.join(d, "k.npz")
+        ref, counts_a, wall_a, _ = drive(cfg(), dev, f32, "nonlinear",
+                                         checkpoint=pa)
+        with wl.kill_at(KILL_ITER) as made:
+            _, counts_k, wall_k, _ = drive(
+                cfg(), dev, f32, "nonlinear killed", killed=True,
+                checkpoint=pk, mid_every=NONLINEAR_MID_EVERY)
+        mid = pk + ".mid"
+        size = os.path.getsize(mid)
+        peek = ck.load_mid_checkpoint(mid)
+        if (peek["i_iter"], peek["i_ion"]) != (KILL_ITER, 0):
+            fail(f"nonlinear: the kill fell in iteration {peek['i_iter']}")
+        res, counts_r, wall_r, _ = drive(
+            cfg(), dev, f32, "nonlinear resumed", checkpoint=pk,
+            resume=mid, mid_every=NONLINEAR_MID_EVERY)
+    saver = made[0]
+    mid_ms = saver.seconds / saver.n_saved * 1e3
+    t = ref.timers
+    ck_ms = t.totals["checkpoint"] / t.counts["checkpoint"] * 1e3
+    rows_a = fn.iteration_rows(ref)
+    rows_r = fn.iteration_rows(res, KILL_ITER + 1)
+    for tag, rows in (("uninterrupted", rows_a), ("resumed", rows_r)):
+        for r in rows:
+            print(f"nonlinear {tag} {json.dumps(r)}")
+    print(f"nonlinear: wall uninterrupted {wall_a:.2f} s "
+          f"({ref.n_pushes / wall_a / 1e6:.1f} M pushes/s), killed "
+          f"{wall_k:.2f} s + resumed {wall_r:.2f} s; {saver.n_saved} mid "
+          f"saves of {size} B, {mid_ms:.2f} ms each (killed run); "
+          f"iteration checkpoint {ck_ms:.2f} ms")
+    # the overshoot decays over the odd iterations (the even ones are
+    # damped by the smoothing's relaxation)
+    last_odd = (NONLINEAR_ITERS - 1) // 2 * 2     # 0-based
+    first = rows_a[0]["pxx_norm_max"]
+    for tag, last in (("uninterrupted", rows_a[last_odd]["pxx_norm_max"]),
+                      ("resumed", rows_r[last_odd - KILL_ITER][
+                          "pxx_norm_max"])):
+        if not (last < first and abs(last - 1.0) < abs(first - 1.0)):
+            fail(f"nonlinear {tag}: max pxx_norm {last} at iteration "
+                 f"{last_odd + 1} does not decay from {first}")
+    drv = peek["driver"]
+    before = (sum(r["pushes"] for r in rows_a[:KILL_ITER]),
+              sum(r["trajectories"] for r in rows_a[:KILL_ITER]))
+    killed = (int(drv["engine_pushes"]), int(drv["engine_trajs"]))
+    print(f"nonlinear: iterations 1-{KILL_ITER} pushes, trajectories: "
+          f"killed {killed}, uninterrupted {before}; escape fractions "
+          f"killed {drv['px_esc_hist'][:KILL_ITER].tolist()}, "
+          f"uninterrupted {[r['px_esc_frac'] for r in rows_a[:KILL_ITER]]}")
+    if killed != before:
+        fail("nonlinear: the killed run's first iterations differ")
+    worst = {}
+    for key, spread in NONLINEAR_SPREAD.items():
+        diff = max(abs(a[key] - b[key])
+                   for a, b in zip(rows_a[KILL_ITER:], rows_r))
+        worst[key] = diff
+        if diff > 3.0 * spread:
+            fail(f"nonlinear: resumed {key} differs by {diff!r}, beyond 3x "
+                 f"the spread {spread!r}")
+    print(f"nonlinear: resumed against uninterrupted, iterations "
+          f"{KILL_ITER + 1}-{NONLINEAR_ITERS}, largest difference "
+          f"{json.dumps(worst)} (3x spread {json.dumps(NONLINEAR_SPREAD)})")
+    both = {k: counts_a[k] + counts_k[k] + counts_r[k] for k in counts_a}
+    return dict(counts=both, wall=wall_a, wall_killed=wall_k,
+                wall_resumed=wall_r, pushes=ref.n_pushes, rows=rows_a,
+                resumed_rows=rows_r, mid_bytes=size, mid_ms=mid_ms,
+                checkpoint_ms=ck_ms, worst=worst)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -817,7 +1067,9 @@ def main() -> int:
                       ("sed", sed_path),
                       ("electrons", electron_path),
                       ("f64", lambda d: main_path(d, torch.float64, 1, True)),
-                      ("shipped", shipped_path)):
+                      ("resume", lambda d: resume_path(d, done["f64"])),
+                      ("shipped", shipped_path),
+                      ("nonlinear", nonlinear_path)):
         t0 = time.perf_counter()
         done[phase] = fn(dev)
         print(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
@@ -860,8 +1112,9 @@ def k1_instances(ptxas_log: str) -> list:
 
 def kernel_records(done, instances) -> list:
     """The kernels line: every kernel with its main-path launches (K1 on
-    the flagship f32, science, electrons32 and sed paths, K2 on the f64
-    flagship, shipped and electron paths), its error against its plain
+    the flagship f32, science, electrons32, sed and nonlinear paths, K2
+    on the f64 flagship, resume, shipped and electron paths), its error
+    against its plain
     version, its time, its plain version's, its bound and the library
     call's.  K2's and K4's ``ms`` and ``library_ms`` are device times
     under CUDA-graph replay (``eager_ms`` and ``library_eager_ms``: the
@@ -872,9 +1125,11 @@ def kernel_records(done, instances) -> list:
                   hp["K4 = K2 (2^16 records)"])
     k1_launches = (done["f32"]["k1"] + done["science"]["counts"]["k1"]
                    + done["electrons32"]["counts"]["k1"]
-                   + done["sed"]["counts"]["k1"])
+                   + done["sed"]["counts"]["k1"]
+                   + done["nonlinear"]["counts"]["k1"])
     k2_launches = (done["f64"]["k2"] + done["shipped"]["counts"]["k2"]
-                   + done["electrons"]["counts"]["k2"])
+                   + done["electrons"]["counts"]["k2"]
+                   + done["resume"]["counts"]["k2"])
     rec = lambda r: dict(max_abs_err=r["max_abs_err"], ms=r["ms"],
                          plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                          bound_by=r["bound_by"],

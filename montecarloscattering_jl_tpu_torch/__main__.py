@@ -2,7 +2,8 @@
 
 Reads a TOML config, runs the nonlinear loop on one device and writes
 the output-file surface of the JAX package's CLI.  Momenta are float64
-unless ``--f32`` is given, as in the JAX CLI.
+unless ``--f32`` is given, as in the JAX CLI; ``--checkpoint``,
+``--resume`` and ``--mid-every`` are the JAX CLI's.
 """
 
 import argparse
@@ -16,9 +17,14 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="montecarloscattering_jl_tpu_torch",
         description="Nonlinear Monte Carlo DSA shock runs on a CUDA card",
-        epilog="MCS_I_APPROX (environment): the dN/dp rebinning's cell "
-               "spreading, 0 uniform, 1 isosceles, 2 scalene (default), "
-               "3 exact overlap, as in the JAX package's CLI")
+        epilog="Environment, as in the JAX package's CLI: MCS_I_APPROX, "
+               "the dN/dp rebinning's cell spreading (0 uniform, 1 "
+               "isosceles, 2 scalene, the default, 3 exact overlap); "
+               "MCS_MID_CKPT_EVERY, --mid-every's default; "
+               "MCS_MID_STOP_AFTER=1, stop after the first segment-boundary "
+               "save; MCS_OVERLAP_REDUCE=0, reduce each species before the "
+               "next one transports; MCS_SUBTIMERS=1, time population "
+               "setup, ladder and tally fetch")
     ap.add_argument("config", nargs="?", default="mc_in.toml",
                     help="TOML run configuration (default: mc_in.toml)")
     ap.add_argument("-o", "--out-dir", default=".",
@@ -28,6 +34,16 @@ def main(argv=None) -> int:
                          "through the kernels' plain versions")
     ap.add_argument("--f32", action="store_true",
                     help="float32 momenta (positions stay float64)")
+    ap.add_argument("--checkpoint", default=None,
+                    help="write a checkpoint here after every iteration")
+    ap.add_argument("--resume", default=None,
+                    help="resume from a checkpoint (iteration-boundary "
+                         "NPZ or segment-boundary .mid, auto-detected)")
+    ap.add_argument("--mid-every", type=int, default=0,
+                    help="with --checkpoint: also write a "
+                         "segment-boundary checkpoint (<path>.mid) "
+                         "every N pcut segments so a kill mid-species "
+                         "resumes inside the transport ladder")
     ap.add_argument("-v", "--verbose", action="store_true")
     args = ap.parse_args(argv)
 
@@ -48,7 +64,9 @@ def main(argv=None) -> int:
 
     t0 = time.time()
     result = run(args.config, device=args.device, out_dir=args.out_dir,
-                 p_dtype=torch.float32 if args.f32 else torch.float64)
+                 p_dtype=torch.float32 if args.f32 else torch.float64,
+                 checkpoint=args.checkpoint, resume=args.resume,
+                 mid_every=args.mid_every)
     dt = time.time() - t0
     print(f"finished: {len(result.iterations)} iterations, "
           f"{result.n_trajectories} trajectories, "

@@ -2,8 +2,9 @@
 
 Counterpart of the JAX package's engine/driver.py (run, ion_finalize;
 MonteCarloScattering.jl:600-654, iter_finalize.jl:1-146,
-ion_finalize.jl:1-84) on one device, without mesh, checkpoint or
-resume.
+ion_finalize.jl:1-84) on one device, with iteration and
+segment-boundary checkpoints, resume, and the per-species reductions
+overlapped with the next species' transport; without a device mesh.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 import logging
 import os
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -24,6 +26,7 @@ from ..models.smoothing import (
     SmoothDiagnostics, set_gamma_adiab_grid, smooth_grid)
 from ..ops import reduce as red
 from ..ops.finish import EscapeTallies
+from ..parallel import checkpoint as ck
 from .run import IonResult, IterationTallies, TransportEngine
 from .setup import RunSetup, build_setup
 
@@ -79,19 +82,55 @@ class RunResult:
     n_pushes: int = 0
     n_trajectories: int = 0
     timers: object = None
+    subtimers: dict | None = None     # MCS_SUBTIMERS=1 transport split
 
     @property
     def last(self) -> IterationResult:
         return self.iterations[-1]
 
 
-def ion_finalize(setup: RunSetup, res: IonResult, prof, i_ion: int,
-                 want_d2n_ef: bool) -> IonFinal:
-    """Per-species reductions: dN/dp in 3 frames, zone populations,
-    normalization, pressures, ISM-frame d2N (ion_finalize.jl:25-59).
-    The rebinning runs on the PSD's device, its cell spreading chosen by
-    the environment variable MCS_I_APPROX (0, 1, 2 or 3; default 2); the
-    ~1e50-scale zone normalizations stay on the host in float64."""
+class _HostCopies:
+    """Tensors copied to host memory without blocking the caller: on a
+    CUDA device into pinned buffers with ``non_blocking`` and one event
+    recorded after them on the current stream, so another thread can
+    wait for the copies (``arrays``) without queueing a copy of its own
+    behind work the main thread has enqueued since; on the CPU the
+    tensors' own memory."""
+
+    def __init__(self, tensors):
+        self.event = None
+        self.host = []
+        for t in tensors:
+            if t is None or t.device.type != "cuda":
+                self.host.append(t)
+                continue
+            buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            buf.copy_(t.contiguous(), non_blocking=True)
+            self.host.append(buf)
+        if any(t is not None and t.device.type == "cuda" for t in tensors):
+            self.event = torch.cuda.Event()
+            self.event.record()
+
+    def arrays(self) -> list:
+        if self.event is not None:
+            self.event.synchronize()
+        return [None if t is None else t.numpy() for t in self.host]
+
+
+def ion_finalize_start(setup: RunSetup, res: IonResult, prof, i_ion: int,
+                       want_d2n_ef: bool):
+    """Enqueue the per-species device reduction now and return
+    ``finish() -> IonFinal``, which does the host work: the JAX
+    package's split (driver.py:84-161), so that the driver can run
+    species i's host reductions on a worker thread while species i+1
+    transports.  The device half (the rebinning, and the copies of its
+    outputs and of the PSDs to pinned host buffers) runs here on the
+    caller's stream; ``finish`` waits on the copies' event, never on the
+    stream, and then normalizes in float64 on the host: dN/dp in 3
+    frames, zone populations, pressures, ISM-frame d2N
+    (ion_finalize.jl:25-59).  The cell spreading of the rebinning is
+    chosen by the environment variable MCS_I_APPROX (0, 1, 2 or 3;
+    default 2)."""
     cfg, bins = setup.cfg, setup.bins
     s = cfg.species[i_ion]
     e0 = s.rest_energy
@@ -105,47 +144,78 @@ def ion_finalize(setup: RunSetup, res: IonResult, prof, i_ion: int,
         setup.x_grid_cm, setup.i_shock, s.number_density, cfg.beta0,
         cfg.gamma0, cfg.jet_rad_pc, cfg.jet_sph_frac, prof.ux_sk,
         prof.gamma_sf)
-
-    dn_cr, dn_th, d2n_tot, d2n_ef = red.ion_reduce_device(
+    out = red.ion_reduce_device(
         res.psd, res.therm_psd, bins, e0, prof.gamma_sf, prof.ux_sk,
-        cfg.gamma0, i_approx=i_approx, want_ef=want_d2n_ef)
-    psd = res.psd.cpu().numpy()
-    therm = res.therm_psd.cpu().numpy()
-    if want_d2n_ef:
-        ef_norm = red.ef_zone_norm(psd, therm, zone_pop,
-                                   res.num_crossings, s.number_density)
-        d2n_ef = d2n_ef * ef_norm[None, None, :]
+        cfg.gamma0, i_approx=i_approx, want_ef=want_d2n_ef, fetch=False)
+    copies = _HostCopies(out + (res.psd, res.therm_psd))
 
-    dn_th, dn_cr = red.normalize_dndp(
-        dn_cr, dn_th, bins.mom_edges, zone_pop, s.number_density,
-        cfg.gamma0, prof.ux_sk, prof.gamma_sf)
+    def finish() -> IonFinal:
+        dn_cr, dn_th, d2n_tot, d2n_ef, psd, therm = copies.arrays()
+        if want_d2n_ef:
+            ef_norm = red.ef_zone_norm(psd, therm, zone_pop,
+                                       res.num_crossings, s.number_density)
+            d2n_ef = d2n_ef * ef_norm[None, None, :]
 
-    p_par, p_perp, e_dens = red.thermo_calcs(
-        psd, therm, bins, s.mass, zone_pop, res.num_crossings,
-        s.number_density, s.temperature, s.zz, cfg.beta0, cfg.gamma0,
-        prof.ux_sk, prof.gamma_sf, d2n=d2n_tot)
+        dn_th, dn_cr = red.normalize_dndp(
+            dn_cr, dn_th, bins.mom_edges, zone_pop, s.number_density,
+            cfg.gamma0, prof.ux_sk, prof.gamma_sf)
 
-    return IonFinal(
-        dndp_therm=dn_th, dndp_cr=dn_cr, zone_pop=zone_pop,
-        zone_vol=zone_vol, p_psd_par=p_par, p_psd_perp=p_perp,
-        energy_density_psd=e_dens, d2n_ef=d2n_ef, esc=res.esc, psd=psd,
-        therm_psd=therm, num_crossings=res.num_crossings,
-        spectra_sf=res.spectra_sf, spectra_pf=res.spectra_pf,
-        n_pushes=res.n_pushes, n_trajectories=res.n_trajectories,
-        reason_counts=res.reason_counts, retro_entries=res.retro_entries,
-        energy_received=res.energy_received,
-        energy_radiated=res.energy_radiated)
+        p_par, p_perp, e_dens = red.thermo_calcs(
+            psd, therm, bins, s.mass, zone_pop, res.num_crossings,
+            s.number_density, s.temperature, s.zz, cfg.beta0, cfg.gamma0,
+            prof.ux_sk, prof.gamma_sf, d2n=d2n_tot)
+
+        return IonFinal(
+            dndp_therm=dn_th, dndp_cr=dn_cr, zone_pop=zone_pop,
+            zone_vol=zone_vol, p_psd_par=p_par, p_psd_perp=p_perp,
+            energy_density_psd=e_dens, d2n_ef=d2n_ef, esc=res.esc,
+            psd=psd, therm_psd=therm, num_crossings=res.num_crossings,
+            spectra_sf=res.spectra_sf, spectra_pf=res.spectra_pf,
+            n_pushes=res.n_pushes, n_trajectories=res.n_trajectories,
+            reason_counts=res.reason_counts,
+            retro_entries=res.retro_entries,
+            energy_received=res.energy_received,
+            energy_radiated=res.energy_radiated)
+
+    return finish
 
 
-def run(cfg: RunConfig | str, device, out_dir: str | None = None,
-        p_dtype: torch.dtype = torch.float64,
-        emission_hook=None) -> RunResult:
-    """Full nonlinear run (main_loops.jl:52-391) on `device`.  `p_dtype`
-    is the momentum precision, float64 by default as in the JAX package
+def ion_finalize(setup: RunSetup, res: IonResult, prof, i_ion: int,
+                 want_d2n_ef: bool) -> IonFinal:
+    """Per-species reductions, synchronously (ion_finalize_start)."""
+    return ion_finalize_start(setup, res, prof, i_ion, want_d2n_ef)()
+
+
+def _result(p):
+    return p.result() if hasattr(p, "result") else p
+
+
+def run(cfg: RunConfig | str, device="cuda", out_dir: str | None = None,
+        p_dtype: torch.dtype = torch.float64, emission_hook=None,
+        checkpoint: str | None = None, resume: str | None = None,
+        mid_every: int = 0) -> RunResult:
+    """Full nonlinear run (main_loops.jl:52-391) on `device` (the CUDA
+    card unless the caller asks for "cpu").  `p_dtype` is the momentum
+    precision, float64 by default as in the JAX package
     (driver.py:173-210); float32 runs the configs K1 accepts on K1
     (engine/run.py).  Positions, PRP and times stay float64.
     `emission_hook(setup, prof, ion_finals, i_iter)` is called after
-    each iteration's emission pass when photon production is enabled."""
+    each iteration's emission pass when photon production is enabled.
+
+    `checkpoint` writes the fixed-point state there after every
+    iteration (an NPZ; ``.npz`` is appended to a name that lacks it);
+    `resume` continues a run from such a file, or from a
+    segment-boundary checkpoint, told apart by its content.
+    `mid_every` > 0 (or MCS_MID_CKPT_EVERY), with `checkpoint`, also
+    writes a segment-boundary checkpoint to ``checkpoint + '.mid'``
+    every that many pcut segments, so that a run killed inside one
+    species' ladder resumes there; MCS_MID_STOP_AFTER=1 stops the run
+    (MidCheckpointStop) right after the first such save.
+
+    Species i's host reductions run on a worker thread while species
+    i+1 transports, unless MCS_OVERLAP_REDUCE=0; the results are the
+    same bits either way.  MCS_SUBTIMERS=1 fills ``RunResult.subtimers``
+    (population setup, ladder, tally fetch)."""
     timers = PhaseTimers()
     t_start = time.time()
     if isinstance(cfg, str):
@@ -165,67 +235,157 @@ def run(cfg: RunConfig | str, device, out_dir: str | None = None,
     gamma_grid = np.zeros((nb, 2))
     q_px_hist = np.zeros(cfg.n_itrs)
     q_en_hist = np.zeros(cfg.n_itrs)
+    px_esc_hist = np.zeros(cfg.n_itrs)
+    en_esc_hist = np.zeros(cfg.n_itrs)
+    gamma_dw_hist = np.zeros(cfg.n_itrs)
     prof_weight_fac = cfg.prof_weight_fac
+    i_start = 0
+
+    mid_resume = None
+    if resume is not None:
+        if ck.is_mid_checkpoint(resume):
+            mid_resume = ck.load_mid_checkpoint(resume, engine.device)
+            got = mid_resume["driver"]
+            engine.n_pushes_total = int(got["engine_pushes"])
+            engine.n_trajectories_total = int(got["engine_trajs"])
+        else:
+            got = ck.load_checkpoint(resume)
+        prof = got["profile"]
+        gamma_grid = np.array(got["gamma_grid"])
+        n = min(len(got["q_px_hist"]), cfg.n_itrs)
+        for dst, key in ((q_px_hist, "q_px_hist"), (q_en_hist, "q_en_hist"),
+                         (px_esc_hist, "px_esc_hist"),
+                         (en_esc_hist, "en_esc_hist"),
+                         (gamma_dw_hist, "gamma_dw_hist")):
+            dst[:n] = got[key][:n]
+        prof_weight_fac = float(got["prof_weight_fac"])
+        i_start = int(got["i_iter"])
+        log.info("resumed from %s at iteration %d%s", resume, i_start,
+                 (" (mid-iteration, species %d segment %d)"
+                  % (mid_resume["i_ion"], mid_resume["next_seg"]))
+                 if mid_resume is not None else "")
+
+    mid_ckpt = None
+    mid_every = mid_every or int(os.environ.get("MCS_MID_CKPT_EVERY", "0"))
+    if checkpoint is not None and mid_every > 0:
+        mid_ckpt = ck.MidCheckpointer(
+            checkpoint + ".mid", every=mid_every,
+            stop_after_save=os.environ.get("MCS_MID_STOP_AFTER",
+                                           "0") == "1")
+
     rho0 = sum(sp.number_density * sp.mass for sp in cfg.species)
     result = RunResult(setup=setup)
-
-    for i_iter in range(cfg.n_itrs):
-        log.info("iteration %d/%d", i_iter + 1, cfg.n_itrs)
-        it = engine.new_iteration_tallies(prof)
-        ion_finals = []
-        for i_ion in range(cfg.n_ions):
-            with timers.phase("transport"):
-                res = engine.run_ion(i_iter, i_ion, prof, it)
-            want_2d = (cfg.species[i_ion].is_electron
-                       or i_ion == cfg.n_ions - 1)
+    overlap = os.environ.get("MCS_OVERLAP_REDUCE", "1") == "1"
+    pool = ThreadPoolExecutor(max_workers=1) if overlap else None
+    try:
+        for i_iter in range(i_start, cfg.n_itrs):
+            log.info("iteration %d/%d", i_iter + 1, cfg.n_itrs)
+            it = engine.new_iteration_tallies(prof)
+            pending = []
+            i_ion_start = 0
+            resume_tr = None
+            if mid_resume is not None:
+                # the completed species' reductions come from the
+                # checkpoint; the species in flight restores its
+                # population and goes on at the saved segment
+                it = mid_resume["it"]
+                i_ion_start = int(mid_resume["i_ion"])
+                pending = list(mid_resume["driver"]["ion_finals"])
+                resume_tr, mid_resume = mid_resume, None
+            for i_ion in range(i_ion_start, cfg.n_ions):
+                if mid_ckpt is not None:
+                    def _ctx(pend=list(pending), ii=i_iter):
+                        return dict(
+                            profile=prof, gamma_grid=gamma_grid.copy(),
+                            q_px_hist=q_px_hist.copy(),
+                            q_en_hist=q_en_hist.copy(),
+                            px_esc_hist=px_esc_hist.copy(),
+                            en_esc_hist=en_esc_hist.copy(),
+                            gamma_dw_hist=gamma_dw_hist.copy(),
+                            prof_weight_fac=prof_weight_fac, i_iter=ii,
+                            random_seed=cfg.random_seed,
+                            engine_pushes=engine.n_pushes_total,
+                            engine_trajs=engine.n_trajectories_total,
+                            ion_finals=[_result(p) for p in pend])
+                    mid_ckpt.context_fn = _ctx
+                with timers.phase("transport"):
+                    res = engine.run_ion(i_iter, i_ion, prof, it,
+                                         ckpt=mid_ckpt, resume_mid=resume_tr)
+                resume_tr = None
+                want_2d = (cfg.species[i_ion].is_electron
+                           or i_ion == cfg.n_ions - 1)
+                with timers.phase("reductions"):
+                    fin = ion_finalize_start(setup, res, prof, i_ion,
+                                             want_2d)
+                    pending.append(pool.submit(fin) if pool else fin())
             with timers.phase("reductions"):
-                ion_finals.append(ion_finalize(setup, res, prof, i_ion,
-                                               want_2d))
+                ion_finals = [_result(p) for p in pending]
 
-        # ---- iteration close-out (iter_finalize.jl:20-54) ------------------
-        px_esc_frac = it.px_esc_upstream / setup.f_px_upstream
-        en_esc_frac = it.energy_esc_upstream / setup.f_energy_upstream
-        p_par = sum(f.p_psd_par for f in ion_finals)
-        p_perp = sum(f.p_psd_perp for f in ion_finals)
-        e_dens = sum(f.energy_density_psd for f in ion_finals)
-        gamma_grid = set_gamma_adiab_grid(
-            gamma_grid, i_iter, setup.x_grid_cm, setup.gamma2_rh,
-            p_par, p_perp, e_dens)
-        gamma_dw = 1.0 + (it.sum_p_downstream
-                          / max(it.sum_ke_downstream, 1e-300))
-        q_px, q_en = q_esc_calcs(
-            gamma_dw, setup.r_comp, setup.r_rh, cfg.u0, cfg.beta0,
-            cfg.gamma0, cfg.species, setup.gamma2, setup.beta2, setup.u2)
-        q_px_hist[i_iter] = q_px
-        q_en_hist[i_iter] = q_en
-        n_avg = min(i_iter + 1, 4)
-        q_px_avg = q_px_hist[i_iter - n_avg + 1:i_iter + 1].mean()
-        q_en_avg = q_en_hist[i_iter - n_avg + 1:i_iter + 1].mean()
+            # ---- iteration close-out (iter_finalize.jl:20-54) --------------
+            px_esc_hist[i_iter] = it.px_esc_upstream / setup.f_px_upstream
+            en_esc_hist[i_iter] = (it.energy_esc_upstream
+                                   / setup.f_energy_upstream)
+            p_par = sum(f.p_psd_par for f in ion_finals)
+            p_perp = sum(f.p_psd_perp for f in ion_finals)
+            e_dens = sum(f.energy_density_psd for f in ion_finals)
+            gamma_grid = set_gamma_adiab_grid(
+                gamma_grid, i_iter, setup.x_grid_cm, setup.gamma2_rh,
+                p_par, p_perp, e_dens)
+            gamma_dw_hist[i_iter] = 1.0 + (
+                it.sum_p_downstream / max(it.sum_ke_downstream, 1e-300))
+            q_px, q_en = q_esc_calcs(
+                gamma_dw_hist[i_iter], setup.r_comp, setup.r_rh, cfg.u0,
+                cfg.beta0, cfg.gamma0, cfg.species, setup.gamma2,
+                setup.beta2, setup.u2)
+            q_px_hist[i_iter] = q_px
+            q_en_hist[i_iter] = q_en
+            n_avg = min(i_iter + 1, 4)
+            q_px_avg = q_px_hist[i_iter - n_avg + 1:i_iter + 1].mean()
+            q_en_avg = q_en_hist[i_iter - n_avg + 1:i_iter + 1].mean()
 
-        with timers.phase("smoothing"):
-            prof_new, diag, prof_weight_fac = smooth_grid(
-                i_iter, setup.i_shock, prof, cfg, setup.x_grid_rg,
-                gamma_grid, p_par, p_perp, it.pxx_flux, it.energy_flux,
-                q_px_avg, q_en_avg, setup.f_px_upstream,
-                setup.f_energy_upstream, setup.gamma2_rh, setup.u2,
-                setup.beta2, setup.gamma2, prof_weight_fac,
-                cfg.species[0].number_density, cfg.species[0].temperature,
-                rho0, cfg.use_custom_eps_b)
+            with timers.phase("smoothing"):
+                prof_new, diag, prof_weight_fac = smooth_grid(
+                    i_iter, setup.i_shock, prof, cfg, setup.x_grid_rg,
+                    gamma_grid, p_par, p_perp, it.pxx_flux, it.energy_flux,
+                    q_px_avg, q_en_avg, setup.f_px_upstream,
+                    setup.f_energy_upstream, setup.gamma2_rh, setup.u2,
+                    setup.beta2, setup.gamma2, prof_weight_fac,
+                    cfg.species[0].number_density,
+                    cfg.species[0].temperature, rho0, cfg.use_custom_eps_b)
 
-        itres = IterationResult(
-            ion_finals=ion_finals, tallies=it, diag=diag,
-            gamma_downstream=gamma_dw, q_esc_px=q_px_avg,
-            q_esc_en=q_en_avg, px_esc_frac=px_esc_frac,
-            en_esc_frac=en_esc_frac, profile_after=prof_new)
-        if cfg.do_photons:
-            # photon production per shell/zone (ion_finalize.jl:72-78)
-            with timers.phase("emission"):
-                itres.emission = photon_calcs(setup, prof, ion_finals,
-                                              i_iter, device=engine.device)
-            if emission_hook is not None:
-                emission_hook(setup, prof, ion_finals, i_iter)
-        result.iterations.append(itres)
-        prof = prof_new
+            itres = IterationResult(
+                ion_finals=ion_finals, tallies=it, diag=diag,
+                gamma_downstream=gamma_dw_hist[i_iter], q_esc_px=q_px_avg,
+                q_esc_en=q_en_avg, px_esc_frac=px_esc_hist[i_iter],
+                en_esc_frac=en_esc_hist[i_iter], profile_after=prof_new)
+            if cfg.do_photons:
+                # photon production per shell/zone (ion_finalize.jl:72-78)
+                with timers.phase("emission"):
+                    itres.emission = photon_calcs(
+                        setup, prof, ion_finals, i_iter,
+                        device=engine.device)
+                if emission_hook is not None:
+                    emission_hook(setup, prof, ion_finals, i_iter)
+            result.iterations.append(itres)
+            prof = prof_new
+
+            if checkpoint is not None:
+                with timers.phase("checkpoint"):
+                    ck.save_checkpoint(
+                        checkpoint, i_iter=i_iter + 1, profile=prof,
+                        gamma_grid=gamma_grid, q_px_hist=q_px_hist,
+                        q_en_hist=q_en_hist, px_esc_hist=px_esc_hist,
+                        en_esc_hist=en_esc_hist,
+                        gamma_dw_hist=gamma_dw_hist,
+                        prof_weight_fac=prof_weight_fac,
+                        random_seed=cfg.random_seed)
+                if mid_ckpt is not None and os.path.exists(mid_ckpt.path):
+                    # the iteration checkpoint supersedes the mid state
+                    # of this iteration
+                    os.remove(mid_ckpt.path)
+    finally:
+        if pool is not None:
+            pool.shutdown(wait=True)
 
     if engine.device.type == "cuda":
         torch.cuda.synchronize(engine.device)
@@ -233,6 +393,10 @@ def run(cfg: RunConfig | str, device, out_dir: str | None = None,
     result.n_pushes = engine.n_pushes_total
     result.n_trajectories = engine.n_trajectories_total
     result.timers = timers
+    if mid_ckpt is not None:
+        timers.totals["mid_checkpoint"] += mid_ckpt.seconds
+        timers.counts["mid_checkpoint"] += mid_ckpt.n_saved
+    result.subtimers = dict(engine.subtimers) or None
 
     if out_dir is not None:
         from .io import write_outputs

@@ -23,12 +23,19 @@ The ion -> electron energy transfer follows the JAX package's plumbing
 fills the electrons' heating target ``eps_target``, the ions' pool
 accumulates into ``it.energy_pool``, and a later species (the electrons)
 reads its prefix sum from the segment grids.
+
+Every segment boundary is visible to the host, so a segment-boundary
+checkpoint (parallel/checkpoint.py) can be taken after any split and
+resumed bit for bit where the device's sums are ordered (the CPU).
 """
 
 from __future__ import annotations
 
 import logging
 import math
+import os
+import time
+from collections import defaultdict
 from dataclasses import dataclass
 
 import numpy as np
@@ -116,6 +123,7 @@ class TransportEngine:
             self.batch_size = _round_up(self.batch_size, 4096)
         self.base_key = rng.key(cfg.random_seed)
         self.n_tcut_slots = max(len(cfg.tcuts), 1)
+        self.subtimers = defaultdict(float)    # MCS_SUBTIMERS=1
 
     # -- per-segment input builders -----------------------------------------
 
@@ -194,54 +202,96 @@ class TransportEngine:
 
     # -- the ladder ---------------------------------------------------------
 
-    def run_ion(self, i_iter: int, i_ion: int, prof,
-                it: IterationTallies) -> IonResult:
-        """All pcuts for one species (main_loops.jl:95-341 inner part)."""
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def run_ion(self, i_iter: int, i_ion: int, prof, it: IterationTallies,
+                ckpt=None, resume_mid=None) -> IonResult:
+        """All pcuts for one species (main_loops.jl:95-341 inner part).
+
+        ``ckpt`` (parallel/checkpoint.MidCheckpointer) saves a
+        segment-boundary checkpoint every ``ckpt.every`` pcut segments,
+        right after the split: the saved population is exactly what the
+        next segment consumes, and a segment's keys depend only on (seed,
+        iteration, species, pcut), so a resume continues on the same
+        lanes.  ``resume_mid`` is a payload of load_mid_checkpoint for
+        THIS (i_iter, i_ion), engine, momentum dtype and batch size; the
+        population, the species' tallies and the segment index are
+        restored and the ladder goes on from the saved boundary.  `it`
+        is then the restored species-start copy, which already holds the
+        injection's fast-push flux backfill."""
         setup, cfg, bins = self.setup, self.setup.cfg, self.setup.bins
         s = cfg.species[i_ion]
         nb, b, dev = setup.nb, self.batch_size, self.device
         ss = self.step_static(i_ion)
         k1 = self.uses_k1(ss)
+        mode = "k1" if k1 else "xla"
+        if resume_mid is not None:
+            _check_resume(resume_mid, i_iter, i_ion, mode, self.p_dtype, b)
         if k1:
             mega.check_supported(ss)
         else:
             xla_step.check_supported(ss)
+        if ckpt is not None:
+            ckpt.reset(resume_mid["next_seg"] if resume_mid else 0)
+        # MCS_SUBTIMERS=1: the transport phase split into population
+        # setup, ladder and tally fetch in self.subtimers, each ended by
+        # a device synchronize (measurement runs only)
+        subt = os.environ.get("MCS_SUBTIMERS", "0") == "1"
+        t0 = time.perf_counter()
         grids = self.segment_grids(prof, eps_target=it.eps_target,
                                    recv_pool=it.energy_pool)
         ion_key = rng.fold_in(rng.fold_in(self.base_key, i_iter), i_ion)
 
-        # injected population (main_loops.jl:126-153), host rng keyed
-        # like the JAX package's
-        pop = init_pop(
-            np.random.default_rng((cfg.random_seed, i_iter, i_ion)),
-            cfg.species, i_ion, cfg.inp_distr, cfg.energy_inj,
-            cfg.inj_weight, cfg.n_pts_inj, setup.x_grid_start, cfg.rg0,
-            cfg.eta_mfp, cfg.do_fast_push, cfg.x_fast_stop_rg, cfg.beta0,
-            cfg.gamma0, cfg.u0, setup.x_grid_rg, prof.ux_sk, prof.gamma_sf)
-        # fast-push analytic flux backfill (zeros when not applicable)
-        it.pxx_flux += pop.pxx_flux
-        it.pxz_flux += pop.pxz_flux
-        it.energy_flux += pop.energy_flux
+        if resume_mid is None:
+            # injected population (main_loops.jl:126-153), host rng keyed
+            # like the JAX package's
+            pop = init_pop(
+                np.random.default_rng((cfg.random_seed, i_iter, i_ion)),
+                cfg.species, i_ion, cfg.inp_distr, cfg.energy_inj,
+                cfg.inj_weight, cfg.n_pts_inj, setup.x_grid_start,
+                cfg.rg0, cfg.eta_mfp, cfg.do_fast_push,
+                cfg.x_fast_stop_rg, cfg.beta0, cfg.gamma0, cfg.u0,
+                setup.x_grid_rg, prof.ux_sk, prof.gamma_sf)
+            # fast-push analytic flux backfill (zeros when not applicable)
+            it.pxx_flux += pop.pxx_flux
+            it.pxz_flux += pop.pxz_flux
+            it.energy_flux += pop.energy_flux
 
-        n0 = len(pop.ptot_pf)
-        pad = lambda a: np.concatenate(
-            [np.asarray(a), np.zeros(b - len(a), np.asarray(a).dtype)])
-        state = stt.init_state(
-            pad(pop.weight), pad(pop.ptot_pf), pad(pop.pb_pf),
-            pad(pop.x_cm), pad(pop.i_grid).astype(np.int32),
-            pad(prof.ux_sk[pop.i_grid]), cfg.xn_per_fine,
-            setup.x_grid_stop, rng.fold_in(ion_key, 0), dev,
-            p_dtype=self.p_dtype)
+            n0 = len(pop.ptot_pf)
+            pad = lambda a: np.concatenate(
+                [np.asarray(a), np.zeros(b - len(a), np.asarray(a).dtype)])
+            state = stt.init_state(
+                pad(pop.weight), pad(pop.ptot_pf), pad(pop.pb_pf),
+                pad(pop.x_cm), pad(pop.i_grid).astype(np.int32),
+                pad(prof.ux_sk[pop.i_grid]), cfg.xn_per_fine,
+                setup.x_grid_stop, rng.fold_in(ion_key, 0), dev,
+                p_dtype=self.p_dtype)
+            tal = stt.make_tallies(nb, bins.n_mom, bins.n_theta, dev,
+                                   n_xspec=ss.n_xspec,
+                                   n_tcut_slots=self.n_tcut_slots)
+            reasons = torch.zeros(5, dtype=torch.int64, device=dev)
+            esc = EscapeTallies.zeros(bins.n_mom, bins.n_theta, dev)
+            start = pushes = 0
+            trajectories = n0
+        else:
+            r = resume_mid
+            state, tal, esc = r["state"], r["tal"], r["esc"]
+            if state.device != dev:
+                # a kernel's wrapper would run its plain version there
+                raise ValueError(f"mid checkpoint state on {state.device}, "
+                                 f"the engine on {dev}")
+            reasons = r["reasons"]
+            start = int(r["next_seg"])
+            pushes, trajectories = int(r["pushes"]), int(r["trajectories"])
+        if subt:
+            self._sync()
+            self.subtimers["pop_setup"] += time.perf_counter() - t0
+            t0 = time.perf_counter()
 
-        tal = stt.make_tallies(nb, bins.n_mom, bins.n_theta, dev,
-                               n_xspec=ss.n_xspec,
-                               n_tcut_slots=self.n_tcut_slots)
-        reasons = torch.zeros(5, dtype=torch.int64, device=dev)
-        esc = EscapeTallies.zeros(bins.n_mom, bins.n_theta, dev)
         p_pcut_hi = pcut_hi_momentum(cfg.energy_pcut_hi, s.mass)
-        pushes = 0
-        trajectories = n0
-        for i_pcut in range(len(cfg.pcuts)):
+        for i_pcut in range(start, len(cfg.pcuts)):
             sc = self.segment_scalars(i_ion, i_pcut, prof.bmag2)
             if k1:
                 mega.drain(state, mega.mega_tables(grids, sc, ss, dev), tal)
@@ -269,6 +319,16 @@ class TransportEngine:
                 log.info("iter %d ion %d: pcut chain ended at %d",
                          i_iter, i_ion, i_pcut)
                 break
+            if ckpt is not None:
+                ckpt.maybe(i_pcut + 1, lambda: dict(
+                    mode=mode, p_dtype=str(self.p_dtype), batch_size=b,
+                    i_iter=i_iter, i_ion=i_ion, next_seg=i_pcut + 1,
+                    state=state, tal=tal, esc=esc, reasons=reasons,
+                    pushes=pushes, trajectories=trajectories, it=it))
+        if subt:
+            self._sync()
+            self.subtimers["ladder"] += time.perf_counter() - t0
+            t0 = time.perf_counter()
 
         fin = stt.finalize_tallies(tal)
         it.pxx_flux += fin.pxx_flux.cpu().numpy()
@@ -286,7 +346,7 @@ class TransportEngine:
             it.energy_pool += fin.energy_pool.cpu().numpy()
         self.n_pushes_total += pushes
         self.n_trajectories_total += trajectories
-        return IonResult(
+        out = IonResult(
             psd=fin.psd, therm_psd=fin.therm_psd,
             num_crossings=fin.num_crossings.cpu().numpy(),
             esc=esc.to_numpy(), spectra_sf=fin.spectra_sf.cpu().numpy(),
@@ -296,6 +356,9 @@ class TransportEngine:
             retro_entries=float(fin.retro_entries),
             energy_received=float(fin.energy_received),
             energy_radiated=float(fin.energy_radiated))
+        if subt:
+            self.subtimers["tally_fetch"] += time.perf_counter() - t0
+        return out
 
     def new_iteration_tallies(self, prof=None) -> IterationTallies:
         """Zeroed per-iteration accumulators (main_loops.jl:56-87), with
@@ -315,6 +378,24 @@ class TransportEngine:
             spectra_coupled=np.zeros((n_mom + 1, self.n_tcut_slots,
                                       cfg.n_ions)),
             energy_pool=np.zeros(nb), eps_target=eps)
+
+
+def _check_resume(r: dict, i_iter: int, i_ion: int, mode: str,
+                  p_dtype: torch.dtype, batch_size: int) -> None:
+    """A mid checkpoint resumes only the (iteration, species), engine,
+    momentum dtype and batch size that wrote it (the JAX package's
+    run.py:284-290, 464-469)."""
+    if (r["i_iter"], r["i_ion"]) != (i_iter, i_ion):
+        raise ValueError(
+            "mid checkpoint is for (iter %d, ion %d), not (%d, %d)"
+            % (r["i_iter"], r["i_ion"], i_iter, i_ion))
+    got = (r["mode"], r["p_dtype"], int(r["batch_size"]))
+    want = (mode, str(p_dtype), batch_size)
+    if got != want:
+        raise ValueError(
+            "mid checkpoint was written by engine %r with %s momenta and "
+            "%d lanes, but this run selects engine %r with %s momenta and "
+            "%d lanes; rerun with the same configuration" % (got + want))
 
 
 def populate_eps_target(energy_transfer_frac: float, u0: float,

@@ -14,6 +14,10 @@ Counterpart of the JAX package's ops/reduce.py on the slice's path:
 * the host helpers ``ion_finalize`` uses, in NumPy float64 as in the
   reference: ``zone_populations``, ``normalize_dndp``, ``thermo_calcs``
   and ``ef_zone_norm``.
+* library reductions no path of the driver calls, as in the JAX
+  package: ``dndp_cr`` (one PSD's dN/dp in three frames, the rebinning
+  ``ion_reduce_device`` shares), ``dndp_2d_ef``, ``normalized_total_ef``
+  and ``pitch_histograms``.
 """
 
 from __future__ import annotations
@@ -188,14 +192,58 @@ def d2n_boosted(total: torch.Tensor, gammas, betas, e0: float,
     return out.reshape(nb, nmp1, ntp1).permute(1, 2, 0)
 
 
+def _dn_frames(psds, bins: PsdBins, e0: float, gamma_sf_grid,
+               gamma0: float, i_approx: int) -> list:
+    """dN/dp [n_mom+1, nb, 3] in the (shock, plasma, ISM) frames of each
+    float64 PSD of `psds`, un-normalized; the per-zone rebin matrix,
+    which depends only on the zone's boost, is shared by all of them
+    (``_ion_reduce_prog``, reduce.py:256-277)."""
+    dev = psds[0].device
+    nb = psds[0].shape[-1]
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=dev)
+    mom_edges = t(bins.mom_edges)
+    cos_bounds = t(bins.cos_bounds())
+    edges_log = t(bins.mom_bounds_log)
+    gam = np.asarray(gamma_sf_grid, np.float64)
+    dp = torch.diff(mom_edges)[:, None]
+    zoned = [p.permute(2, 0, 1) for p in psds]     # [nb, nm+1, nt+1]
+    dn_pf = [torch.empty(nb, psds[0].shape[0], dtype=F64, device=dev)
+             for _ in psds]
+    for z in range(nb):
+        g = float(gam[z])
+        m = rebin_matrix(corner_logp(g, e0, mom_edges, cos_bounds),
+                         edges_log, i_approx)
+        for out, p in zip(dn_pf, zoned):
+            out[z] = torch.matmul((p[z] / g).reshape(-1), m)
+    m0 = rebin_matrix(corner_logp(gamma0, e0, mom_edges, cos_bounds),
+                      edges_log, i_approx)
+    return [torch.stack([p.sum(dim=1), pf.T,
+                         torch.matmul(pz.reshape(nb, -1) / gamma0, m0).T],
+                        dim=-1) / dp[..., None]
+            for p, pf, pz in zip(psds, dn_pf, zoned)]
+
+
+def dndp_cr(psd, bins: PsdBins, e0: float, gamma_sf_grid, gamma0: float,
+            i_approx: int = 2) -> torch.Tensor:
+    """dN/dp [n_mom+1, nb, 3] in the (shock, plasma, ISM) frames
+    (get_dNdp_cr, particle_counter.jl:29-306; the JAX package's
+    reduce.py:203), a float64 tensor on the PSD's device.  `psd` is
+    [n_mom+1, n_theta+1, nb], a tensor or an array."""
+    return _dn_frames([torch.as_tensor(psd).to(F64)], bins, e0,
+                      gamma_sf_grid, gamma0, i_approx)[0]
+
+
 # ---------------------------------------------------------------------------
 # fused per-ion device reduction
 # ---------------------------------------------------------------------------
 
 def ion_reduce_device(psd, therm_psd, bins: PsdBins, e0: float,
                       gamma_sf_grid, ux_sk_grid, gamma0: float,
-                      i_approx: int = 2, want_ef: bool = False):
-    """(dn_cr, dn_th, d2n_tot, d2n_ef) as float64 NumPy arrays.
+                      i_approx: int = 2, want_ef: bool = False,
+                      fetch: bool = True):
+    """(dn_cr, dn_th, d2n_tot, d2n_ef) as float64 NumPy arrays, or with
+    `fetch` False as float64 tensors left on the PSD's device (the
+    driver's overlapped reductions copy them asynchronously).
 
     dn_cr / dn_th are the un-normalized dN/dp [n_mom+1, nb, 3] (shock,
     plasma, ISM frames); d2n_tot is the plasma-frame center-point
@@ -205,51 +253,26 @@ def ion_reduce_device(psd, therm_psd, bins: PsdBins, e0: float,
     spreading of ``rebin_matrix``.  `psd` / `therm_psd` are
     [n_mom+1, n_theta+1, nb] tensors (any float dtype) on the device
     the reduction runs on."""
-    dev = psd.device
     psd = psd.to(F64)
     therm = therm_psd.to(F64)
     nb = psd.shape[-1]
-    t = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=dev)
-    mom_edges = t(bins.mom_edges)
-    cos_bounds = t(bins.cos_bounds())
-    edges_log = t(bins.mom_bounds_log)
-    gam = np.asarray(gamma_sf_grid, np.float64)
-    dp = torch.diff(mom_edges)[:, None]
-
-    dn_sf_cr = psd.sum(dim=1)                       # [n_mom+1, nb]
-    dn_sf_th = therm.sum(dim=1)
-    psd_t = psd.permute(2, 0, 1)                    # [nb, nm+1, nt+1]
-    th_t = therm.permute(2, 0, 1)
-
-    dn_pf_cr = torch.empty(nb, psd.shape[0], dtype=F64, device=dev)
-    dn_pf_th = torch.empty_like(dn_pf_cr)
-    for z in range(nb):
-        g = float(gam[z])
-        m = rebin_matrix(corner_logp(g, e0, mom_edges, cos_bounds),
-                         edges_log, i_approx)
-        dn_pf_cr[z] = torch.matmul((psd_t[z] / g).reshape(-1), m)
-        dn_pf_th[z] = torch.matmul((th_t[z] / g).reshape(-1), m)
-    m0 = rebin_matrix(corner_logp(gamma0, e0, mom_edges, cos_bounds),
-                      edges_log, i_approx)
-    dn_ef_cr = torch.matmul(psd_t.reshape(nb, -1) / gamma0, m0)
-    dn_ef_th = torch.matmul(th_t.reshape(nb, -1) / gamma0, m0)
-
-    dn_cr = torch.stack([dn_sf_cr, dn_pf_cr.T, dn_ef_cr.T],
-                        dim=-1) / dp[..., None]
-    dn_th = torch.stack([dn_sf_th, dn_pf_th.T, dn_ef_th.T],
-                        dim=-1) / dp[..., None]
-
+    dn_cr, dn_th = _dn_frames([psd, therm], bins, e0, gamma_sf_grid,
+                              gamma0, i_approx)
     total = psd + therm
+    gam = np.asarray(gamma_sf_grid, np.float64)
     betas = np.asarray(ux_sk_grid, np.float64) / C_CGS
     d2n_tot = d2n_boosted(total, gam, betas, e0, bins)
     d2n_ef = None
     if want_ef:
         beta0 = math.sqrt(1.0 - 1.0 / gamma0 ** 2)
+        dp = torch.diff(torch.as_tensor(bins.mom_edges, dtype=F64,
+                                        device=psd.device))
         d2n_ef = d2n_boosted(total, np.full(nb, gamma0), np.full(nb, beta0),
-                             e0, bins) / dp[..., None]
-        d2n_ef = d2n_ef.cpu().numpy()
-    return (dn_cr.cpu().numpy(), dn_th.cpu().numpy(),
-            d2n_tot.cpu().numpy(), d2n_ef)
+                             e0, bins) / dp[:, None, None]
+    out = (dn_cr, dn_th, d2n_tot, d2n_ef)
+    if not fetch:
+        return out
+    return tuple(None if a is None else a.cpu().numpy() for a in out)
 
 
 # ---------------------------------------------------------------------------
@@ -405,3 +428,51 @@ def ef_zone_norm(psd, therm_psd, zone_pop, num_crossings,
     np.divide(np.asarray(zone_pop), density_tot, out=norm,
               where=density_tot > 0)
     return norm
+
+
+def normalized_total_ef(psd, therm_psd, zone_pop, num_crossings,
+                        n0_ion: float) -> np.ndarray:
+    """CR+thermal histogram normalized to zone populations
+    (particle_counter.jl:480-518; the JAX package's reduce.py:607): the
+    input to the ISM-frame boost, float64."""
+    norm = ef_zone_norm(psd, therm_psd, zone_pop, num_crossings, n0_ion)
+    total = np.asarray(psd, np.float64) + np.asarray(therm_psd, np.float64)
+    return total * norm[None, None, :]
+
+
+def dndp_2d_ef(psd, therm_psd, bins: PsdBins, m_ion: float, zone_pop,
+               num_crossings, n0_ion: float, beta0: float,
+               gamma0: float) -> np.ndarray:
+    """ISM-frame d2N/(dp dcos) for the electron IC calculation
+    (get_dNdp_2D, particle_counter.jl:343-613; the JAX package's
+    reduce.py:569): the zone-normalized CR + thermal histogram, its cell
+    centers boosted into the ISM frame, per dp, [n_mom+1, n_theta+1, nb]
+    float64."""
+    e0 = m_ion * C_CGS**2
+    total = torch.from_numpy(normalized_total_ef(
+        psd, therm_psd, zone_pop, num_crossings, n0_ion))
+    nb = total.shape[-1]
+    out = d2n_boosted(total, np.full(nb, gamma0), np.full(nb, beta0), e0,
+                      bins).numpy()
+    return out / np.diff(bins.mom_edges)[:, None, None]
+
+
+def pitch_histograms(psd, bins: PsdBins, decades_per_group: int = 1
+                     ) -> tuple[np.ndarray, np.ndarray]:
+    """Normalized pitch-cosine distributions per momentum group and zone
+    (the reference's dormant track_pitch_angles, transformers.jl:319-401;
+    the JAX package's reduce.py:542): the PSD summed over groups of
+    ``decades_per_group`` momentum decades, divided by the cosine bin
+    widths.  Returns (cos_centers [n_theta+1], hist [n_groups,
+    n_theta+1, nb]), each nonempty (group, zone) column summing to 1."""
+    dcos = np.abs(np.diff(bins.cos_bounds()))           # [n_theta+1]
+    n_per_group = bins.bins_per_dec_mom * decades_per_group
+    p = np.asarray(psd)
+    n_groups = (p.shape[0] + n_per_group - 1) // n_per_group
+    out = np.zeros((n_groups, bins.n_theta + 1, p.shape[-1]))
+    for g in range(n_groups):
+        out[g] = p[g * n_per_group:(g + 1) * n_per_group].sum(axis=0) \
+            / dcos[:, None]
+    tot = out.sum(axis=1, keepdims=True)
+    out = np.divide(out, tot, out=np.zeros_like(out), where=tot > 0)
+    return bins.cos_centers(), out

@@ -1,0 +1,188 @@
+"""Driver-level measurements on a CUDA card.
+
+* ``--spread N``: N uninterrupted runs of the nonlinear flagship
+  (scripts/flagship_nonlinear.py: 65,536 a pcut, 10 iterations, float32
+  on K1), each iteration's pushes, trajectories, escaping fractions and
+  max pxx_norm, and per quantity the largest difference between two runs
+  over iterations 1-4 and 5-10.  K1 sums its tallies with atomics in no
+  fixed order, and from iteration 2 on the profile is smoothed from
+  them, so two runs may part; chip_smoke.py's nonlinear phase holds a
+  resumed run to 3 times this spread.  Then one more run with
+  MCS_SUBTIMERS=1 for the transport's split.
+* ``--overlap``: the baseline's science variant (1 iteration, K1) and
+  the SED flagship (examples/04 at 16,384 a pcut, K1) with the
+  per-species reductions overlapped (MCS_OVERLAP_REDUCE=1) and not (=0),
+  in the order on, off, off, on, after a warm-up run: wall, and the
+  transport, reductions and io phases.
+* ``--cold``: the science variant and then the SED flagship once each,
+  the process's first runs, as a CLI run is (the reductions' pinned
+  host buffers are allocated anew): wall and phases.  With ``--root``
+  the package of that checkout is measured, so that two checkouts
+  compare in one call (the parent in a directory .gitignore lists).
+
+Prints the card's name and power limit first.  Run by path, so that
+``--root`` decides which checkout is imported:
+
+    python montecarloscattering_jl_tpu_torch/scripts/probe_driver.py \\
+        [--root DIR] [--spread 3] [--overlap] [--cold]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import tempfile
+import time
+
+
+def timed_run(cfg, p_dtype, cap: int = 0, **env):
+    """One ``engine.driver.run`` on the card with its outputs written to
+    a temporary directory, the helix cap `cap` when given and the
+    environment variables `env` set for it; returns (result, wall s)."""
+    import torch
+
+    from montecarloscattering_jl_tpu_torch.engine.driver import run
+    from montecarloscattering_jl_tpu_torch.ops import mega
+    from montecarloscattering_jl_tpu_torch.ops import step as xla_step
+
+    caps = (mega.MAX_HELIX_STEPS, xla_step.MAX_HELIX_STEPS)
+    old = {k: os.environ.get(k) for k in env}
+    if cap:
+        mega.MAX_HELIX_STEPS = xla_step.MAX_HELIX_STEPS = cap
+    os.environ.update(env)
+    try:
+        with tempfile.TemporaryDirectory() as out:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = run(cfg, "cuda", out_dir=out, p_dtype=p_dtype)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        mega.MAX_HELIX_STEPS, xla_step.MAX_HELIX_STEPS = caps
+        for k, v in old.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+    return res, wall
+
+
+def spread(n_runs: int) -> dict:
+    import torch
+
+    from montecarloscattering_jl_tpu_torch.scripts import (
+        flagship_nonlinear as fn, workloads as wl)
+
+    runs = []
+    for i in range(n_runs):
+        res, wall = timed_run(fn.nonlinear_config(wl.LANES, 10),
+                              torch.float32)
+        rows = fn.iteration_rows(res)
+        runs.append(rows)
+        print(f"spread run {i + 1}: wall {wall:.3f} s, {res.n_pushes} "
+              f"pushes ({res.n_pushes / wall / 1e6:.1f} M pushes/s), "
+              f"phases {json.dumps(res.timers.totals)}")
+        for r in rows:
+            print(f"  {json.dumps(r)}")
+    out = {}
+    for span, sl in (("1-4", slice(0, 4)), ("5-10", slice(4, 10))):
+        out[span] = {
+            key: max(abs(a[key] - b[key])
+                     for i, ra in enumerate(runs) for rb in runs[i + 1:]
+                     for a, b in zip(ra[sl], rb[sl]))
+            for key in ("pushes", "trajectories", "px_esc_frac",
+                        "en_esc_frac", "pxx_norm_max")}
+        print(f"spread, iterations {span}, largest difference between "
+              f"two runs: {json.dumps(out[span])}")
+    res, wall = timed_run(fn.nonlinear_config(wl.LANES, 10), torch.float32,
+                          MCS_SUBTIMERS="1")
+    print(f"subtimed run: wall {wall:.3f} s, transport "
+          f"{res.timers.totals['transport']:.3f} s, split "
+          f"{json.dumps(res.subtimers)}")
+    return out
+
+
+def overlap() -> None:
+    import torch
+
+    from montecarloscattering_jl_tpu_torch.scripts import (
+        flagship_sed, workloads as wl)
+
+    def science():
+        cfg = wl.load_variant(wl.BASELINE, n_itrs=1)
+        wl.science_variant(cfg)
+        return cfg
+
+    cases = (("science", science, wl.SCIENCE_CAP),
+             ("sed", lambda: flagship_sed.sed_config(16_384), 0))
+    for tag, make, cap in cases:
+        timed_run(make(), torch.float32, cap)          # warm-up
+        for flag in ("1", "0", "0", "1"):
+            res, wall = timed_run(make(), torch.float32, cap,
+                                  MCS_OVERLAP_REDUCE=flag)
+            t = res.timers.totals
+            print(f"overlap {tag} MCS_OVERLAP_REDUCE={flag}: wall "
+                  f"{wall:.3f} s, transport {t['transport']:.3f} s, "
+                  f"reductions {t['reductions']:.3f} s, io "
+                  f"{t.get('io', 0.0):.3f} s, {res.n_pushes} pushes")
+
+
+def cold() -> None:
+    import torch
+
+    from montecarloscattering_jl_tpu_torch.scripts import (
+        flagship_sed, workloads as wl)
+
+    cfg = wl.load_variant(wl.BASELINE, n_itrs=1)
+    wl.science_variant(cfg)
+    for tag, c, cap in (("science", cfg, wl.SCIENCE_CAP),
+                        ("sed", flagship_sed.sed_config(16_384), 0)):
+        res, wall = timed_run(c, torch.float32, cap)
+        t = res.timers.totals
+        print(f"cold {tag} MCS_OVERLAP_REDUCE="
+              f"{os.environ.get('MCS_OVERLAP_REDUCE', 'unset')}: wall "
+              f"{wall:.3f} s, transport {t['transport']:.3f} s, reductions "
+              f"{t['reductions']:.3f} s, io {t.get('io', 0.0):.3f} s, "
+              f"{res.n_pushes} pushes")
+
+
+def main(argv=None) -> int:
+    here = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=here,
+                    help="the checkout whose package is measured")
+    ap.add_argument("--spread", type=int, default=0,
+                    help="uninterrupted nonlinear flagship runs (>= 2)")
+    ap.add_argument("--overlap", action="store_true")
+    ap.add_argument("--cold", action="store_true")
+    args = ap.parse_args(argv)
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    import torch
+
+    import montecarloscattering_jl_tpu_torch as pkg
+    from montecarloscattering_jl_tpu_torch.ops import build
+    from montecarloscattering_jl_tpu_torch.scripts import workloads as wl
+
+    if not os.path.abspath(pkg.__file__).startswith(root + os.sep):
+        ap.error(f"the package was imported from {pkg.__file__}, not from "
+                 f"{root}: run this file by path")
+    if not torch.cuda.is_available():
+        print("probe_driver: no CUDA device", file=sys.stderr)
+        return 1
+    print(f"nvidia-smi: {wl.card_line()}; root: {root}")
+    build.build_all(["mega_step", "psd_hist"])
+    if args.cold:
+        cold()
+    if args.spread >= 2:
+        spread(args.spread)
+    if args.overlap:
+        overlap()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -12,6 +12,8 @@ probes (probe_k1.py, profile_run.py) and the tests share.
   --pcuts-per-decade 4 --max-helix-steps 200000 --n-pts-mult 4).
 * ``time_launches`` (CUDA events around prepared launches) and
   ``timed_drain`` (host clock around one ``mega.drain``).
+* ``kill_at``: the stop hook of the kill-and-resume checks, armed at a
+  chosen segment boundary.
 
 Only the package's public engine and ops entry points are used, and they
 are imported inside the functions: a probe that measures another
@@ -21,6 +23,7 @@ package.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import subprocess
@@ -297,3 +300,38 @@ def timed_drain(case: dict, cap: int) -> dict:
     pushes = int((s.nsteps.long() - st0.nsteps.long()).sum())
     return dict(ms=ms, launches=mega.LAUNCHES - before, pushes=pushes,
                 pushes_per_s=pushes / ms * 1e3)
+
+
+@contextlib.contextmanager
+def kill_at(i_iter: int, i_ion: int | None = None,
+            next_seg: int | None = None):
+    """Within the block, every MidCheckpointer the driver makes stops
+    the run (MidCheckpointStop) right after its first save at iteration
+    `i_iter` (0-based), and at species `i_ion` and segment boundary
+    `next_seg` where given: a kill at a chosen segment boundary.  Yields
+    the list of the checkpointers made, for their save times."""
+    from montecarloscattering_jl_tpu_torch.parallel import checkpoint as ck
+
+    made = []
+    base = ck.MidCheckpointer
+
+    class KillAt(base):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+        def maybe(self, seg_done, payload_fn):
+            def armed():
+                p = payload_fn()
+                self.stop_after_save = (
+                    p["i_iter"] == i_iter
+                    and i_ion in (None, p["i_ion"])
+                    and next_seg in (None, p["next_seg"]))
+                return p
+            super().maybe(seg_done, armed)
+
+    ck.MidCheckpointer = KillAt
+    try:
+        yield made
+    finally:
+        ck.MidCheckpointer = base
