@@ -108,6 +108,29 @@ Run from the root of a checkout:  python3 chip_smoke.py
     uninterrupted run's pushes and trajectories; iterations 5-10 of the
     resumed run agree with the uninterrupted run's within 3 times the
     spread of two uninterrupted runs (NONLINEAR_SPREAD).
+14. ``compact``: the XLA engine's live-lane compaction ladder.  Phases
+    f64, resume, shipped and electrons run it at its auto depth (5
+    levels at the flagship's 69,632 lanes: windows down to 2,176), the
+    CLI's default; this phase runs phase f64's config again at
+    compact_levels=0 and holds it to phase f64's run as phase resume
+    does, prints both runs' wall, transport and graph captures, then
+    drains the flagship's injected population (69,632 lanes, pcut 0)
+    once at levels 0 and once at auto through ``run_segment``: every
+    per-lane field bit-identical, and the device ms a step at each
+    window size (CUDA events around each graph replay).
+15. ``oblique``: the oblique step at float64 on the flagship population:
+    64 steps at theta_B = 0 through the oblique branches against the
+    parallel ones (integer fields equal, float fields within 1e-12
+    relative), and 64 steps at theta_B = 30 degrees in a uniform flow
+    (each ACTIVE lane's |p| within 1e-12).
+16. ``kw``: the Keshet-Waxman run (scripts/flagship_keshet_waxman.py) at
+    float32 on K1 with the host split: N_g = 8,000, 8,192 particles a
+    pcut, the helix cap 800,000, pmax 2,400 m_p c; every drain launches
+    K1 (each timed, a synchronize around it); the fitted index within
+    0.25 of s_KW.
+17. ``endurance``: scripts/flagship_endurance.py on K1 at 65,536 a pcut
+    for about 8 blocks: allocated device memory drifts by less than 1%
+    from block 2 to the last; the rate per block is printed.
 
 Every phase that fails raises, so the script exits non-zero; it also
 exits non-zero without a CUDA device.  The line before the last is a
@@ -161,6 +184,15 @@ RESUME_FLUX_TOL = 1e-9
 NONLINEAR_ITERS, KILL_ITER, NONLINEAR_MID_EVERY = 10, 4, 2
 NONLINEAR_SPREAD = dict(pushes=0, trajectories=0, px_esc_frac=0.0,
                         en_esc_frac=0.0, pxx_norm_max=4.440892098500626e-15)
+# phase oblique: steps of each block, and the bound of the per-lane
+# comparisons (tests/test_torch_oblique.py's)
+OBLIQUE_STEPS, OBLIQUE_TOL = 64, 1e-12
+# phase kw: the sweep's N_g = 8000 point (kw_sweep.json: the JAX package
+# measured s_fit 4.214 against s_KW 4.202 there, on a TPU) and the
+# script's own tolerance
+KW_NG, KW_PER_PCUT, KW_CAP, KW_PMAX, KW_TOL = 8000.0, 8192, 800_000, 2400.0, 0.25
+# phase endurance: about 8 blocks of the flagship at wl.LANES a pcut
+ENDURANCE_TRAJECTORIES = 3.5e6
 # JAX CPU run of the shipped baseline (1 iteration, --f32, XLA engine),
 # for comparison with the port's counts
 SHIPPED_JAX_PUSHES, SHIPPED_JAX_TRAJECTORIES = 980_000, 196
@@ -672,6 +704,8 @@ def main_path(dev, p_dtype, n_itrs: int, x_spec: bool) -> dict:
     """The flagship config driven through one engine (phases f32, f64):
     the slope of iteration 1, and the detector spectra with x_spec.
     Returns the launch counts with the wall time and the result."""
+    import torch
+
     cfg = flagship_config(p_dtype, n_itrs, x_spec)
     tag = f"{str(p_dtype).replace('torch.', '')} path"
     res, counts, wall, _ = drive(cfg, dev, p_dtype, tag)
@@ -680,6 +714,8 @@ def main_path(dev, p_dtype, n_itrs: int, x_spec: bool) -> dict:
           f"{expect:.4f} +- 0.45)")
     if not math.isfinite(slope) or abs(slope - expect) > 0.45:
         fail(f"{tag}: slope {slope} vs {expect}")
+    if p_dtype != torch.float32:
+        print(f"{tag}: drain graphs {json.dumps(graphs_line(res))}")
     if x_spec:
         fi = res.iterations[0].ion_finals[0]
         tot = [(float(fi.spectra_sf[:, i].sum()),
@@ -862,6 +898,44 @@ def shipped_path(dev) -> dict:
                 trajectories=res.n_trajectories)
 
 
+def hold_to_f64(tag, ref, res) -> dict:
+    """A rerun of phase f64's config (`res`) against phase f64's own run
+    (`ref`): pushes, trajectories and exit reasons exactly (one iteration
+    of protons: no lane reads an atomically summed value), fluxes and
+    spectra within RESUME_FLUX_TOL of their largest entry, the PSDs
+    within HIST_TOL of max |psd|; returns each one's largest difference
+    over its largest entry."""
+    import numpy as np
+
+    if (res.n_pushes, res.n_trajectories) != (ref.n_pushes,
+                                              ref.n_trajectories):
+        fail(f"{tag}: {res.n_pushes} pushes, {res.n_trajectories} "
+             f"trajectories against {ref.n_pushes}, {ref.n_trajectories}")
+    fr, fg = ref.iterations[0], res.iterations[0]
+    for a, b in zip(fr.ion_finals, fg.ion_finals):
+        if not np.array_equal(a.reason_counts, b.reason_counts):
+            fail(f"{tag}: exit reasons {b.reason_counts} against "
+                 f"{a.reason_counts}")
+    worst = {}
+    for name, a, b, tol in (
+            [(f, getattr(fr.tallies, f), getattr(fg.tallies, f),
+              RESUME_FLUX_TOL) for f in ("pxx_flux", "pxz_flux",
+                                         "energy_flux")]
+            + [(f, getattr(fr.ion_finals[0], f), getattr(fg.ion_finals[0], f),
+                RESUME_FLUX_TOL) for f in ("spectra_sf", "spectra_pf")]
+            + [(f, getattr(fr.ion_finals[0], f), getattr(fg.ion_finals[0], f),
+                HIST_TOL) for f in ("psd", "therm_psd")]):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        scale = np.abs(a).max()
+        worst[name] = float(np.abs(b - a).max() / scale)
+        if not (scale > 0 and worst[name] <= tol):
+            fail(f"{tag}: {name} differs by {worst[name]!r} of its "
+                 f"largest entry (bound {tol})")
+    print(f"{tag}: against phase f64, largest difference over largest "
+          f"entry {json.dumps(worst)}")
+    return worst
+
+
 def resume_path(dev, f64) -> dict:
     """Phase resume: phase f64's config with a segment-boundary
     checkpoint after every segment, stopped (MCS_MID_STOP_AFTER=1) right
@@ -870,7 +944,6 @@ def resume_path(dev, f64) -> dict:
     (`f64`): pushes, trajectories and exit reasons exactly, fluxes and
     spectra within RESUME_FLUX_TOL of their largest entry, the PSDs
     within HIST_TOL of max |psd|."""
-    import numpy as np
     import torch
 
     from montecarloscattering_jl_tpu_torch.parallel import checkpoint as ck
@@ -911,36 +984,233 @@ def resume_path(dev, f64) -> dict:
           f"each; iteration checkpoint {ck_ms:.2f} ms; wall killed "
           f"{wall_k:.2f} s + resumed {wall_r:.2f} s against uninterrupted "
           f"{f64['wall']:.2f} s")
-    if (res.n_pushes, res.n_trajectories) != (ref.n_pushes,
-                                              ref.n_trajectories):
-        fail(f"resume: {res.n_pushes} pushes, {res.n_trajectories} "
-             f"trajectories against {ref.n_pushes}, {ref.n_trajectories}")
-    fr, fg = ref.iterations[0], res.iterations[0]
-    for a, b in zip(fr.ion_finals, fg.ion_finals):
-        if not np.array_equal(a.reason_counts, b.reason_counts):
-            fail(f"resume: exit reasons {b.reason_counts} against "
-                 f"{a.reason_counts}")
-    worst = {}
-    for name, a, b, tol in (
-            [(f, getattr(fr.tallies, f), getattr(fg.tallies, f),
-              RESUME_FLUX_TOL) for f in ("pxx_flux", "pxz_flux",
-                                         "energy_flux")]
-            + [(f, getattr(fr.ion_finals[0], f), getattr(fg.ion_finals[0], f),
-                RESUME_FLUX_TOL) for f in ("spectra_sf", "spectra_pf")]
-            + [(f, getattr(fr.ion_finals[0], f), getattr(fg.ion_finals[0], f),
-                HIST_TOL) for f in ("psd", "therm_psd")]):
-        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
-        scale = np.abs(a).max()
-        worst[name] = float(np.abs(b - a).max() / scale)
-        if not (scale > 0 and worst[name] <= tol):
-            fail(f"resume: {name} differs by {worst[name]!r} of its "
-                 f"largest entry (bound {tol})")
-    print(f"resume: against phase f64, largest difference over largest "
-          f"entry {json.dumps(worst)}")
+    worst = hold_to_f64("resume", ref, res)
     both = {k: killed[k] + counts[k] for k in counts}
     return dict(counts=both, wall_killed=wall_k, wall_resumed=wall_r,
                 mid_bytes=size, mid_ms=mid_ms, checkpoint_ms=ck_ms,
                 worst=worst)
+
+
+def graphs_line(res) -> dict:
+    """The XLA engine's captured drain blocks of a driven run."""
+    g = res.graphs
+    return dict(captures=g.captures, capture_s=g.capture_s)
+
+
+def compact_path(dev, f64) -> dict:
+    """Phase compact: phase f64's config at compact_levels=0, held to
+    phase f64's run (auto compaction) as phase resume holds its run;
+    then one run_segment of the flagship population at levels 0 and
+    auto, every per-lane field bit-identical, with the device ms a step
+    at each window size."""
+    import torch
+
+    from montecarloscattering_jl_tpu_torch.engine.run import (
+        TransportEngine, auto_compact_levels)
+    from montecarloscattering_jl_tpu_torch.ops import state as stt
+    from montecarloscattering_jl_tpu_torch.ops import step as xla_step
+    from montecarloscattering_jl_tpu_torch.scripts import workloads as wl
+
+    cfg = flagship_config(torch.float64, 1, True)
+    res, counts, wall, _ = drive(cfg, dev, torch.float64, "compact",
+                                 compact_levels=0)
+    worst = hold_to_f64("compact", f64["result"], res)
+    ref = f64["result"]
+    eng = TransportEngine(res.setup, device=dev)
+    auto = auto_compact_levels(eng.batch_size)
+    print(f"compact: f64 flagship, {eng.batch_size} lanes; auto "
+          f"({auto} levels, windows "
+          f"{xla_step.window_sizes(eng.batch_size, auto)}): wall "
+          f"{f64['wall']:.2f} s, transport "
+          f"{ref.timers.totals['transport']:.2f} s, graphs "
+          f"{json.dumps(graphs_line(ref))}; levels 0: wall {wall:.2f} s, "
+          f"transport {res.timers.totals['transport']:.2f} s, graphs "
+          f"{json.dumps(graphs_line(res))}")
+
+    # one segment of the injected population, lane for lane
+    setup = res.setup
+    ss = eng.step_static(0)
+    tb = xla_step.step_tables(eng.segment_grids(setup.profile),
+                              eng.segment_scalars(0, 0, setup.profile.bmag2),
+                              ss, dev)
+    st0 = wl.flagship_population(setup, cfg, dev, lanes=eng.batch_size,
+                                 p_dtype=torch.float64)
+    b = setup.bins
+    seg = {}
+    for lv in (0, auto):
+        st = stt.clone(st0)
+        tl = stt.make_tallies(setup.nb, b.n_mom, b.n_theta, dev,
+                              n_xspec=ss.n_xspec)
+        g = xla_step.GraphCache()
+        g.timing = True
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        taken = xla_step.run_segment(st, tl, tb, compact_levels=lv,
+                                     graphs=g)
+        torch.cuda.synchronize()
+        seg[lv] = (st, dict(wall=time.perf_counter() - t0, steps=taken,
+                            captures=g.captures, capture_s=g.capture_s,
+                            step_ms={str(k): v for k, v in
+                                     g.step_ms().items()}))
+        print(f"compact segment, levels {lv}: {json.dumps(seg[lv][1])}")
+    diff = [f.name for f in dataclasses.fields(st0)
+            if not torch.equal(getattr(seg[0][0], f.name),
+                               getattr(seg[auto][0], f.name))]
+    if diff:
+        fail(f"compact: the lanes of levels {auto} differ from levels 0 "
+             f"in {diff}")
+    print(f"compact segment: every per-lane field of {eng.batch_size} "
+          f"lanes bit-identical at levels 0 and {auto}")
+    return dict(counts=counts, wall=wall, wall_auto=f64["wall"],
+                transport=res.timers.totals["transport"],
+                transport_auto=ref.timers.totals["transport"],
+                graphs=graphs_line(res), graphs_auto=graphs_line(ref),
+                worst=worst, segment={k: v[1] for k, v in seg.items()})
+
+
+def oblique_path(dev) -> dict:
+    """Phase oblique: tests/test_oblique.py's two checks on the card, at
+    float64 on the flagship population (wl.LANES lanes at pcut index 2):
+    one OBLIQUE_STEPS-step block through the oblique branches at
+    theta_B = 0 against the parallel branches (integer fields equal,
+    float fields within OBLIQUE_TOL relative: momenta relative to |p|, a
+    position relative to the larger of |x| and the lane's path; the
+    phase, which the oblique step adjusts at every scattering and which
+    at theta_B = 0 reaches only the pxz tally, is not compared); one
+    block at theta_B = 30 degrees in a uniform flow, where each ACTIVE
+    lane's plasma-frame |p| must stay within OBLIQUE_TOL."""
+    import torch
+
+    from montecarloscattering_jl_tpu_torch.engine.run import TransportEngine
+    from montecarloscattering_jl_tpu_torch.ops import rng
+    from montecarloscattering_jl_tpu_torch.ops import state as stt
+    from montecarloscattering_jl_tpu_torch.ops import step as xla_step
+    from montecarloscattering_jl_tpu_torch.scripts import workloads as wl
+    from montecarloscattering_jl_tpu_torch.utils import load_config
+    from montecarloscattering_jl_tpu_torch.engine.setup import build_setup
+
+    cfg = load_config(wl.CFG)
+    setup = build_setup(cfg)
+    eng = TransportEngine(setup, device=dev)
+    ss = eng.step_static(0)
+    obl = dataclasses.replace(ss, parallel=False)
+    sc = eng.segment_scalars(0, 2, setup.profile.bmag2)
+    grids = eng.segment_grids(setup.profile)
+    st0 = wl.flagship_population(setup, cfg, dev, p_dtype=torch.float64)
+    b = setup.bins
+
+    def block(st, gr, s):
+        tb = xla_step.step_tables(gr, sc, s, dev)
+        tl = stt.make_tallies(setup.nb, b.n_mom, b.n_theta, dev)
+        for _ in range(OBLIQUE_STEPS):
+            xla_step.helix_step(st, tl, tb, rng.lane_uniforms_xla(
+                st.key0, st.key1, st.nsteps), 10_000)
+        torch.cuda.synchronize()
+        return st
+
+    par = block(stt.clone(st0), grids, ss)
+    ob = block(stt.clone(st0), grids, obl)
+    div = sum(int((getattr(par, f) != getattr(ob, f)).sum())
+              for f in ("status", "reason", "nsteps", "igrid", "flags",
+                        "tcut"))
+    p = torch.hypot(par.pb, par.pperp)
+    err = {}
+    for f in ("pb", "pperp", "x", "prp_x", "acctime", "ux_prev", "xn_per",
+              "t_step"):
+        a, c = getattr(par, f), getattr(ob, f)
+        scale = p if f in ("pb", "pperp") else a.abs()
+        if f == "x":
+            scale = torch.maximum(scale, (a - st0.x).abs())
+        err[f] = float(((c - a).abs() / scale.clamp(min=1e-300)).max())
+    moved = int((par.nsteps - st0.nsteps).sum())
+    print(f"oblique at theta_B = 0 against parallel, {OBLIQUE_STEPS} steps, "
+          f"{moved} pushes: integer fields differ {div} times; largest "
+          f"relative difference {json.dumps(err)}")
+    if div or not max(err.values()) <= OBLIQUE_TOL:
+        fail(f"oblique: theta_B = 0 does not reduce to the parallel step")
+
+    # theta_B = 30 degrees in a uniform flow: no frame change fires
+    nb = grids.ux.shape[0]
+    theta = math.pi / 6
+    full = lambda v, a: torch.full_like(a, v)
+    u0, g0 = float(grids.ux[1]), float(grids.gamma_sf[1])
+    uni = dataclasses.replace(
+        grids, ux=full(u0, grids.ux), uz=full(0.0, grids.uz),
+        utot=full(abs(u0), grids.utot), gamma_sf=full(g0, grids.gamma_sf),
+        b_cos=full(math.cos(theta), grids.b_cos),
+        b_sin=full(math.sin(theta), grids.b_sin))
+    st = stt.clone(st0)
+    st.ux_prev.fill_(u0)
+    p0 = torch.hypot(st.pb, st.pperp)
+    st = block(st, uni, dataclasses.replace(obl, do_rad_losses=False))
+    alive = st.status == stt.ACTIVE
+    drift = float(((torch.hypot(st.pb, st.pperp) - p0).abs()
+                   / p0)[alive].max())
+    print(f"oblique at 30 degrees, uniform flow ({nb} zones), "
+          f"{int(alive.sum())} lanes ACTIVE after {OBLIQUE_STEPS} steps: "
+          f"largest relative change of |p| {drift:.3e}")
+    if not (int(alive.sum()) > 0 and drift <= OBLIQUE_TOL):
+        fail(f"oblique: |p| not conserved at 30 degrees ({drift!r})")
+    return dict(theta0=err, uniform_p_drift=drift)
+
+
+def kw_path(dev) -> dict:
+    """Phase kw: scripts/flagship_keshet_waxman.py of the port at float32
+    on K1, host split, N_g = KW_NG, KW_PER_PCUT a pcut, the helix cap
+    KW_CAP and pmax KW_PMAX (the sweep's point, kw_sweep.json); every
+    drain timed (a synchronize around it) and launching K1.  Gate: the
+    script's |s_fit - s_KW| <= KW_TOL."""
+    import torch
+
+    from montecarloscattering_jl_tpu_torch.scripts import (
+        flagship_keshet_waxman as kw, workloads as wl)
+
+    zero_counts()
+    with wl.timed_drains() as drains:
+        out = kw.measure(KW_PER_PCUT, KW_NG, KW_CAP, KW_PMAX, device=dev)
+    counts = read_counts()
+    check_engine("kw", counts, torch.float32)
+    if any(k < 1 for _, k, _ in drains) or counts["k1"] != len(drains):
+        fail(f"kw: a drain without its K1 launch: {drains}")
+    longest = max(drains)
+    ok = abs(out["s_fit"] - out["s_kw"]) <= KW_TOL
+    print(f"kw: s_fit {out['s_fit']:.4f} against s_KW {out['s_kw']:.4f} "
+          f"(tol {KW_TOL}, {out['n_bins']} bins): "
+          f"{'PASSED' if ok else 'FAILED'}; {out['pushes']} pushes, "
+          f"{out['trajectories']} trajectories in {out['wall']:.2f} s; "
+          f"{len(drains)} drains, K1 launches {counts['k1']}, the longest "
+          f"{longest[0]:.1f} ms ({longest[2]} pushes); drains "
+          f"{json.dumps([round(d[0], 1) for d in drains])} ms")
+    if not ok:
+        fail(f"kw: |s_fit - s_KW| = {abs(out['s_fit'] - out['s_kw']):.4f} "
+             f"> {KW_TOL}")
+    return dict(counts=counts, s_fit=out["s_fit"], s_kw=out["s_kw"],
+                pushes=out["pushes"], wall=out["wall"],
+                longest_drain_ms=longest[0], drains=len(drains))
+
+
+def endurance_path(dev) -> dict:
+    """Phase endurance: scripts/flagship_endurance.py of the port on K1
+    (float32) at wl.LANES a pcut, ENDURANCE_TRAJECTORIES trajectories
+    (about 8 blocks): allocated device memory may drift by less than 1%
+    from block 2 to the last; the rate per block is printed."""
+    import torch
+
+    from montecarloscattering_jl_tpu_torch.scripts import (
+        flagship_endurance as fe, workloads as wl)
+
+    zero_counts()
+    out = fe.endurance(ENDURANCE_TRAJECTORIES, wl.LANES, device=dev)
+    counts = read_counts()
+    check_engine("endurance", counts, torch.float32)
+    rates = [b["mpushes_per_s"] for b in out["blocks"]]
+    print(f"endurance: {len(out['blocks'])} blocks, M pushes/s {rates}; "
+          f"memory drift {out['drift']:+.4%}, rate floor "
+          f"{out['rate_floor']:+.2%}; launches {json.dumps(counts)}")
+    if not out["drift_ok"]:
+        fail(f"endurance: allocated memory drifts by {out['drift']:+.2%}")
+    return dict(counts=counts, blocks=out["blocks"], drift=out["drift"],
+                rate_floor=out["rate_floor"], wall=out["wall"])
 
 
 def nonlinear_path(dev) -> dict:
@@ -1069,7 +1339,11 @@ def main() -> int:
                       ("f64", lambda d: main_path(d, torch.float64, 1, True)),
                       ("resume", lambda d: resume_path(d, done["f64"])),
                       ("shipped", shipped_path),
-                      ("nonlinear", nonlinear_path)):
+                      ("nonlinear", nonlinear_path),
+                      ("compact", lambda d: compact_path(d, done["f64"])),
+                      ("oblique", oblique_path),
+                      ("kw", kw_path),
+                      ("endurance", endurance_path)):
         t0 = time.perf_counter()
         done[phase] = fn(dev)
         print(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
@@ -1112,8 +1386,9 @@ def k1_instances(ptxas_log: str) -> list:
 
 def kernel_records(done, instances) -> list:
     """The kernels line: every kernel with its main-path launches (K1 on
-    the flagship f32, science, electrons32, sed and nonlinear paths, K2
-    on the f64 flagship, resume, shipped and electron paths), its error
+    the flagship f32, science, electrons32, sed, nonlinear, kw and
+    endurance paths, K2 on the f64 flagship, resume, shipped, electron
+    and compact paths), its error
     against its plain
     version, its time, its plain version's, its bound and the library
     call's.  K2's and K4's ``ms`` and ``library_ms`` are device times
@@ -1126,10 +1401,13 @@ def kernel_records(done, instances) -> list:
     k1_launches = (done["f32"]["k1"] + done["science"]["counts"]["k1"]
                    + done["electrons32"]["counts"]["k1"]
                    + done["sed"]["counts"]["k1"]
-                   + done["nonlinear"]["counts"]["k1"])
+                   + done["nonlinear"]["counts"]["k1"]
+                   + done["kw"]["counts"]["k1"]
+                   + done["endurance"]["counts"]["k1"])
     k2_launches = (done["f64"]["k2"] + done["shipped"]["counts"]["k2"]
                    + done["electrons"]["counts"]["k2"]
-                   + done["resume"]["counts"]["k2"])
+                   + done["resume"]["counts"]["k2"]
+                   + done["compact"]["counts"]["k2"])
     rec = lambda r: dict(max_abs_err=r["max_abs_err"], ms=r["ms"],
                          plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                          bound_by=r["bound_by"],
@@ -1143,6 +1421,7 @@ def kernel_records(done, instances) -> list:
          "launches": k1_launches, **rec(k1),
          "waited_ms": k1["waited_ms"],
          "full_drain": k1["full_drain"],
+         "kw_longest_drain_ms": done["kw"]["longest_drain_ms"],
          "science_drain": k1["science_drain"],
          "drain_pushes_per_s": k1["full_drain"]["pushes_per_s"],
          "instances": instances,

@@ -3,7 +3,8 @@
 Reads a TOML config, runs the nonlinear loop on one device and writes
 the output-file surface of the JAX package's CLI.  Momenta are float64
 unless ``--f32`` is given, as in the JAX CLI; ``--checkpoint``,
-``--resume`` and ``--mid-every`` are the JAX CLI's.
+``--resume``, ``--mid-every``, ``--no-fused`` and ``--compact-levels``
+are the JAX CLI's.
 """
 
 import argparse
@@ -44,6 +45,12 @@ def main(argv=None) -> int:
                          "segment-boundary checkpoint (<path>.mid) "
                          "every N pcut segments so a kill mid-species "
                          "resumes inside the transport ladder")
+    ap.add_argument("--no-fused", action="store_true",
+                    help="use host-side pcut splitting instead of the "
+                         "fused on-device ladder")
+    ap.add_argument("--compact-levels", type=int, default=-1,
+                    help="live-lane compaction ladder depth "
+                         "(-1 auto, 0 off)")
     ap.add_argument("-v", "--verbose", action="store_true")
     args = ap.parse_args(argv)
 
@@ -66,7 +73,8 @@ def main(argv=None) -> int:
     result = run(args.config, device=args.device, out_dir=args.out_dir,
                  p_dtype=torch.float32 if args.f32 else torch.float64,
                  checkpoint=args.checkpoint, resume=args.resume,
-                 mid_every=args.mid_every)
+                 mid_every=args.mid_every, fused=not args.no_fused,
+                 compact_levels=args.compact_levels)
     dt = time.time() - t0
     print(f"finished: {len(result.iterations)} iterations, "
           f"{result.n_trajectories} trajectories, "

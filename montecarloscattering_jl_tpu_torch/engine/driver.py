@@ -83,6 +83,9 @@ class RunResult:
     n_trajectories: int = 0
     timers: object = None
     subtimers: dict | None = None     # MCS_SUBTIMERS=1 transport split
+    # the XLA engine's captured drain blocks (ops/step.py GraphCache):
+    # captures and their seconds
+    graphs: object = None
 
     @property
     def last(self) -> IterationResult:
@@ -193,7 +196,8 @@ def _result(p):
 def run(cfg: RunConfig | str, device="cuda", out_dir: str | None = None,
         p_dtype: torch.dtype = torch.float64, emission_hook=None,
         checkpoint: str | None = None, resume: str | None = None,
-        mid_every: int = 0) -> RunResult:
+        mid_every: int = 0, fused: bool = True,
+        compact_levels: int = -1) -> RunResult:
     """Full nonlinear run (main_loops.jl:52-391) on `device` (the CUDA
     card unless the caller asks for "cpu").  `p_dtype` is the momentum
     precision, float64 by default as in the JAX package
@@ -201,6 +205,9 @@ def run(cfg: RunConfig | str, device="cuda", out_dir: str | None = None,
     (engine/run.py).  Positions, PRP and times stay float64.
     `emission_hook(setup, prof, ion_finals, i_iter)` is called after
     each iteration's emission pass when photon production is enabled.
+    `fused` False splits between pcut segments on the host, and
+    `compact_levels` is the XLA engine's compaction depth (-1 auto, 0
+    off): TransportEngine's.
 
     `checkpoint` writes the fixed-point state there after every
     iteration (an NPZ; ``.npz`` is appended to a name that lacks it);
@@ -222,7 +229,8 @@ def run(cfg: RunConfig | str, device="cuda", out_dir: str | None = None,
         cfg = load_config(cfg)
     with timers.phase("setup"):
         setup = build_setup(cfg)
-    engine = TransportEngine(setup, device=device, p_dtype=p_dtype)
+    engine = TransportEngine(setup, device=device, p_dtype=p_dtype,
+                             fused=fused, compact_levels=compact_levels)
     prof = setup.profile
     nb = setup.nb
     if cfg.do_old_prof:
@@ -397,6 +405,7 @@ def run(cfg: RunConfig | str, device="cuda", out_dir: str | None = None,
         timers.totals["mid_checkpoint"] += mid_ckpt.seconds
         timers.counts["mid_checkpoint"] += mid_ckpt.n_saved
     result.subtimers = dict(engine.subtimers) or None
+    result.graphs = engine.graphs
 
     if out_dir is not None:
         from .io import write_outputs

@@ -3,7 +3,11 @@
 Counterpart of the JAX package's engine/run.py on one device:
 ``TransportEngine.run_ion`` transports one species through the pcut
 ladder as a host loop of [drain -> finish -> split] per pcut, breaking
-when a segment saves nothing (pcut_finalize, cuts.jl:115-119).  Two
+when a segment saves nothing (pcut_finalize, cuts.jl:115-119).  The
+split runs on the device (ops/split.py), or with ``fused=False`` on the
+host (ops/cuts.py pcut_split, the JAX package's host-split loop,
+run.py:640-700), which rebuilds the next segment's state from the
+saved lanes with the same keys.  Two
 engines drain a segment, chosen as the JAX package chooses them
 (megakernel_supported's static gate, pallas_step.py:1237-1239):
 
@@ -13,7 +17,12 @@ engines drain a segment, chosen as the JAX package chooses them
 * otherwise the XLA engine (ops/step.py run_segment; run_ion_xla_hybrid,
   fused_ion.py:162-218, and on the CPU the scan ladder run_ion_fused,
   run.py:520-536, with the same segment semantics): float64 momenta by
-  default, and x_spec detectors.
+  default, x_spec detectors and oblique fields.  Its drain runs the
+  live-lane compaction ladder (``compact_levels``, -1 auto as in the
+  JAX package, run.py:104-142), and its state, tallies and segment
+  tables live in buffers that stay for the engine's life, so that the
+  drain's CUDA graphs, captured once per window size, replay across
+  segments, species and iterations (``graphs``).
 
 Keys are derived as the JAX package derives them, so both packages hand
 every lane the same random stream on either engine.
@@ -48,6 +57,7 @@ from ..models.injection import init_pop
 from ..ops import mega, rng
 from ..ops import step as xla_step
 from ..ops import state as stt
+from ..ops.cuts import pcut_split
 from ..ops.finish import EscapeTallies, finish_particles
 from ..ops.split import split_on_device
 from .setup import RunSetup
@@ -55,8 +65,22 @@ from .setup import RunSetup
 log = logging.getLogger("mcs.torch.engine")
 
 
+# the auto compaction depth halves the window while the lanes number
+# more than this (and are a multiple of 256), as the JAX package does
+COMPACT_FLOOR = 4096
+
+
 def _round_up(n: int, m: int = 128) -> int:
     return ((n + m - 1) // m) * m
+
+
+def auto_compact_levels(batch_size: int) -> int:
+    """The compaction depth of ``compact_levels=-1`` (run.py:131-142)."""
+    b, levels = batch_size, 0
+    while b > COMPACT_FLOOR and b % 256 == 0:
+        b //= 2
+        levels += 1
+    return levels
 
 
 @dataclass
@@ -105,12 +129,19 @@ class IterationTallies:
 class TransportEngine:
     """Builds the device-side segment inputs of a run and transports
     species through the pcut ladder on `device`, with momenta in
-    `p_dtype` (float64, as the JAX package's default)."""
+    `p_dtype` (float64, as the JAX package's default).  `fused` False
+    splits between segments on the host; `compact_levels` is the XLA
+    engine's compaction depth (ops/step.run_segment): halve the window
+    up to this many times as lanes end, -1 auto (down to a
+    COMPACT_FLOOR-lane floor), 0 off.  K1 ignores it: its lane cursor
+    keeps its warps full (the megakernel path, run.py:150-152)."""
 
     setup: RunSetup
     device: torch.device
     p_dtype: torch.dtype = torch.float64
     batch_size: int = 0
+    fused: bool = True
+    compact_levels: int = -1
     n_pushes_total: int = 0
     n_trajectories_total: int = 0
 
@@ -124,6 +155,11 @@ class TransportEngine:
         self.base_key = rng.key(cfg.random_seed)
         self.n_tcut_slots = max(len(cfg.tcuts), 1)
         self.subtimers = defaultdict(float)    # MCS_SUBTIMERS=1
+        if self.compact_levels < 0:
+            self.compact_levels = auto_compact_levels(self.batch_size)
+        # the XLA engine's fixed buffers (made at first use) and graphs
+        self._xla_bufs, self._xla_tables = {}, {}
+        self.graphs = xla_step.GraphCache()
 
     # -- per-segment input builders -----------------------------------------
 
@@ -206,6 +242,24 @@ class TransportEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _fixed(self, obj):
+        """`obj` (the lane state or the tallies) copied into the XLA
+        engine's fixed buffers of its kind."""
+        buf = self._xla_bufs.get(type(obj))
+        if buf is None:
+            buf = self._xla_bufs[type(obj)] = stt.clone(obj)
+            return buf
+        return stt.copy_into(buf, obj)
+
+    def _fixed_tables(self, tb: xla_step.StepTables) -> xla_step.StepTables:
+        """The fixed tables of `tb`'s static configuration, loaded with
+        its values."""
+        fixed = self._xla_tables.get(tb.static())
+        if fixed is None:
+            fixed = self._xla_tables[tb.static()] = tb.clone()
+            return fixed
+        return fixed.load(tb)
+
     def run_ion(self, i_iter: int, i_ion: int, prof, it: IterationTallies,
                 ckpt=None, resume_mid=None) -> IonResult:
         """All pcuts for one species (main_loops.jl:95-341 inner part).
@@ -226,13 +280,11 @@ class TransportEngine:
         nb, b, dev = setup.nb, self.batch_size, self.device
         ss = self.step_static(i_ion)
         k1 = self.uses_k1(ss)
-        mode = "k1" if k1 else "xla"
+        mode = ("k1" if k1 else "xla") + ("" if self.fused else "-host")
         if resume_mid is not None:
             _check_resume(resume_mid, i_iter, i_ion, mode, self.p_dtype, b)
         if k1:
             mega.check_supported(ss)
-        else:
-            xla_step.check_supported(ss)
         if ckpt is not None:
             ckpt.reset(resume_mid["next_seg"] if resume_mid else 0)
         # MCS_SUBTIMERS=1: the transport phase split into population
@@ -285,6 +337,8 @@ class TransportEngine:
             reasons = r["reasons"]
             start = int(r["next_seg"])
             pushes, trajectories = int(r["pushes"]), int(r["trajectories"])
+        if not k1:
+            state, tal = self._fixed(state), self._fixed(tal)
         if subt:
             self._sync()
             self.subtimers["pop_setup"] += time.perf_counter() - t0
@@ -302,7 +356,9 @@ class TransportEngine:
                 state.igrid = ig.clamp(0, nb - 2).to(torch.int32)
             else:
                 xla_step.run_segment(
-                    state, tal, xla_step.step_tables(grids, sc, ss, dev))
+                    state, tal, self._fixed_tables(
+                        xla_step.step_tables(grids, sc, ss, dev)),
+                    compact_levels=self.compact_levels, graphs=self.graphs)
             finish_particles(state, esc, grids, sc, ss)
             # exits of this segment by reason (the split leaves only
             # ACTIVE lanes and reason-0 padding)
@@ -312,13 +368,18 @@ class TransportEngine:
             pushes += int(state.nsteps.sum(dtype=torch.int64))
             n_target = (cfg.n_pts_pcut if cfg.pcuts[i_pcut] < p_pcut_hi
                         else cfg.n_pts_pcut_hi)
-            state, n_new = split_on_device(
-                state, n_target, rng.fold_in(ion_key, i_pcut + 1))
+            seg_key = rng.fold_in(ion_key, i_pcut + 1)
+            if self.fused:
+                state, n_new = split_on_device(state, n_target, seg_key)
+            else:
+                state, n_new = self._host_split(state, n_target, seg_key)
             trajectories += n_new
             if n_new == 0:
                 log.info("iter %d ion %d: pcut chain ended at %d",
                          i_iter, i_ion, i_pcut)
                 break
+            if not k1:
+                state = self._fixed(state)
             if ckpt is not None:
                 ckpt.maybe(i_pcut + 1, lambda: dict(
                     mode=mode, p_dtype=str(self.p_dtype), batch_size=b,
@@ -359,6 +420,24 @@ class TransportEngine:
         if subt:
             self.subtimers["tally_fetch"] += time.perf_counter() - t0
         return out
+
+    def _host_split(self, state, n_target: int, seg_key):
+        """The host-split ladder's step (run.py:674-693): the next
+        segment's state from pcut_split's population, its momenta
+        rebuilt from (|p|, pb), the saved PRP kept; (state, n_new)."""
+        split = pcut_split(state, n_target, self.batch_size)
+        if split is None:
+            return state, 0
+        cfg = self.setup.cfg
+        new = stt.init_state(
+            split.weight, np.hypot(split.pb, split.pperp), split.pb,
+            split.x, split.igrid, split.ux_prev, cfg.xn_per_fine,
+            self.setup.x_grid_stop, seg_key, self.device, phi=split.phi,
+            downstream=split.downstream, inj=split.inj,
+            acctime=split.acctime, tcut=split.tcut, xn_per=split.xn_per,
+            p_dtype=self.p_dtype)
+        new.prp_x = torch.from_numpy(split.prp_x).to(self.device, stt.X_DTYPE)
+        return new, split.n
 
     def new_iteration_tallies(self, prof=None) -> IterationTallies:
         """Zeroed per-iteration accumulators (main_loops.jl:56-87), with

@@ -28,16 +28,19 @@ class ScatterResult(NamedTuple):
     gyro_period: torch.Tensor   # [s]
     pb: torch.Tensor
     pperp: torch.Tensor
+    phi: torch.Tensor
 
 
 def scattering(u1, u2, pb, pperp, ptot, gamma_pf, gyro_denom,
                is_electron: bool, pe_crit, gamma_e_crit, mc,
-               cos_max) -> ScatterResult:
+               cos_max, phi=None, phase_adjust: bool = False
+               ) -> ScatterResult:
     """One scattering event per lane.  `gyro_denom` is 1/(|z| q B);
     `mc`, `pe_crit`, `gamma_e_crit` are scalars or 0-dim tensors of the
-    momentum dtype; `cos_max` broadcasts against the lanes.  The gyro
-    phase is left as it is: its Ellison+ (1990) adjustment is observable
-    only in oblique fields, which are not ported (ROADMAP.md item 4)."""
+    momentum dtype; `cos_max` broadcasts against the lanes.  With
+    `phase_adjust` the gyro phase `phi` takes the Ellison+ (1990)
+    adjustment (get_sine_adjustment, scattering.jl:93-101), observable
+    only in an oblique field; otherwise `phi` comes back as given."""
     period = gyro_period(ptot, gamma_pf, gyro_denom, is_electron, pe_crit,
                          gamma_e_crit, mc)
 
@@ -58,7 +61,15 @@ def scattering(u1, u2, pb, pperp, ptot, gamma_pf, gyro_denom,
                           + sin_old * sin_dt * torch.cos(phi_scat),
                           -1.0, 1.0)
     sin_new = torch.sqrt(torch.clamp(1.0 - cos_new * cos_new, min=0.0))
-    return ScatterResult(period, ptot * cos_new, ptot * sin_new)
+    if phase_adjust:
+        # the float32 sine of the float32 phase, as the reference forms it
+        sin_dphi = torch.where(
+            sin_new > 0.0,
+            torch.sin(phi_scat) * sin_dt / torch.clamp(sin_new, min=1.0e-300),
+            0.0)
+        limit = 1.0 - 1.0e-15
+        phi = phi + torch.asin(torch.clamp(sin_dphi, -limit, limit))
+    return ScatterResult(period, ptot * cos_new, ptot * sin_new, phi)
 
 
 def gyro_period(ptot, gamma_pf, gyro_denom, is_electron: bool, pe_crit,

@@ -21,6 +21,7 @@ scalars across from the JAX package (given as NumPy arrays, the key as
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, fields
 
 import numpy as np
@@ -124,6 +125,22 @@ class ParticleState:
                                self.key1.cpu().numpy().view(np.uint32)],
                               axis=1)
         return out
+
+
+def clone(obj):
+    """A copy of a ParticleState or Tallies with every tensor cloned."""
+    return dataclasses.replace(obj, **{
+        k: v.clone() for k, v in _tensor_fields(obj).items()
+        if isinstance(v, torch.Tensor)})
+
+
+def copy_into(dst, src):
+    """Copy every tensor of `src` (a ParticleState or Tallies) into the
+    same field of `dst`, in place; returns `dst`."""
+    for k, v in _tensor_fields(dst).items():
+        if isinstance(v, torch.Tensor):
+            v.copy_(getattr(src, k))
+    return dst
 
 
 def init_state(weight, ptot_pf, pb_pf, x_cm, igrid, ux_of_igrid,

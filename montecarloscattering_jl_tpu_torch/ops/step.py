@@ -4,14 +4,19 @@ Counterpart of the JAX package's ops/step.py: ``helix_step`` (step.py:
 198-684, with ``_downstream_logic``, :902-1003, and ``_retro_step``,
 :1006-1091) advances every lane of a ParticleState by one helix step as
 masked lane-parallel updates, and ``run_segment`` (:724-785) repeats it
-until no lane is ACTIVE.  This is the engine of every config K1 does not
-run (engine/run.py): float64 momenta -- the CLI's default -- and x_spec
-detectors.  The JAX package computes this step outside any Pallas
-kernel, so plain torch is its counterpart; the one kernel on the path is
+until no lane is ACTIVE, on a window of the lanes that halves as they
+end (the live-lane compaction ladder, :724-850).  This is the engine of
+every config K1 does not run (engine/run.py): float64 momenta -- the
+CLI's default -- x_spec detectors and oblique fields.  The JAX package
+computes this step outside any Pallas kernel, so plain torch is its counterpart; the one kernel on the path is
 the PSD deposit, K2 (ops/hist.py), launched once a step.
 
 Branches: the parallel-field step (theta_B = 0, the only geometry the
-config admits) with every static flag of the reference: the x_spec
+config admits) and the oblique one (``StepStatic.parallel`` False: the
+general frame transforms, the gyro-phase adjustment of the scattering
+and the gyro excursion of the movement, step.py:256-265, 284-290, 351,
+420-425, 452-460, 484-496 and 1023-1041), with every static flag of the
+reference: the x_spec
 detector spectra (:612-637), the custom eps_B far-field decay (:228-235,
 :937-940), the no-scatter escape (:277-281), radiative losses
 (:309-322), the custom f(r_g) mean-free-path law's per-lane cos_max
@@ -29,8 +34,11 @@ What differs from the JAX engine, on purpose:
 * The zone gather is an index gather and the zone lookup a
   ``searchsorted``; the JAX step's one-hot contraction and
   compare-and-sum give the same values exactly.
-* No compaction ladder: it changes only the summation order of the
-  tallies (step.py:745-758).
+* The compaction ladder halves the window only at the drain's host
+  check every SYNC_EVERY steps, not at every step; a lane that is not
+  ACTIVE does not step, so the lanes come out the same either way.
+* On a CUDA device each window's 64-step block replays a CUDA graph,
+  captured once per window size and set of tensors (``GraphCache``).
 
 Arithmetic follows the reference in the momentum dtype of the state:
 float32 uniforms and the float32 scattering and return phases, float64
@@ -41,8 +49,10 @@ divided by a tensor are 0-dim tensors on the device (torch turns
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from dataclasses import dataclass
+import time
+from dataclasses import dataclass, fields
 
 import torch
 
@@ -56,8 +66,8 @@ from .state import (ACTIVE, C_RAD, C_RECV, C_RETRO, FINISHED, FL_DW, FL_INJ,
                     FL_JRET, FL_RETRO, R_AGE, R_DOWNSTREAM, R_RADIATED,
                     R_UPSTREAM_PMAX, SAVED, X_DTYPE, ParticleState,
                     SegmentGrids, SegmentScalars, StepStatic, Tallies)
-from .transforms import (hyp, transform_p_ps_parallel,
-                         transform_p_psp_parallel)
+from .transforms import (hyp, transform_p_ps, transform_p_ps_parallel,
+                         transform_p_psp, transform_p_psp_parallel)
 
 SYNC_EVERY = 64    # steps between the drain's host checks for ACTIVE lanes
 
@@ -75,15 +85,6 @@ _DEPOSIT_TARGETS = ("flux_diff", "spectra_sf", "spectra_pf", "pool_diff",
                     "weight_coupled", "spectra_coupled", "counts")
 
 
-def check_supported(ss: StepStatic) -> None:
-    """Raise NotImplementedError for a config this engine does not run
-    yet: an oblique field."""
-    if not ss.parallel:
-        raise NotImplementedError(
-            "oblique fields: the general frame transforms are not ported "
-            "(ROADMAP.md item 4)")
-
-
 @dataclass
 class StepTables:
     """Device inputs of one segment for ``helix_step``."""
@@ -93,6 +94,10 @@ class StepTables:
     gamma_sf: torch.Tensor
     gamma_ef: torch.Tensor
     btot: torch.Tensor
+    uz: torch.Tensor          # the oblique step's: flow z, |u|, field angle
+    utot: torch.Tensor
+    b_cos: torch.Tensor
+    b_sin: torch.Tensor
     x_spec: torch.Tensor      # [n_xspec] f64 detector positions
     tcuts: torch.Tensor       # [n_tcut_slots] f64, padded with +inf
     eps_target: torch.Tensor  # [nb] momentum dtype
@@ -102,6 +107,34 @@ class StepTables:
     reflect: bool             # inj_frac < 1 or no-DSA: the shock reflects
     age_cut: bool             # age_max > 0
     feb_dw_on: bool           # feb_dw > 0
+
+    def static(self) -> tuple:
+        """What a captured step bakes in besides the tensors' addresses."""
+        return (self.ss, self.reflect, self.age_cut, self.feb_dw_on)
+
+    def tensors(self) -> list:
+        return ([getattr(self, f) for f in self._TENSORS]
+                + [self.k[n] for n in sorted(self.k)])
+
+    _TENSORS = ("x_grid", "ux", "gamma_sf", "gamma_ef", "btot", "uz",
+                "utot", "b_cos", "b_sin", "x_spec", "tcuts", "eps_target",
+                "recv_prefix")
+
+    def clone(self) -> "StepTables":
+        """These tables in tensors of their own (a table built on the
+        CPU may share memory with the host arrays it came from)."""
+        return dataclasses.replace(
+            self, k={n: v.clone() for n, v in self.k.items()},
+            **{f: getattr(self, f).clone() for f in self._TENSORS})
+
+    def load(self, other: "StepTables") -> "StepTables":
+        """Copy `other`'s values into these tensors, in place (a captured
+        step reads them at their addresses); returns self."""
+        if other.static() != self.static():
+            raise ValueError("tables of another static configuration")
+        for a, b in zip(self.tensors(), other.tensors()):
+            a.copy_(b)
+        return self
 
 
 def step_tables(grids: SegmentGrids, sc: SegmentScalars, ss: StepStatic,
@@ -118,6 +151,7 @@ def step_tables(grids: SegmentGrids, sc: SegmentScalars, ss: StepStatic,
     f = lambda a: a[:nb].to(dev, pdt).contiguous()
     ux, gsf, gef, btot = (f(grids.ux), f(grids.gamma_sf),
                           f(grids.gamma_ef), f(grids.btot))
+    bcos, bsin = f(grids.b_cos), f(grids.b_sin)
     k = dict(
         m=m, mc=mc, e0=mc * C_CGS, two_m=2.0 * m, abs_charge=p(sc.abs_charge),
         qb2=p(sc.abs_charge) * p(sc.bmag2), pcut=p(sc.pcut),
@@ -138,10 +172,11 @@ def step_tables(grids: SegmentGrids, sc: SegmentScalars, ss: StepStatic,
         age_max=d(sc.age_max),
         # the downstream-most zone, where the retro walk runs
         ux_dw=ux[nb - 2], gsf_dw=gsf[nb - 2], gef_dw=gef[nb - 2],
-        b_dw=btot[nb - 2])
+        b_dw=btot[nb - 2], bcos_dw=bcos[nb - 2], bsin_dw=bsin[nb - 2])
     return StepTables(
         x_grid=grids.x_grid[:nb].to(dev, X_DTYPE).contiguous(),
-        ux=ux, gamma_sf=gsf, gamma_ef=gef, btot=btot,
+        ux=ux, gamma_sf=gsf, gamma_ef=gef, btot=btot, uz=f(grids.uz),
+        utot=f(grids.utot), b_cos=bcos, b_sin=bsin,
         x_spec=grids.x_spec[:ss.n_xspec].to(dev, X_DTYPE).contiguous(),
         tcuts=grids.tcuts.to(dev, X_DTYPE).contiguous(),
         eps_target=f(grids.eps_target),
@@ -197,6 +232,9 @@ def helix_step(st: ParticleState, tl: Tallies, tb: StepTables,
     ig = st.igrid.long()
     ux, gsf = tb.ux[ig], tb.gamma_sf[ig]
     gef, bmag = tb.gamma_ef[ig], tb.btot[ig]
+    if not ss.parallel:
+        uz, utot = tb.uz[ig], tb.utot[ig]
+        bcos, bsin = tb.b_cos[ig], tb.b_sin[ig]
     if ss.use_custom_eps_b:
         # Blandford-McKee decay beyond the grid end
         bmag = torch.where(x_old > k["x_stop"],
@@ -213,9 +251,19 @@ def helix_step(st: ParticleState, tl: Tallies, tb: StepTables,
     beta_old = st.ux_prev / k["c"]
     gsf_old = torch.div(one, torch.sqrt(torch.maximum(
         1.0 - beta_old * beta_old, k["tiny30"])))
-    pb_tr, _ = transform_p_psp_parallel(pb, pperp, gamma_pf, st.ux_prev,
-                                        gsf_old, ux, gsf, m, c)
-    pb = torch.where(changed, pb_tr, pb)
+    if ss.parallel:
+        pb_tr, _ = transform_p_psp_parallel(pb, pperp, gamma_pf, st.ux_prev,
+                                            gsf_old, ux, gsf, m, c)
+        pb = torch.where(changed, pb_tr, pb)
+    else:
+        # the previous zone's frame: flow ux_prev along x, field along x
+        tr = transform_p_psp(
+            pb, pperp, gamma_pf, phi, st.ux_prev, torch.zeros_like(uz),
+            st.ux_prev.abs(), gsf_old, torch.ones_like(bcos),
+            torch.zeros_like(bsin), ux, uz, utot, gsf, bcos, bsin, m, c)
+        pb = torch.where(changed, tr.pb_pf, pb)
+        pperp = torch.where(changed, tr.pperp_pf, pperp)
+        phi = torch.where(changed, tr.phi, phi)
     ptot = hyp(pb, pperp)
     gamma_pf = hyp(ptot / mc, one)
     ux_prev = torch.where(do_b3, ux, st.ux_prev)
@@ -227,8 +275,12 @@ def helix_step(st: ParticleState, tl: Tallies, tb: StepTables,
         reason = torch.where(esc_ns, R_DOWNSTREAM, reason)
         do_b3 = do_b3 & ~esc_ns
 
-    ptot_sk0, _, _ = transform_p_ps_parallel(pb, pperp, gamma_pf, ux, gsf,
-                                             m, c)
+    if ss.parallel:
+        ptot_sk0, _, _ = transform_p_ps_parallel(pb, pperp, gamma_pf, ux,
+                                                 gsf, m, c)
+    else:
+        ptot_sk0 = transform_p_ps(pb, pperp, gamma_pf, phi, ux, uz, utot,
+                                  gsf, bcos, bsin, m, c).ptot_sk
     esc_pmax = do_b3 & (ptot > k["pmax"]) & (ptot_sk0 > k["pmax"])
     esc_feb = do_b3 & ~esc_pmax & inj_old & (x_old < k["feb_up"])
     esc_up = esc_pmax | esc_feb
@@ -276,9 +328,11 @@ def helix_step(st: ParticleState, tl: Tallies, tb: StepTables,
                                   * torch.maximum(f_frg, k["tiny30"]))))
         res = scattering(u[_U_SCAT1], u[_U_SCAT2], pb, pperp, ptot,
                          gamma_pf, gyro_denom, ss.is_electron,
-                         k["pe_crit"], k["gamma_e_crit"], mc, cos_max)
+                         k["pe_crit"], k["gamma_e_crit"], mc, cos_max,
+                         phi=phi, phase_adjust=not ss.parallel)
         pb = torch.where(do_b3, res.pb, pb)
         pperp = torch.where(do_b3, res.pperp, pperp)
+        phi = torch.where(do_b3, res.phi, phi)
         period = res.gyro_period
 
     # acceleration time, tcuts and pcut save-out, downstream lanes only
@@ -311,9 +365,20 @@ def helix_step(st: ParticleState, tl: Tallies, tb: StepTables,
     m_gpf = gamma_pf * m
     dphi = torch.div(k["two_pi"], xn_per)
 
+    if not ss.parallel:
+        # the gyro excursion across the oblique field
+        phi_old = phi
+        r_g_perp = pperp * c * gyro_denom
+
     def move(pb_m, phi_m):
         phi_try = floor_mod(phi_m + dphi, k["two_pi"])
-        dx = gsf * (pb_m * t_step / m_gpf + ux * t_step)
+        if ss.parallel:
+            dx = gsf * (pb_m * t_step / m_gpf + ux * t_step)
+        else:
+            dx = gsf * (pb_m * t_step / m_gpf * bcos
+                        - r_g_perp * bsin
+                        * (torch.cos(phi_try) - torch.cos(phi_old))
+                        + ux * t_step)
         return phi_try, x_old + dx.to(f64)
 
     pb_m, phi_m = pb, phi
@@ -357,9 +422,13 @@ def helix_step(st: ParticleState, tl: Tallies, tb: StepTables,
     ig_new = _zone(tb.x_grid, x_new).clamp(0, nb - 2)
     ig_new = torch.where(moving, ig_new, ig)
 
-    pt_sk, px_sk, g_sk = transform_p_ps_parallel(pb, pperp, gamma_pf, ux,
-                                                 gsf, m, c)
-    pz_sk = -pperp * torch.sin(phi)
+    if ss.parallel:
+        pt_sk, px_sk, g_sk = transform_p_ps_parallel(pb, pperp, gamma_pf,
+                                                     ux, gsf, m, c)
+        pz_sk = -pperp * torch.sin(phi)
+    else:
+        pt_sk, px_sk, _, pz_sk, g_sk = transform_p_ps(
+            pb, pperp, gamma_pf, phi, ux, uz, utot, gsf, bcos, bsin, m, c)
     spike = pt_sk > px_sk.abs() * ALL_FLUX_SPIKE_AWAY
     px_safe = torch.where(px_sk == 0.0, tiny, px_sk)
     abs_inv_vx = torch.where(spike, torch.div(k["spike"], ux).abs(),
@@ -598,7 +667,14 @@ def _retro_step(in_retro, st, tb, u, dep, status, reason, x_new, prp_x,
     gamma_pf = hyp(ptot / (m * c), k["one"])
     t_fac = k["two_pi"] * m * c * gden / k["ten"]
     t_step = t_fac * gamma_pf
-    dx = k["gsf_dw"] * (pb * t_fac / m + (-k["ux_dw"]) * t_step)
+    if ss.parallel:
+        dx = k["gsf_dw"] * (pb * t_fac / m + (-k["ux_dw"]) * t_step)
+    else:
+        phi_new = floor_mod(phi + k["two_pi"] / k["ten"], k["two_pi"])
+        dx = k["gsf_dw"] * (pb * t_fac / m * k["bcos_dw"]
+                            - pperp * c * gden * k["bsin_dw"]
+                            * (torch.cos(phi_new) - torch.cos(phi))
+                            + (-k["ux_dw"]) * t_step)
     x_try = x + dx.to(X_DTYPE)
     acct_new = acct + (t_step * k["gef_dw"]).to(X_DTYPE)
 
@@ -679,6 +755,24 @@ def _block(st: ParticleState, tl: Tallies, tb: StepTables, n: int,
         helix_step(st, tl, tb, u_blk[:, s], max_helix)
 
 
+def window_sizes(b: int, compact_levels: int) -> list:
+    """The compaction ladder's windows (step.py:771-778): the batch,
+    then halves while the half is at least 512 lanes and a multiple of
+    128, at most `compact_levels` times."""
+    sizes = [b]
+    for _ in range(max(compact_levels, 0)):
+        nxt = sizes[-1] // 2
+        if nxt < 512 or nxt % 128 != 0:
+            break
+        sizes.append(nxt)
+    return sizes
+
+
+def _tensors(obj) -> list:
+    return [getattr(obj, f.name) for f in fields(obj)
+            if isinstance(getattr(obj, f.name), torch.Tensor)]
+
+
 class _BlockGraph:
     """One S-step block captured as a CUDA graph and replayed: the
     plain-torch step is some 300 small kernels, and launching them one
@@ -688,10 +782,10 @@ class _BlockGraph:
     launches counted while capturing are taken back, and every replay
     adds the number of K2 launches it makes."""
 
-    def __init__(self, st, tl, tb, n, max_helix):
+    def __init__(self, st, tl, tb, n, max_helix, pool=None):
         self.graph = torch.cuda.CUDAGraph()
         before = hist.LAUNCHES
-        with torch.cuda.graph(self.graph):
+        with torch.cuda.graph(self.graph, pool=pool):
             _block(st, tl, tb, n, max_helix)
         self.k2_launches = hist.LAUNCHES - before
         hist.LAUNCHES = before
@@ -701,31 +795,141 @@ class _BlockGraph:
         hist.LAUNCHES += self.k2_launches
 
 
+class GraphCache:
+    """The drain's captured blocks, kept across segments: one graph per
+    window size, step configuration and set of tensors (their addresses,
+    shapes and dtypes are part of the key, so a graph replays only on
+    the tensors it was captured on).  The graphs share one memory pool;
+    they never run at once and keep no output of their own.  Counts the
+    captures and their seconds; with `timing` set (on a cache, or on
+    the class for every cache), CUDA events around every replay give the
+    device time a step at each window size (``step_ms``, read after the
+    work has finished)."""
+
+    timing = False
+
+    def __init__(self):
+        self.graphs = {}
+        self.pool = None
+        self.captures = 0
+        self.capture_s = 0.0
+        self._events = []     # (window size, steps, start, end)
+
+    def key(self, st, tl, tb, n, max_helix) -> tuple:
+        return (n, max_helix, tb.static(), tuple(
+            (t.data_ptr(), tuple(t.shape), tuple(t.stride()), t.dtype)
+            for t in _tensors(st) + _tensors(tl) + tb.tensors()))
+
+    def capture(self, key, st, tl, tb, n, max_helix) -> _BlockGraph:
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        t0 = time.perf_counter()
+        g = self.graphs[key] = _BlockGraph(st, tl, tb, n, max_helix,
+                                           self.pool)
+        self.capture_s += time.perf_counter() - t0
+        self.captures += 1
+        return g
+
+    def replay(self, g: _BlockGraph, size: int, n: int) -> None:
+        if not self.timing:
+            g.replay()
+            return
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        g.replay()
+        ev[1].record()
+        self._events.append((size, n, ev[0], ev[1]))
+
+    def step_ms(self) -> dict:
+        """Window size -> (replayed steps, mean device ms a step)."""
+        acc = {}
+        for size, n, a, b in self._events:
+            steps, ms = acc.get(size, (0, 0.0))
+            acc[size] = (steps + n, ms + a.elapsed_time(b))
+        return {size: (steps, ms / steps) for size, (steps, ms)
+                in sorted(acc.items(), reverse=True)}
+
+
+def _window(st: ParticleState, size: int) -> ParticleState:
+    """The first `size` lanes of `st`, as views of its storage."""
+    return ParticleState(**{f.name: getattr(st, f.name)[:size]
+                            for f in fields(st)})
+
+
+def _permute(st: ParticleState, order: torch.Tensor) -> None:
+    """Reorder the lanes of `st` by `order`, in place."""
+    for f in fields(st):
+        a = getattr(st, f.name)
+        a.copy_(a.index_select(0, order))
+
+
 def run_segment(st: ParticleState, tl: Tallies, tb: StepTables,
                 sync_every: int = SYNC_EVERY,
-                max_helix: int | None = None) -> int:
+                max_helix: int | None = None, compact_levels: int = 0,
+                graphs: GraphCache | None = None) -> int:
     """Step every lane until none is ACTIVE (one pcut segment), in place;
-    returns the number of helix steps taken.
+    returns the number of helix steps taken (one K2 launch each).
 
     The host checks for ACTIVE lanes only every `sync_every` steps.  The
     extra steps are exact no-ops: a lane that is not ACTIVE does not
     step (its count and state stay), and every tally is gated on a
-    moving lane, so the result does not depend on `sync_every`.  On a
-    CUDA device the first block runs eagerly and the rest replay it as
-    a CUDA graph (_BlockGraph)."""
+    moving lane, so the result does not depend on `sync_every`.
+
+    `compact_levels` > 0 turns on the live-lane compaction ladder
+    (step.py:724-850): the blocks run on a window of the lanes
+    (window_sizes), and at a host check that finds no more ACTIVE lanes
+    than the next window holds, a stable partition moves the ACTIVE
+    lanes to the front and the blocks go on with the smaller window.
+    A lane's uniforms are keyed by its own key and step count, so every
+    lane ends bit-identical to `compact_levels=0`, back in its own slot;
+    only the summation order of the shared tallies changes.
+
+    On a CUDA device the blocks replay CUDA graphs from `graphs` (a
+    fresh cache when None).  A window whose graph is not cached captures
+    it at once when the cache holds a graph already; the first window of
+    an empty cache runs its first block eagerly (which warms the step's
+    kernels up) and captures the next."""
     if max_helix is None:
         max_helix = MAX_HELIX_STEPS
     cuda = st.weight.device.type == "cuda"
-    graph = None
-    taken = 0
-    for i in range(max_helix // sync_every + 2):
-        if not bool((st.status == ACTIVE).any()):
+    if cuda and graphs is None:
+        graphs = GraphCache()
+    b = st.weight.shape[0]
+    sizes = window_sizes(b, compact_levels)
+    level, win = 0, st
+    orig = None
+    taken = blocks = 0
+    for _ in range(max_helix // sync_every + 2):
+        n_act = int((win.status == ACTIVE).sum())
+        if n_act == 0:
             break
-        if cuda and i == 1:
-            graph = _BlockGraph(st, tl, tb, sync_every, max_helix)
-        if graph is not None:
-            graph.replay()
+        if level + 1 < len(sizes) and n_act <= sizes[level + 1]:
+            # the ACTIVE lanes to the front of this window, stably, with
+            # each lane's original slot
+            if orig is None:
+                orig = torch.arange(b, device=st.weight.device)
+            order = torch.argsort((win.status != ACTIVE).to(torch.int8),
+                                  stable=True)
+            _permute(win, order)
+            o = orig[:sizes[level]]
+            o.copy_(o.index_select(0, order))
+            while level + 1 < len(sizes) and n_act <= sizes[level + 1]:
+                level += 1
+            win, blocks = _window(st, sizes[level]), 0
+        if cuda:
+            key = graphs.key(win, tl, tb, sync_every, max_helix)
+            g = graphs.graphs.get(key)
+            if g is None and (blocks > 0 or graphs.graphs):
+                g = graphs.capture(key, win, tl, tb, sync_every, max_helix)
+        if cuda and g is not None:
+            graphs.replay(g, sizes[level], sync_every)
         else:
-            _block(st, tl, tb, sync_every, max_helix)
+            _block(win, tl, tb, sync_every, max_helix)
         taken += sync_every
+        blocks += 1
+    if orig is not None:
+        # every lane back in its original slot
+        inv = torch.empty_like(orig)
+        inv[orig] = torch.arange(b, device=orig.device)
+        _permute(st, inv)
     return taken

@@ -2,12 +2,13 @@
 
 Counterpart of the JAX package's ops/transforms.py: ``transform_p_ps``
 (plasma -> shock frame, transformers.jl:440-476), used by the exit
-bookkeeping; its parallel-field forms ``transform_p_ps_parallel`` and
-``transform_p_psp_parallel``, used by the XLA engine's step; and
-``boost_x`` (the center-point rebinning boost, thermo_calcs.jl:144-158),
-used by the reductions.  Elementwise, no control flow; every argument
-broadcasts.  The oblique plasma -> shock -> plasma transform is not
-ported (ROADMAP.md item 2).
+bookkeeping and the oblique step; ``transform_p_psp`` (old plasma ->
+shock -> new plasma frame on a zone change, transformers.jl:523-607),
+the oblique step's frame re-transform; their parallel-field forms
+``transform_p_ps_parallel`` and ``transform_p_psp_parallel``, used by
+the XLA engine's step at theta_B = 0; and ``boost_x`` (the center-point
+rebinning boost, thermo_calcs.jl:144-158), used by the reductions.
+Elementwise, no control flow; every argument broadcasts.
 """
 
 from __future__ import annotations
@@ -48,6 +49,70 @@ def transform_p_ps(pb, pperp, gamma_pf, phi, ux, uz, utot, gamma_sf,
     ptot_sk = torch.sqrt(px_sk * px_sk + py * py + pz * pz)
     gamma_sk = torch.hypot(ptot_sk / (m * c), torch.ones_like(ptot_sk))
     return ShockFrameMomentum(ptot_sk, px_sk, py, pz, gamma_sk)
+
+
+class PlasmaMomentum(NamedTuple):
+    ptot_pf: torch.Tensor
+    pb_pf: torch.Tensor
+    pperp_pf: torch.Tensor
+    gamma_pf: torch.Tensor
+    phi: torch.Tensor
+
+
+def _to_parallel_perp(px, pz, ptot, b_cos, b_sin, floor=1.0e-6):
+    """Split a momentum into its components parallel and perpendicular
+    to B, guarding the cancellation ptot < |pb| as the reference clamps
+    it (transformers.jl:562-568)."""
+    pb = px * b_cos + pz * b_sin
+    bad = ptot < pb.abs()
+    pperp_bad = floor * ptot
+    pb_bad = torch.sign(pb) * torch.sqrt(torch.clamp(
+        ptot * ptot - pperp_bad * pperp_bad, min=0.0))
+    pb = torch.where(bad, pb_bad, pb)
+    pperp = torch.where(bad, pperp_bad,
+                        torch.sqrt(torch.clamp(ptot * ptot - pb * pb,
+                                               min=0.0)))
+    return pb, pperp
+
+
+def transform_p_psp(pb, pperp, gamma_pf, phi, ux_old, uz_old, utot_old,
+                    gamma_sf_old, b_cos_old, b_sin_old, ux, uz, utot,
+                    gamma_sf, b_cos, b_sin, m, c: float) -> PlasmaMomentum:
+    """Old plasma -> shock -> new plasma frame on a zone change
+    (transform_p_PSP, transformers.jl:523-607), boosting along the flow
+    (ux, uz) of each frame."""
+    px, py, pz = plasma_xyz(pb, pperp, phi, b_cos_old, b_sin_old)
+
+    # old plasma -> shock
+    ut2 = torch.clamp(utot_old * utot_old, min=1.0e-300)
+    gm1 = gamma_sf_old - 1.0
+    px_sk = ((gm1 * (ux_old * ux_old) / ut2 + 1.0) * px
+             + gm1 * (ux_old * uz_old / ut2) * pz
+             + gamma_sf_old * gamma_pf * m * ux_old)
+    pz_sk = (gm1 * (ux_old * uz_old / ut2) * px
+             + (gm1 * (uz_old * uz_old) / ut2 + 1.0) * pz
+             + gamma_sf_old * gamma_pf * m * uz_old)
+    py_sk = py
+    ptot_sk = torch.sqrt(px_sk * px_sk + py_sk * py_sk + pz_sk * pz_sk)
+    gamma_sk = hyp(ptot_sk / (m * c), torch.ones_like(ptot_sk))
+
+    # shock -> new plasma
+    ut2n = torch.clamp(utot * utot, min=1.0e-300)
+    gm1n = gamma_sf - 1.0
+    px_pf = ((gm1n * (ux * ux) / ut2n + 1.0) * px_sk
+             + gm1n * (ux * uz / ut2n) * pz_sk
+             - gamma_sf * gamma_sk * m * ux)
+    pz_pf = (gm1n * (ux * uz / ut2n) * px_sk
+             + (gm1n * (uz * uz) / ut2n + 1.0) * pz_sk
+             - gamma_sf * gamma_sk * m * uz)
+    py_pf = py_sk
+    ptot_pf = torch.sqrt(px_pf * px_pf + py_pf * py_pf + pz_pf * pz_pf)
+
+    pb_pf, pperp_pf = _to_parallel_perp(px_pf, pz_pf, ptot_pf, b_cos, b_sin)
+    gamma_pf_new = hyp(ptot_pf / (m * c), torch.ones_like(ptot_pf))
+    phi_p = torch.atan2(py_pf, -px_pf * b_sin + pz_pf * b_cos)
+    return PlasmaMomentum(ptot_pf, pb_pf, pperp_pf, gamma_pf_new,
+                          phi_p - math.pi / 2.0)
 
 
 def hyp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -14,6 +14,13 @@
   per-species reductions overlapped (MCS_OVERLAP_REDUCE=1) and not (=0),
   in the order on, off, off, on, after a warm-up run: wall, and the
   transport, reductions and io phases.
+* ``--compact LEVELS``: the f64 flagship of chip_smoke.py's phase f64
+  (float64 on the XLA engine, two x_spec detectors, 1 iteration, its
+  first 4 pcuts) at each compaction depth of the comma-separated list
+  (-1 auto): wall, transport, pushes/s, the graph captures and their
+  seconds, and the device ms a step at each window size (CUDA events
+  around every graph replay).  A checkout without the ladder (its
+  ``run`` takes no compact_levels) runs once, as "none".
 * ``--cold``: the science variant and then the SED flagship once each,
   the process's first runs, as a CLI run is (the reductions' pinned
   host buffers are allocated anew): wall and phases.  With ``--root``
@@ -24,7 +31,7 @@ Prints the card's name and power limit first.  Run by path, so that
 ``--root`` decides which checkout is imported:
 
     python montecarloscattering_jl_tpu_torch/scripts/probe_driver.py \\
-        [--root DIR] [--spread 3] [--overlap] [--cold]
+        [--root DIR] [--spread 3] [--overlap] [--cold] [--compact 0,2,-1]
 """
 
 from __future__ import annotations
@@ -37,10 +44,11 @@ import tempfile
 import time
 
 
-def timed_run(cfg, p_dtype, cap: int = 0, **env):
+def timed_run(cfg, p_dtype, cap: int = 0, run_kw=None, **env):
     """One ``engine.driver.run`` on the card with its outputs written to
-    a temporary directory, the helix cap `cap` when given and the
-    environment variables `env` set for it; returns (result, wall s)."""
+    a temporary directory, the helix cap `cap` when given, `run_kw` to
+    ``run`` and the environment variables `env` set for it; returns
+    (result, wall s)."""
     import torch
 
     from montecarloscattering_jl_tpu_torch.engine.driver import run
@@ -56,7 +64,8 @@ def timed_run(cfg, p_dtype, cap: int = 0, **env):
         with tempfile.TemporaryDirectory() as out:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            res = run(cfg, "cuda", out_dir=out, p_dtype=p_dtype)
+            res = run(cfg, "cuda", out_dir=out, p_dtype=p_dtype,
+                      **(run_kw or {}))
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     finally:
@@ -129,6 +138,44 @@ def overlap() -> None:
                   f"{t.get('io', 0.0):.3f} s, {res.n_pushes} pushes")
 
 
+def compact(levels: list) -> None:
+    import inspect
+
+    import torch
+
+    from montecarloscattering_jl_tpu_torch.engine import driver
+    from montecarloscattering_jl_tpu_torch.ops import step as xla_step
+    from montecarloscattering_jl_tpu_torch.scripts import workloads as wl
+    from montecarloscattering_jl_tpu_torch.utils import load_config
+
+    def f64_flagship():
+        cfg = load_config(wl.CFG)
+        cfg.n_itrs = 1
+        cfg.do_smoothing = True
+        cfg.n_pts_inj = cfg.n_pts_pcut = cfg.n_pts_pcut_hi = wl.LANES
+        cfg.x_spec = [-0.5 * cfg.rg0, 0.5 * cfg.rg0]
+        cfg.pcuts = cfg.pcuts[:4]
+        return cfg
+
+    if "compact_levels" not in inspect.signature(driver.run).parameters:
+        levels = [None]
+    else:
+        xla_step.GraphCache.timing = True
+    for lv in levels:
+        kw = {} if lv is None else dict(compact_levels=lv)
+        res, wall = timed_run(f64_flagship(), torch.float64, run_kw=kw)
+        t = res.timers.totals
+        out = dict(levels="none" if lv is None else lv, wall=wall,
+                   transport=t["transport"], pushes=res.n_pushes,
+                   pushes_per_s=res.n_pushes / wall,
+                   trajectories=res.n_trajectories)
+        g = getattr(res, "graphs", None)
+        if g is not None:
+            out.update(captures=g.captures, capture_s=g.capture_s,
+                       step_ms={str(k): v for k, v in g.step_ms().items()})
+        print(f"compact {json.dumps(out)}", flush=True)
+
+
 def cold() -> None:
     import torch
 
@@ -158,6 +205,9 @@ def main(argv=None) -> int:
                     help="uninterrupted nonlinear flagship runs (>= 2)")
     ap.add_argument("--overlap", action="store_true")
     ap.add_argument("--cold", action="store_true")
+    ap.add_argument("--compact", default="",
+                    help="comma-separated compaction depths of the f64 "
+                         "flagship (-1 auto)")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -181,6 +231,8 @@ def main(argv=None) -> int:
         spread(args.spread)
     if args.overlap:
         overlap()
+    if args.compact:
+        compact([int(v) for v in args.compact.split(",")])
     return 0
 
 

@@ -24,7 +24,6 @@ package.
 from __future__ import annotations
 
 import contextlib
-import dataclasses
 import os
 import subprocess
 import tempfile
@@ -175,20 +174,75 @@ def load_variant(path: str, replace=(), **fields):
     return cfg
 
 
-def science_variant(cfg) -> None:
-    """Scattering, DSA and smoothing on, the geometric pcut ladder and
-    the larger particle counts of the science runs, in place."""
+def science_variant(cfg, dsa: bool = True,
+                    pcuts_per_decade: int = SCIENCE_PCUTS_PER_DECADE,
+                    n_pts_mult: int = SCIENCE_PTS_MULT) -> None:
+    """The science runs' switches, in place (scripts/flagship_baseline.py
+    --dsa --pcuts-per-decade --n-pts-mult): with `dsa` scattering, DSA
+    and smoothing on; with `pcuts_per_decade` > 0 the geometric pcut
+    ladder; the particle counts times `n_pts_mult`.  The defaults are the
+    science variant's."""
     from montecarloscattering_jl_tpu_torch.utils.config import (
         auto_pcut_ladder, check_pcuts)
 
-    cfg.dont_scatter = cfg.dont_dsa = False
-    cfg.do_smoothing = True
-    cfg.pcuts = auto_pcut_ladder(cfg.pcuts[0], SCIENCE_PCUTS_PER_DECADE,
-                                 cfg.emax, cfg.emax_per_aa, cfg.pmax)
-    check_pcuts(cfg.pcuts, cfg.emax, cfg.emax_per_aa, cfg.pmax)
-    cfg.n_pts_inj *= SCIENCE_PTS_MULT
-    cfg.n_pts_pcut *= SCIENCE_PTS_MULT
-    cfg.n_pts_pcut_hi *= SCIENCE_PTS_MULT
+    if dsa:
+        cfg.dont_scatter = cfg.dont_dsa = False
+        cfg.do_smoothing = True
+    if pcuts_per_decade:
+        cfg.pcuts = auto_pcut_ladder(cfg.pcuts[0], pcuts_per_decade,
+                                     cfg.emax, cfg.emax_per_aa, cfg.pmax)
+        check_pcuts(cfg.pcuts, cfg.emax, cfg.emax_per_aa, cfg.pmax)
+    if n_pts_mult > 1:
+        cfg.n_pts_inj *= n_pts_mult
+        cfg.n_pts_pcut *= n_pts_mult
+        cfg.n_pts_pcut_hi *= n_pts_mult
+
+
+@contextlib.contextmanager
+def helix_cap(cap: int):
+    """Within the block both engines stop a lane after `cap` helix steps
+    a segment (the MCS_MAX_HELIX_STEPS of a fresh process)."""
+    from montecarloscattering_jl_tpu_torch.ops import mega
+    from montecarloscattering_jl_tpu_torch.ops import step as xla_step
+
+    caps = (mega.MAX_HELIX_STEPS, xla_step.MAX_HELIX_STEPS)
+    mega.MAX_HELIX_STEPS = xla_step.MAX_HELIX_STEPS = cap
+    try:
+        yield
+    finally:
+        mega.MAX_HELIX_STEPS, xla_step.MAX_HELIX_STEPS = caps
+
+
+@contextlib.contextmanager
+def timed_drains():
+    """Within the block every ``mega.drain`` is timed on the host clock,
+    a synchronize before and after it (so measurement runs only): yields
+    the list of (ms, K1 launches, pushes) of the drains."""
+    import torch
+
+    from montecarloscattering_jl_tpu_torch.ops import mega
+
+    out = []
+    base = mega.drain
+
+    def drain(st, tabs, tal, *a, **kw):
+        sync = st.device.type == "cuda"
+        if sync:
+            torch.cuda.synchronize()
+        n0, k0 = st.nsteps.long().sum(), mega.LAUNCHES
+        t0 = time.perf_counter()
+        r = base(st, tabs, tal, *a, **kw)
+        if sync:
+            torch.cuda.synchronize()
+        out.append(((time.perf_counter() - t0) * 1e3, mega.LAUNCHES - k0,
+                    int(st.nsteps.long().sum() - n0)))
+        return r
+
+    mega.drain = drain
+    try:
+        yield out
+    finally:
+        mega.drain = base
 
 
 # (tag, species, science switches, flags that must be on, alpha of the
@@ -257,9 +311,9 @@ def flag_case(case, dev, lanes: int = LANES) -> dict:
 
 
 def clone_state(st):
-    return dataclasses.replace(st, **{
-        f.name: getattr(st, f.name).clone()
-        for f in dataclasses.fields(st)})
+    from montecarloscattering_jl_tpu_torch.ops import state as stt
+
+    return stt.clone(st)
 
 
 def time_launches(fn, prepared) -> float:

@@ -5,7 +5,9 @@ on and off), K2 and K3
 one address and on int64 / float64 records), every compiled instance of
 K1 on lanes that reach its branches, a drain in one launch, and the XLA
 engine's float64 segment (ops/step.py, K2 inside, replayed as a CUDA
-graph) against the same segment on the CPU; and the batched emission
+graph) against the same segment on the CPU, the compaction ladder
+lane for lane against the uncompacted drain and its graphs replayed
+across segments; and the batched emission
 functions (models/emission/device.py) on the card against the per-zone
 NumPy oracles.  Every test here needs the
 card: it carries the ``cuda`` marker and skips without one.  Run on the
@@ -399,3 +401,67 @@ def test_emission_matches_numpy_oracle(card):
     grid = 10.0 ** g.uniform(-60, -5, (180, nz))
     close(edev.doppler_shift_device(t(grid), t(e_synch), t(beta), t(gamma)),
           edrv.doppler_shift_to_ism(grid, e_synch, beta, gamma))
+
+
+def _f64_segment(card, lanes):
+    """The flagship's injected population (`lanes` lanes, float64) with
+    the XLA engine's tables at pcut index 0 and fresh tallies."""
+    from montecarloscattering_jl_tpu_torch.ops import step
+    from montecarloscattering_jl_tpu_torch.scripts import workloads as wl
+
+    cfg = load_config(CFG)
+    setup = build_setup(cfg)
+    eng = TransportEngine(setup, device=card)
+    tb = step.step_tables(eng.segment_grids(setup.profile),
+                          eng.segment_scalars(0, 0, setup.profile.bmag2),
+                          eng.step_static(0), card)
+    st = wl.flagship_population(setup, cfg, card, lanes=lanes,
+                                p_dtype=torch.float64)
+    b = setup.bins
+    return st, tb, lambda: stt.make_tallies(setup.nb, b.n_mom, b.n_theta,
+                                            card)
+
+
+def test_compaction_on_the_card_is_lane_for_lane(card):
+    """The compaction ladder with graph-replayed windows (8,192 lanes,
+    windows 8,192 to 1,024) leaves every lane bit-identical to the
+    uncompacted drain, in its own slot; counts exact, the PSDs within
+    1e-4 of their largest entry (float32 atomics in another order)."""
+    from montecarloscattering_jl_tpu_torch.ops import step
+
+    st0, tb, fresh = _f64_segment(card, 8192)
+    out = {}
+    for lv in (0, 3):
+        st, tl = stt.clone(st0), fresh()
+        g = step.GraphCache()
+        step.run_segment(st, tl, tb, compact_levels=lv, graphs=g)
+        torch.cuda.synchronize()
+        out[lv] = (st, stt.finalize_tallies(tl), g)
+    for f in dataclasses.fields(st0):
+        assert torch.equal(getattr(out[0][0], f.name),
+                           getattr(out[3][0], f.name)), f.name
+    assert torch.equal(out[0][1].num_crossings, out[3][1].num_crossings)
+    a, c = out[0][1].psd, out[3][1].psd
+    assert float((a - c).abs().max()) <= 1e-4 * float(a.abs().max())
+    assert out[3][2].captures > out[0][2].captures >= 1
+
+
+def test_graphs_replay_across_segments(card):
+    """A second segment on the same buffers replays the graphs the first
+    captured: no new capture, and the same lanes as a fresh cache."""
+    from montecarloscattering_jl_tpu_torch.ops import step
+
+    st0, tb, fresh = _f64_segment(card, 4096)
+    g = step.GraphCache()
+    st, tl = stt.clone(st0), fresh()
+    step.run_segment(st, tl, tb, compact_levels=2, graphs=g)
+    captured = g.captures
+    stt.copy_into(st, st0)
+    step.run_segment(st, tl, tb, compact_levels=2, graphs=g)
+    assert g.captures == captured
+    ref = stt.clone(st0)
+    step.run_segment(ref, fresh(), tb, compact_levels=2)
+    torch.cuda.synchronize()
+    for f in dataclasses.fields(st0):
+        assert torch.equal(getattr(st, f.name), getattr(ref, f.name)), \
+            f.name

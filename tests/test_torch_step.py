@@ -134,6 +134,16 @@ def _xla_cos(x):
 _torch_cos = torch.cos
 
 
+def _xla_sin(x):
+    """The reference's float32 sin (XLA's), for float32 arguments."""
+    if x.dtype == torch.float32:
+        return torch.from_numpy(np.array(jnp.sin(jnp.asarray(x.numpy()))))
+    return _torch_sin(x)
+
+
+_torch_sin = torch.sin
+
+
 @pytest.fixture(scope="module", params=[(0, False), (2, False), (0, True)],
                 ids=["pcut0", "pcut2", "reflect"])
 def horizon(request):
@@ -283,29 +293,24 @@ def test_drain_independent_of_sync_interval():
     ("dont_scatter", True), ("dont_dsa", True), ("frg_rg0_cm", 1.0e10),
     ("parallel", False)])
 def test_gate_raises_on_deferred_flags(flag, value):
-    """The gate raises for what the engine does not run: oblique
-    fields.  The eight static flags it once raised for run: with each
-    on (the custom f(r_g) law at alpha = 1.5), two steps of 128 flagship
-    lanes agree with the JAX ``helix_step`` per lane (XLA's cos
-    substituted: integer fields exactly, float fields to 1e-12)."""
+    """The engine refuses no static flag any more, nor (since the
+    oblique step was ported) an oblique field.  With each flag on (the
+    custom f(r_g) law at alpha = 1.5; parallel False: the oblique
+    branches at theta_B = 0), two steps of 128 flagship lanes agree with
+    the JAX ``helix_step`` per lane (XLA's float32 cos, and for the
+    oblique phase adjustment its sin, substituted: integer fields
+    exactly, float fields to 1e-12)."""
     state, tal, grids, sc, ss = _build(0, lanes=128)
-    ssp = tst.StepStatic.from_jax(ss)
-    tstep.check_supported(ssp)
-    if flag == "parallel":
-        bad = dataclasses.replace(ssp, **{flag: value})
-        with pytest.raises(NotImplementedError, match="ROADMAP.md item"):
-            tstep.check_supported(bad)
-        return
     ss = dataclasses.replace(ss, **{flag: value})
     if flag == "frg_rg0_cm":
         ss = dataclasses.replace(ss, frg_alpha=1.5)
-    tstep.check_supported(tst.StepStatic.from_jax(ss))
     s, t = state, tal
     for _ in range(2):
         s, t = _helix_jit(s, t, grids, sc, ss)
     st, tl, tb = _port(state, tal, grids, sc, ss)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(torch, "cos", _xla_cos)
+        mp.setattr(torch, "sin", _xla_sin)
         _steps(st, tl, tb, 2)
     ref, got = _np(s), st.to_numpy()
     for f in INT_FIELDS:

@@ -77,7 +77,6 @@ def _run_port(state, tal, grids, sc, ss, n=H):
         tst.SegmentGrids.from_jax_numpy(_np(grids), "cpu", torch.float64),
         tst.SegmentScalars.from_jax_numpy(_np(sc)),
         tst.StepStatic.from_jax(ss), "cpu")
-    tstep.check_supported(tb.ss)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(torch, "cos", _xla_cos)
         for _ in range(n):
