@@ -131,6 +131,30 @@ Run from the root of a checkout:  python3 chip_smoke.py
 17. ``endurance``: scripts/flagship_endurance.py on K1 at 65,536 a pcut
     for about 8 blocks: allocated device memory drifts by less than 1%
     from block 2 to the last; the rate per block is printed.
+18. ``mesh``: the particle batch sharded over MESH_RANKS ranks
+    (parallel/multihost.spawn, one process a rank) on the one card,
+    joined by gloo: two processes sharing a card, which is what one card
+    can check (NCCL takes one card a rank).  Any rank's failure fails
+    the phase.  (1) and (2) run ``engine.driver.run`` on every rank.
+    (1) K1 with the host split: phase f32's config, 1 iteration,
+    ``fused=False``, against the same run in this process: pushes,
+    trajectories and exit reasons exactly, fluxes within RESUME_FLUX_TOL
+    and the PSDs within HIST_TOL of their largest entry.  (2) The mesh
+    hybrid ladder (K1, fused, each rank splitting its own lanes): phase
+    f32's run again on the mesh, held to phase f32's run statistically
+    (the slope gate; pushes and trajectories of iteration 1 within
+    MESH_HYBRID_TOL) and every segment's split to its contract
+    (``split_faults``: each rank's share of the target, its new lanes,
+    and its new lanes' weight within MESH_SPLIT_WEIGHT_TOL of its saved
+    lanes').  (3) The XLA engine: phase compact's segment (the
+    flagship's 69,632 injected lanes, pcut 0, f64) with each rank
+    draining its shard at the per-shard auto compaction depth; the
+    gathered lanes bit-identical in every field to phase compact's.
+    Every rank's drains launch K1 (none the twin) in (1) and (2), and K2
+    deposits every step of (3) on every rank.  Each part prints its
+    wall, pushes, pushes/s, launches a rank and the collectives with
+    their seconds.  (4) With two cards or more, (1) again under NCCL, a
+    card a rank; with one, a line says it did not run.
 
 Every phase that fails raises, so the script exits non-zero; it also
 exits non-zero without a CUDA device.  The line before the last is a
@@ -193,6 +217,20 @@ OBLIQUE_STEPS, OBLIQUE_TOL = 64, 1e-12
 KW_NG, KW_PER_PCUT, KW_CAP, KW_PMAX, KW_TOL = 8000.0, 8192, 800_000, 2400.0, 0.25
 # phase endurance: about 8 blocks of the flagship at wl.LANES a pcut
 ENDURANCE_TRAJECTORIES = 3.5e6
+# phase mesh: ranks; the bound of the mesh hybrid ladder's pushes and
+# trajectories in iteration 1 against phase f32's run, written into
+# PERF.md before the phase's first chip run (a split's new lanes
+# n_saved * (target // n_saved) jump by up to 1/multiplicity); and the
+# bound of each segment's split on weight, rank by rank: a new lane's
+# weight is one float32 rounding of its saved lane's weight over the
+# multiplicity (relative error <= 2^-24), so the new lanes' weight is the
+# saved weight within 2^-24 of it, and 2^-23 leaves room for the float64
+# sums.  Over the run the counts are not held to a bound: a rank that
+# saves no lane makes no new lane, so the mesh's later segments may run
+# on half the lanes of one process's (PERF.md, PR 9)
+MESH_RANKS = 2
+MESH_HYBRID_TOL = 0.10
+MESH_SPLIT_WEIGHT_TOL = 2.0 ** -23
 # JAX CPU run of the shipped baseline (1 iteration, --f32, XLA engine),
 # for comparison with the port's counts
 SHIPPED_JAX_PUSHES, SHIPPED_JAX_TRAJECTORIES = 980_000, 196
@@ -898,13 +936,14 @@ def shipped_path(dev) -> dict:
                 trajectories=res.n_trajectories)
 
 
-def hold_to_f64(tag, ref, res) -> dict:
+def hold_to_f64(tag, ref, res, against: str = "phase f64",
+                spectra: bool = True) -> dict:
     """A rerun of phase f64's config (`res`) against phase f64's own run
     (`ref`): pushes, trajectories and exit reasons exactly (one iteration
     of protons: no lane reads an atomically summed value), fluxes and
-    spectra within RESUME_FLUX_TOL of their largest entry, the PSDs
-    within HIST_TOL of max |psd|; returns each one's largest difference
-    over its largest entry."""
+    spectra (with x_spec detectors: `spectra`) within RESUME_FLUX_TOL of
+    their largest entry, the PSDs within HIST_TOL of max |psd|; returns
+    each one's largest difference over its largest entry."""
     import numpy as np
 
     if (res.n_pushes, res.n_trajectories) != (ref.n_pushes,
@@ -922,7 +961,8 @@ def hold_to_f64(tag, ref, res) -> dict:
               RESUME_FLUX_TOL) for f in ("pxx_flux", "pxz_flux",
                                          "energy_flux")]
             + [(f, getattr(fr.ion_finals[0], f), getattr(fg.ion_finals[0], f),
-                RESUME_FLUX_TOL) for f in ("spectra_sf", "spectra_pf")]
+                RESUME_FLUX_TOL) for f in ("spectra_sf", "spectra_pf")
+               if spectra]
             + [(f, getattr(fr.ion_finals[0], f), getattr(fg.ion_finals[0], f),
                 HIST_TOL) for f in ("psd", "therm_psd")]):
         a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
@@ -931,7 +971,7 @@ def hold_to_f64(tag, ref, res) -> dict:
         if not (scale > 0 and worst[name] <= tol):
             fail(f"{tag}: {name} differs by {worst[name]!r} of its "
                  f"largest entry (bound {tol})")
-    print(f"{tag}: against phase f64, largest difference over largest "
+    print(f"{tag}: against {against}, largest difference over largest "
           f"entry {json.dumps(worst)}")
     return worst
 
@@ -1065,7 +1105,8 @@ def compact_path(dev, f64) -> dict:
                 transport=res.timers.totals["transport"],
                 transport_auto=ref.timers.totals["transport"],
                 graphs=graphs_line(res), graphs_auto=graphs_line(ref),
-                worst=worst, segment={k: v[1] for k, v in seg.items()})
+                worst=worst, segment={k: v[1] for k, v in seg.items()},
+                lanes=seg[0][0].to_numpy())
 
 
 def oblique_path(dev) -> dict:
@@ -1213,6 +1254,214 @@ def endurance_path(dev) -> dict:
                 rate_floor=out["rate_floor"], wall=out["wall"])
 
 
+def mesh_rank(mesh, parts) -> dict:
+    """One rank of phase mesh (started by parallel/multihost.spawn): the
+    `parts` of ("host", "hybrid", "xla") in order, each with every
+    kernel's launch count set to 0 before it and read after it, checked
+    on this rank.  Rank 0 returns the driven runs' results (without their
+    graph caches) and the gathered lanes of "xla"."""
+    import torch
+
+    from montecarloscattering_jl_tpu_torch.engine.driver import run
+    from montecarloscattering_jl_tpu_torch.engine.run import TransportEngine
+    from montecarloscattering_jl_tpu_torch.engine.setup import build_setup
+    from montecarloscattering_jl_tpu_torch.ops import state as stt
+    from montecarloscattering_jl_tpu_torch.ops import step as xla_step
+    from montecarloscattering_jl_tpu_torch.parallel import multihost, shard
+    from montecarloscattering_jl_tpu_torch.scripts import workloads as wl
+
+    dev, out = mesh.device, {}
+    for part in parts:
+        c0, s0 = mesh.collectives, mesh.collective_s
+        shard.barrier(mesh)
+        zero_counts()
+        t0 = time.perf_counter()
+        if part in ("host", "hybrid"):
+            cfg = flagship_config(torch.float32, 1 if part == "host" else 2,
+                                  False)
+            with tempfile.TemporaryDirectory() as d:
+                res = run(cfg, device=dev, out_dir=d, p_dtype=torch.float32,
+                          fused=part == "hybrid", mesh=mesh)
+                torch.cuda.synchronize()
+                written = sorted(os.listdir(d))
+            pushes = res.n_pushes
+            want = expected_files(cfg) if mesh.rank == 0 else []
+            if sorted(set(written) & set(want)) != sorted(want) or (
+                    mesh.rank and written):
+                fail(f"mesh {part} rank {mesh.rank}: wrote {written}")
+            res.graphs = None
+        else:
+            cfg = flagship_config(torch.float64, 1, True)
+            setup = build_setup(cfg)
+            eng = TransportEngine(setup, device=dev, mesh=mesh)
+            ss = eng.step_static(0)
+            tb = xla_step.step_tables(
+                eng.segment_grids(setup.profile),
+                eng.segment_scalars(0, 0, setup.profile.bmag2), ss, dev)
+            st = multihost.global_state(wl.flagship_population(
+                setup, cfg, dev, lanes=eng.batch_size,
+                p_dtype=torch.float64), mesh)
+            b = setup.bins
+            tl = stt.make_tallies(setup.nb, b.n_mom, b.n_theta, dev,
+                                  n_xspec=ss.n_xspec)
+            xla_step.run_segment(st, tl, tb, compact_levels=eng.compact_levels,
+                                 graphs=xla_step.GraphCache())
+            torch.cuda.synchronize()
+            full = shard.gather_state(st, mesh)
+            pushes = int(full.nsteps.sum(dtype=torch.int64))
+            res = dict(lanes=full.to_numpy(), batch=eng.batch_size,
+                       levels=eng.compact_levels)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        check_engine(f"mesh {part} rank {mesh.rank}", counts,
+                     torch.float64 if part == "xla" else torch.float32)
+        out[part] = dict(
+            result=res if mesh.rank == 0 else None, counts=counts,
+            wall=wall, pushes=pushes, collectives=mesh.collectives - c0,
+            collective_s=mesh.collective_s - s0)
+    return dict(rank=mesh.rank, device=str(dev), backend=mesh.backend,
+                shared=shard.shared_cards(mesh), parts=out)
+
+
+def hybrid_against(res, ref) -> dict:
+    """Pushes and trajectories of `res` against `ref`, over the run and
+    over iteration 1: |a - b| / min(a, b)."""
+    out = {}
+    for span, its in (("run", slice(None)), ("iteration 1", slice(0, 1))):
+        tot = lambda r, k: sum(getattr(f, k) for itr in r.iterations[its]
+                               for f in itr.ion_finals)
+        out[span] = {k.replace("n_", ""): abs(tot(res, k) - tot(ref, k))
+                     / min(tot(res, k), tot(ref, k))
+                     for k in ("n_pushes", "n_trajectories")}
+    return out
+
+
+def split_faults(res, world: int) -> tuple[list, int, float]:
+    """Every mesh hybrid segment's split (``IonFinal.splits``) against
+    its contract: rank r's share of the segment's target n_target is
+    n_target // world, one more on the first n_target % world ranks; it
+    makes n_saved_r * max(share // n_saved_r, 1) new lanes (none without
+    a saved lane), which sum to the segment's n_new; and its new lanes'
+    weight is its saved lanes' within MESH_SPLIT_WEIGHT_TOL.  Returns
+    (faults, segments checked, the largest relative weight change)."""
+    faults, n, worst = [], 0, 0.0
+    for i, itr in enumerate(res.iterations):
+        for j, f in enumerate(itr.ion_finals):
+            if f.splits is None or len(f.splits) != len(f.n_new):
+                faults.append(f"iteration {i + 1} species {j}: "
+                              f"{f.splits!r} for n_new {f.n_new}")
+                continue
+            for k, (sp, n_new) in enumerate(zip(f.splits, f.n_new)):
+                at = f"iteration {i + 1} species {j} segment {k}"
+                nt = sp["n_target"]
+                share = [nt // world + (r < nt % world)
+                         for r in range(world)]
+                made = [s * max(t // s, 1) if s else 0
+                        for s, t in zip(sp["n_saved"].tolist(), share)]
+                if sp["target"].tolist() != share:
+                    faults.append(f"{at}: shares {sp['target']} of {nt}")
+                if sp["n_new"].tolist() != made or sum(made) != n_new:
+                    faults.append(f"{at}: new lanes {sp['n_new']} (n_new "
+                                  f"{n_new}) from {sp['n_saved']} saved")
+                for ws, wn in zip(sp["w_saved"], sp["w_new"]):
+                    rel = abs(wn - ws) / ws if ws else abs(wn)
+                    worst = max(worst, rel)
+                    if rel > MESH_SPLIT_WEIGHT_TOL:
+                        faults.append(f"{at}: new weight {wn!r} from saved "
+                                      f"{ws!r}")
+                n += 1
+    return faults, n, worst
+
+
+def mesh_path(dev, f32, compact) -> dict:
+    """Phase mesh (see the module's docstring, 18): K1's host split
+    against this process's run, the mesh hybrid against phase f32's run
+    (`f32`), the XLA engine's segment against phase compact's lanes
+    (`compact`); every rank on the one card under gloo, and under NCCL
+    with a card a rank where there are two."""
+    import numpy as np
+    import torch
+
+    from montecarloscattering_jl_tpu_torch.parallel import multihost
+
+    ref, _, wall1, _ = drive(flagship_config(torch.float32, 1, False), dev,
+                             torch.float32, "mesh world 1", fused=False)
+    t0 = time.perf_counter()
+    ranks = multihost.spawn(mesh_rank, MESH_RANKS,
+                            args=(("host", "hybrid", "xla"),),
+                            backend="gloo", device="cuda", timeout=900)
+    spawn_wall = time.perf_counter() - t0
+    sharing = (f"{MESH_RANKS} processes sharing one card (gloo)"
+               if all(r["shared"] for r in ranks) else
+               f"{MESH_RANKS} ranks (gloo)")
+    out = {}
+    for part in ("host", "hybrid", "xla"):
+        rows = [r["parts"][part] for r in ranks]
+        res = rows[0]["result"]
+        wall = max(r["wall"] for r in rows)
+        pushes = rows[0]["pushes"]
+        line = dict(wall_s=wall, pushes=pushes,
+                    pushes_per_s=pushes / wall,
+                    k1_launches=[r["counts"]["k1"] for r in rows],
+                    k2_launches=[r["counts"]["k2"] for r in rows],
+                    twin_calls=[r["counts"]["twin"] for r in rows],
+                    collectives=[r["collectives"] for r in rows],
+                    collective_s=[r["collective_s"] for r in rows])
+        if part == "host":
+            worst = hold_to_f64("mesh host", ref, res, against="world 1",
+                                spectra=False)
+            line["worst"] = worst
+        elif part == "hybrid":
+            slope, expect = slope_of(res)
+            rel = hybrid_against(res, f32["result"])
+            faults, n_seg, worst = split_faults(res, MESH_RANKS)
+            line.update(slope=slope, expected=expect, against_f32=rel,
+                        trajectories=res.n_trajectories,
+                        n_new=[f.n_new for itr in res.iterations
+                               for f in itr.ion_finals],
+                        n_saved=[[sp["n_saved"].tolist() for sp in f.splits]
+                                 for itr in res.iterations
+                                 for f in itr.ion_finals],
+                        splits_checked=n_seg, split_weight_rel_max=worst)
+            if not math.isfinite(slope) or abs(slope - expect) > 0.45:
+                fail(f"mesh hybrid: slope {slope} vs {expect}")
+            if any(v > MESH_HYBRID_TOL for v in rel["iteration 1"].values()):
+                fail(f"mesh hybrid, iteration 1: {rel['iteration 1']} "
+                     f"against phase f32's run (bound {MESH_HYBRID_TOL})")
+            if faults or n_seg == 0:
+                fail(f"mesh hybrid: {n_seg} splits checked, faults "
+                     f"{faults}")
+        else:
+            lanes, want = res["lanes"], compact["lanes"]
+            diff = [k for k in want if not np.array_equal(lanes[k], want[k])]
+            if diff:
+                fail(f"mesh xla: the gathered lanes differ from phase "
+                     f"compact's in {diff}")
+            line.update(batch=res["batch"], levels_per_shard=res["levels"],
+                        lanes_identical=len(want["weight"]))
+        out[part] = dict(line, counts=[r["counts"] for r in rows])
+        print(f"mesh {part} ({sharing}): {json.dumps(line)}")
+    print(f"mesh: world 1 against world {MESH_RANKS} on one card, K1 host "
+          f"split, 1 iteration: {wall1:.2f} s against "
+          f"{out['host']['wall_s']:.2f} s ({sharing}; ranks' start and "
+          f"all parts {spawn_wall:.1f} s)")
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        nccl = multihost.spawn(mesh_rank, 2, args=(("host",),),
+                               backend="nccl", device="cuda", timeout=600)
+        rows = [r["parts"]["host"] for r in nccl]
+        line = dict(wall_s=max(r["wall"] for r in rows),
+                    k1_launches=[r["counts"]["k1"] for r in rows],
+                    worst=hold_to_f64("mesh nccl", ref, rows[0]["result"],
+                                      against="world 1", spectra=False))
+        print(f"mesh nccl (2 cards, a card a rank): {json.dumps(line)}")
+        out["nccl"] = dict(line, counts=[r["counts"] for r in rows])
+    else:
+        print(f"mesh nccl: not run: {n_cards} CUDA card visible, and NCCL "
+              f"takes one card a rank")
+    return out
+
+
 def nonlinear_path(dev) -> dict:
     """Phase nonlinear: the nonlinear flagship (scripts/flagship_nonlinear
     .py) at wl.LANES a pcut, NONLINEAR_ITERS iterations on K1 with an
@@ -1343,7 +1592,9 @@ def main() -> int:
                       ("compact", lambda d: compact_path(d, done["f64"])),
                       ("oblique", oblique_path),
                       ("kw", kw_path),
-                      ("endurance", endurance_path)):
+                      ("endurance", endurance_path),
+                      ("mesh", lambda d: mesh_path(d, done["f32"],
+                                                   done["compact"]))):
         t0 = time.perf_counter()
         done[phase] = fn(dev)
         print(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
@@ -1386,9 +1637,9 @@ def k1_instances(ptxas_log: str) -> list:
 
 def kernel_records(done, instances) -> list:
     """The kernels line: every kernel with its main-path launches (K1 on
-    the flagship f32, science, electrons32, sed, nonlinear, kw and
-    endurance paths, K2 on the f64 flagship, resume, shipped, electron
-    and compact paths), its error
+    the flagship f32, science, electrons32, sed, nonlinear, kw, endurance
+    and mesh paths, K2 on the f64 flagship, resume, shipped, electron,
+    compact and mesh paths, the mesh's on every rank), its error
     against its plain
     version, its time, its plain version's, its bound and the library
     call's.  K2's and K4's ``ms`` and ``library_ms`` are device times
@@ -1398,16 +1649,18 @@ def kernel_records(done, instances) -> list:
     hp, k1 = done["hist"], done["k1"]
     k2, k3, k4 = (hp["K2 (69,632 records)"], hp["K3 band=2048"],
                   hp["K4 = K2 (2^16 records)"])
+    mesh = lambda kernel: sum(c[kernel] for part in done["mesh"].values()
+                              for c in part.get("counts", []))
     k1_launches = (done["f32"]["k1"] + done["science"]["counts"]["k1"]
                    + done["electrons32"]["counts"]["k1"]
                    + done["sed"]["counts"]["k1"]
                    + done["nonlinear"]["counts"]["k1"]
                    + done["kw"]["counts"]["k1"]
-                   + done["endurance"]["counts"]["k1"])
+                   + done["endurance"]["counts"]["k1"] + mesh("k1"))
     k2_launches = (done["f64"]["k2"] + done["shipped"]["counts"]["k2"]
                    + done["electrons"]["counts"]["k2"]
                    + done["resume"]["counts"]["k2"]
-                   + done["compact"]["counts"]["k2"])
+                   + done["compact"]["counts"]["k2"] + mesh("k2"))
     rec = lambda r: dict(max_abs_err=r["max_abs_err"], ms=r["ms"],
                          plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                          bound_by=r["bound_by"],

@@ -2,9 +2,11 @@
 
 Counterpart of the JAX package's engine/driver.py (run, ion_finalize;
 MonteCarloScattering.jl:600-654, iter_finalize.jl:1-146,
-ion_finalize.jl:1-84) on one device, with iteration and
-segment-boundary checkpoints, resume, and the per-species reductions
-overlapped with the next species' transport; without a device mesh.
+ion_finalize.jl:1-84), with iteration and segment-boundary checkpoints,
+resume, the per-species reductions overlapped with the next species'
+transport on one device, and a mesh of ranks (parallel/shard.py) that
+shards the particle batch: every rank reduces and smooths the same
+summed tallies, and rank 0 writes the files.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from ..models.smoothing import (
 from ..ops import reduce as red
 from ..ops.finish import EscapeTallies
 from ..parallel import checkpoint as ck
+from ..parallel import shard
 from .run import IonResult, IterationTallies, TransportEngine
 from .setup import RunSetup, build_setup
 
@@ -54,6 +57,8 @@ class IonFinal:
     n_pushes: int
     n_trajectories: int
     # the port's own counters (engine/run.py IonResult)
+    n_new: list = None
+    splits: list = None
     reason_counts: np.ndarray = None
     retro_entries: float = 0.0
     energy_received: float = 0.0
@@ -86,6 +91,9 @@ class RunResult:
     # the XLA engine's captured drain blocks (ops/step.py GraphCache):
     # captures and their seconds
     graphs: object = None
+    # this rank's mesh (parallel/shard.Mesh.summary): world size, rank,
+    # device, backend, collectives and their seconds; None on one device
+    mesh: dict | None = None
 
     @property
     def last(self) -> IterationResult:
@@ -175,6 +183,7 @@ def ion_finalize_start(setup: RunSetup, res: IonResult, prof, i_ion: int,
             psd=psd, therm_psd=therm, num_crossings=res.num_crossings,
             spectra_sf=res.spectra_sf, spectra_pf=res.spectra_pf,
             n_pushes=res.n_pushes, n_trajectories=res.n_trajectories,
+            n_new=res.n_new, splits=res.splits,
             reason_counts=res.reason_counts,
             retro_entries=res.retro_entries,
             energy_received=res.energy_received,
@@ -197,7 +206,7 @@ def run(cfg: RunConfig | str, device="cuda", out_dir: str | None = None,
         p_dtype: torch.dtype = torch.float64, emission_hook=None,
         checkpoint: str | None = None, resume: str | None = None,
         mid_every: int = 0, fused: bool = True,
-        compact_levels: int = -1) -> RunResult:
+        compact_levels: int = -1, mesh=None) -> RunResult:
     """Full nonlinear run (main_loops.jl:52-391) on `device` (the CUDA
     card unless the caller asks for "cpu").  `p_dtype` is the momentum
     precision, float64 by default as in the JAX package
@@ -220,17 +229,30 @@ def run(cfg: RunConfig | str, device="cuda", out_dir: str | None = None,
     (MidCheckpointStop) right after the first such save.
 
     Species i's host reductions run on a worker thread while species
-    i+1 transports, unless MCS_OVERLAP_REDUCE=0; the results are the
-    same bits either way.  MCS_SUBTIMERS=1 fills ``RunResult.subtimers``
-    (population setup, ladder, tally fetch)."""
+    i+1 transports, unless MCS_OVERLAP_REDUCE=0 or the run has a mesh;
+    the results are the same bits either way.  MCS_SUBTIMERS=1 fills
+    ``RunResult.subtimers`` (population setup, ladder, tally fetch).
+
+    `mesh` (parallel/shard.make_mesh, world above 1) shards the
+    particle batch over ranks; every rank calls ``run`` alike and runs
+    on ``mesh.device`` (`device` is then unused).  Every rank computes
+    the reductions and smoothing from the summed tallies, the result's
+    push and trajectory totals are global, and only rank 0 writes
+    `out_dir`, checkpoints and calls `emission_hook`, the others
+    waiting for it."""
     timers = PhaseTimers()
     t_start = time.time()
     if isinstance(cfg, str):
         cfg = load_config(cfg)
     with timers.phase("setup"):
         setup = build_setup(cfg)
-    engine = TransportEngine(setup, device=device, p_dtype=p_dtype,
-                             fused=fused, compact_levels=compact_levels)
+    if mesh is not None and mesh.size == 1:
+        mesh = None
+    writer = mesh is None or mesh.rank == 0
+    engine = TransportEngine(setup, device=device if mesh is None
+                             else mesh.device, p_dtype=p_dtype,
+                             fused=fused, compact_levels=compact_levels,
+                             mesh=mesh)
     prof = setup.profile
     nb = setup.nb
     if cfg.do_old_prof:
@@ -279,11 +301,14 @@ def run(cfg: RunConfig | str, device="cuda", out_dir: str | None = None,
         mid_ckpt = ck.MidCheckpointer(
             checkpoint + ".mid", every=mid_every,
             stop_after_save=os.environ.get("MCS_MID_STOP_AFTER",
-                                           "0") == "1")
+                                           "0") == "1", mesh=mesh)
 
     rho0 = sum(sp.number_density * sp.mass for sp in cfg.species)
     result = RunResult(setup=setup)
-    overlap = os.environ.get("MCS_OVERLAP_REDUCE", "1") == "1"
+    # a mesh's ranks keep their collectives in one order: no overlap
+    # (driver.py:269-273)
+    overlap = (mesh is None
+               and os.environ.get("MCS_OVERLAP_REDUCE", "1") == "1")
     pool = ThreadPoolExecutor(max_workers=1) if overlap else None
     try:
         for i_iter in range(i_start, cfg.n_itrs):
@@ -372,25 +397,29 @@ def run(cfg: RunConfig | str, device="cuda", out_dir: str | None = None,
                     itres.emission = photon_calcs(
                         setup, prof, ion_finals, i_iter,
                         device=engine.device)
-                if emission_hook is not None:
+                if emission_hook is not None and writer:
                     emission_hook(setup, prof, ion_finals, i_iter)
             result.iterations.append(itres)
             prof = prof_new
 
             if checkpoint is not None:
                 with timers.phase("checkpoint"):
-                    ck.save_checkpoint(
-                        checkpoint, i_iter=i_iter + 1, profile=prof,
-                        gamma_grid=gamma_grid, q_px_hist=q_px_hist,
-                        q_en_hist=q_en_hist, px_esc_hist=px_esc_hist,
-                        en_esc_hist=en_esc_hist,
-                        gamma_dw_hist=gamma_dw_hist,
-                        prof_weight_fac=prof_weight_fac,
-                        random_seed=cfg.random_seed)
-                if mid_ckpt is not None and os.path.exists(mid_ckpt.path):
+                    if writer:
+                        ck.save_checkpoint(
+                            checkpoint, i_iter=i_iter + 1, profile=prof,
+                            gamma_grid=gamma_grid, q_px_hist=q_px_hist,
+                            q_en_hist=q_en_hist, px_esc_hist=px_esc_hist,
+                            en_esc_hist=en_esc_hist,
+                            gamma_dw_hist=gamma_dw_hist,
+                            prof_weight_fac=prof_weight_fac,
+                            random_seed=cfg.random_seed)
+                if (writer and mid_ckpt is not None
+                        and os.path.exists(mid_ckpt.path)):
                     # the iteration checkpoint supersedes the mid state
                     # of this iteration
                     os.remove(mid_ckpt.path)
+                if mesh is not None:
+                    shard.barrier(mesh)
     finally:
         if pool is not None:
             pool.shutdown(wait=True)
@@ -410,5 +439,10 @@ def run(cfg: RunConfig | str, device="cuda", out_dir: str | None = None,
     if out_dir is not None:
         from .io import write_outputs
         with timers.phase("io"):
-            write_outputs(result, out_dir)
+            if writer:
+                write_outputs(result, out_dir)
+            if mesh is not None:
+                shard.barrier(mesh)
+    if mesh is not None:
+        result.mesh = mesh.summary()
     return result

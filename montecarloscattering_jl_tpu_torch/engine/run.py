@@ -36,6 +36,19 @@ reads its prefix sum from the segment grids.
 Every segment boundary is visible to the host, so a segment-boundary
 checkpoint (parallel/checkpoint.py) can be taken after any split and
 resumed bit for bit where the device's sums are ordered (the CPU).
+
+With a ``mesh`` of more than one rank (parallel/shard.py; run.py:92-182,
+358-456) every rank builds the whole population and keeps its shard of
+the lanes.  K1 with ``fused`` runs the mesh hybrid ladder: each rank
+drains, finishes and splits its own lanes to its share of the target,
+its keys offset by its first lane, and only the segment's small
+counters cross ranks (every rank's split, ``IonResult.splits``).
+Otherwise (``fused=False``, and the XLA engine whatever ``fused`` says,
+run.py:376) the host-split ladder: each rank drains its shard, the
+lanes of every rank are gathered, and every rank runs the same split on
+the whole batch and keeps its shard, so every lane is the bits of the
+single-process run.  The species' accumulators are summed over the
+ranks once, after its last segment.
 """
 
 from __future__ import annotations
@@ -60,6 +73,7 @@ from ..ops import state as stt
 from ..ops.cuts import pcut_split
 from ..ops.finish import EscapeTallies, finish_particles
 from ..ops.split import split_on_device
+from ..parallel import multihost, shard
 from .setup import RunSetup
 
 log = logging.getLogger("mcs.torch.engine")
@@ -96,6 +110,11 @@ class IonResult:
     spectra_pf: np.ndarray
     n_pushes: int = 0
     n_trajectories: int = 0
+    # new lanes of each segment run, over every rank
+    n_new: list = None
+    # the mesh hybrid ladder: each segment's split, every rank's
+    # (parallel/shard.split_record, with the segment's n_target)
+    splits: list = None
     # the port's own counters: FINISHED lanes by exit reason (index 1-4,
     # stt.R_*), entries into the retro walk, energy [erg, weighted] the
     # electrons received from the pool and radiated
@@ -133,8 +152,11 @@ class TransportEngine:
     splits between segments on the host; `compact_levels` is the XLA
     engine's compaction depth (ops/step.run_segment): halve the window
     up to this many times as lanes end, -1 auto (down to a
-    COMPACT_FLOOR-lane floor), 0 off.  K1 ignores it: its lane cursor
-    keeps its warps full (the megakernel path, run.py:150-152)."""
+    COMPACT_FLOOR-lane floor, per shard under a mesh), 0 off.  K1
+    ignores it: its lane cursor keeps its warps full (the megakernel
+    path, run.py:150-152).  `mesh` (parallel/shard.Mesh, on `device`)
+    shards the lanes over its ranks; the batch is then padded to a
+    multiple of 128 lanes a rank (run.py:126-129)."""
 
     setup: RunSetup
     device: torch.device
@@ -142,6 +164,7 @@ class TransportEngine:
     batch_size: int = 0
     fused: bool = True
     compact_levels: int = -1
+    mesh: shard.Mesh = None
     n_pushes_total: int = 0
     n_trajectories_total: int = 0
 
@@ -152,11 +175,19 @@ class TransportEngine:
             max(cfg.n_pts_inj + 64, cfg.n_pts_pcut, cfg.n_pts_pcut_hi))
         if self.batch_size > 8192:
             self.batch_size = _round_up(self.batch_size, 4096)
+        self.world = 1 if self.mesh is None else self.mesh.size
+        if self.world > 1:
+            if self.mesh.device != self.device:
+                raise ValueError(f"the engine runs on {self.device}, its "
+                                 f"mesh rank on {self.mesh.device}")
+            self.batch_size = shard.pad_to_devices(self.batch_size,
+                                                   self.world)
         self.base_key = rng.key(cfg.random_seed)
         self.n_tcut_slots = max(len(cfg.tcuts), 1)
         self.subtimers = defaultdict(float)    # MCS_SUBTIMERS=1
         if self.compact_levels < 0:
-            self.compact_levels = auto_compact_levels(self.batch_size)
+            self.compact_levels = auto_compact_levels(
+                self.batch_size // self.world)
         # the XLA engine's fixed buffers (made at first use) and graphs
         self._xla_bufs, self._xla_tables = {}, {}
         self.graphs = xla_step.GraphCache()
@@ -274,17 +305,37 @@ class TransportEngine:
         population, the species' tallies and the segment index are
         restored and the ladder goes on from the saved boundary.  `it`
         is then the restored species-start copy, which already holds the
-        injection's fast-push flux backfill."""
+        injection's fast-push flux backfill.
+
+        Under a mesh the host-split ladder saves the whole batch (and the
+        accumulators summed over the ranks), so its checkpoint resumes on
+        any world size; the mesh hybrid ladder saves nothing, and a resume
+        into it raises (run.py:418-434)."""
         setup, cfg, bins = self.setup, self.setup.cfg, self.setup.bins
         s = cfg.species[i_ion]
         nb, b, dev = setup.nb, self.batch_size, self.device
+        mesh, world = self.mesh, self.world
         ss = self.step_static(i_ion)
         k1 = self.uses_k1(ss)
-        mode = ("k1" if k1 else "xla") + ("" if self.fused else "-host")
+        # the mesh hybrid ladder: K1 splitting each rank's own lanes
+        hybrid = world > 1 and k1 and self.fused
+        host = not self.fused or (world > 1 and not hybrid)
+        mode = ("k1" if k1 else "xla") + ("-host" if host else "")
         if resume_mid is not None:
-            _check_resume(resume_mid, i_iter, i_ion, mode, self.p_dtype, b)
+            if hybrid:
+                raise ValueError(
+                    "a mid checkpoint cannot resume into the mesh hybrid "
+                    "ladder, which splits each rank's lanes on its own; "
+                    "resume with fused=False (--no-fused)")
+            _check_resume(resume_mid, i_iter, i_ion, mode, self.p_dtype,
+                          None if host else b)
         if k1:
             mega.check_supported(ss)
+        if ckpt is not None and hybrid:
+            log.warning("mid checkpointing inactive for iter %d ion %d: the "
+                        "mesh hybrid ladder splits each rank's lanes on "
+                        "its own", i_iter, i_ion)
+            ckpt = None
         if ckpt is not None:
             ckpt.reset(resume_mid["next_seg"] if resume_mid else 0)
         # MCS_SUBTIMERS=1: the transport phase split into population
@@ -327,6 +378,7 @@ class TransportEngine:
             esc = EscapeTallies.zeros(bins.n_mom, bins.n_theta, dev)
             start = pushes = 0
             trajectories = n0
+            seg_new = []
         else:
             r = resume_mid
             state, tal, esc = r["state"], r["tal"], r["esc"]
@@ -337,6 +389,20 @@ class TransportEngine:
             reasons = r["reasons"]
             start = int(r["next_seg"])
             pushes, trajectories = int(r["pushes"]), int(r["trajectories"])
+            # the segments before the save (a checkpoint of an older
+            # port has no record of them)
+            seg_new = list(r.get("n_new", ()))
+            if host:
+                state = _fit_lanes(state, b)
+            if world > 1 and mesh.rank > 0:
+                # the saved sums are every rank's: rank 0 carries them
+                for a in [*vars(tal).values(), *vars(esc).values(),
+                          reasons]:
+                    if isinstance(a, torch.Tensor):
+                        a.zero_()
+        if world > 1:
+            state = multihost.global_state(state, mesh)
+        splits = [] if hybrid else None
         if not k1:
             state, tal = self._fixed(state), self._fixed(tal)
         if subt:
@@ -365,14 +431,39 @@ class TransportEngine:
             reasons += torch.bincount(
                 torch.where(state.status == stt.FINISHED, state.reason,
                             0).long(), minlength=5)[:5]
-            pushes += int(state.nsteps.sum(dtype=torch.int64))
             n_target = (cfg.n_pts_pcut if cfg.pcuts[i_pcut] < p_pcut_hi
                         else cfg.n_pts_pcut_hi)
             seg_key = rng.fold_in(ion_key, i_pcut + 1)
-            if self.fused:
-                state, n_new = split_on_device(state, n_target, seg_key)
+            if host:
+                # every rank splits the whole batch alike and keeps its
+                # shard; the next segment's population stays whole for a
+                # checkpoint
+                full = (shard.gather_state(state, mesh) if world > 1
+                        else state)
+                pushes += int(full.nsteps.sum(dtype=torch.int64))
+                full, n_new = self._host_split(full, n_target, seg_key)
+                state = (multihost.global_state(full, mesh) if world > 1
+                         else full)
+            elif hybrid:
+                saved = state.status == stt.SAVED
+                row = dict(n_saved=int(saved.sum()),
+                           target=shard.shard_target(n_target, world,
+                                                     mesh.rank),
+                           nsteps=int(state.nsteps.sum(dtype=torch.int64)),
+                           w_saved=float(state.weight[saved].sum(
+                               dtype=torch.float64)))
+                state, row["n_new"] = split_on_device(
+                    state, row["target"], seg_key,
+                    lane_offset=mesh.rank * state.weight.shape[0])
+                row["w_new"] = float(state.weight.sum(dtype=torch.float64))
+                rec = shard.split_record(mesh, **row)
+                splits.append(dict(rec, n_target=n_target))
+                n_new = int(rec["n_new"].sum())
+                pushes += int(rec["nsteps"].sum())
             else:
-                state, n_new = self._host_split(state, n_target, seg_key)
+                pushes += int(state.nsteps.sum(dtype=torch.int64))
+                state, n_new = split_on_device(state, n_target, seg_key)
+            seg_new.append(n_new)
             trajectories += n_new
             if n_new == 0:
                 log.info("iter %d ion %d: pcut chain ended at %d",
@@ -384,8 +475,12 @@ class TransportEngine:
                 ckpt.maybe(i_pcut + 1, lambda: dict(
                     mode=mode, p_dtype=str(self.p_dtype), batch_size=b,
                     i_iter=i_iter, i_ion=i_ion, next_seg=i_pcut + 1,
-                    state=state, tal=tal, esc=esc, reasons=reasons,
-                    pushes=pushes, trajectories=trajectories, it=it))
+                    state=full if host else state,
+                    **self._summed(tal=tal, esc=esc, reasons=reasons),
+                    pushes=pushes, trajectories=trajectories,
+                    n_new=list(seg_new), it=it))
+        if world > 1:
+            shard.reduce_ion_accumulators(mesh, tal, esc, reasons)
         if subt:
             self._sync()
             self.subtimers["ladder"] += time.perf_counter() - t0
@@ -412,13 +507,24 @@ class TransportEngine:
             num_crossings=fin.num_crossings.cpu().numpy(),
             esc=esc.to_numpy(), spectra_sf=fin.spectra_sf.cpu().numpy(),
             spectra_pf=fin.spectra_pf.cpu().numpy(), n_pushes=pushes,
-            n_trajectories=trajectories,
+            n_trajectories=trajectories, n_new=seg_new, splits=splits,
             reason_counts=reasons.cpu().numpy(),
             retro_entries=float(fin.retro_entries),
             energy_received=float(fin.energy_received),
             energy_radiated=float(fin.energy_radiated))
         if subt:
             self.subtimers["tally_fetch"] += time.perf_counter() - t0
+        return out
+
+    def _summed(self, **acc) -> dict:
+        """The accumulators `acc` summed over the ranks, as copies (for a
+        checkpoint: the run goes on with this rank's own)."""
+        if self.world == 1:
+            return acc
+        out = {k: (v.clone() if isinstance(v, torch.Tensor)
+                   else stt.clone(v)) for k, v in acc.items()}
+        shard.reduce_ion_accumulators(self.mesh, out["tal"], out["esc"],
+                                      out["reasons"])
         return out
 
     def _host_split(self, state, n_target: int, seg_key):
@@ -460,21 +566,41 @@ class TransportEngine:
 
 
 def _check_resume(r: dict, i_iter: int, i_ion: int, mode: str,
-                  p_dtype: torch.dtype, batch_size: int) -> None:
+                  p_dtype: torch.dtype, batch_size: int | None) -> None:
     """A mid checkpoint resumes only the (iteration, species), engine,
     momentum dtype and batch size that wrote it (the JAX package's
-    run.py:284-290, 464-469)."""
+    run.py:284-290, 464-469); a host-split population (`batch_size`
+    None) fits any batch that holds its lanes (_fit_lanes)."""
     if (r["i_iter"], r["i_ion"]) != (i_iter, i_ion):
         raise ValueError(
             "mid checkpoint is for (iter %d, ion %d), not (%d, %d)"
             % (r["i_iter"], r["i_ion"], i_iter, i_ion))
     got = (r["mode"], r["p_dtype"], int(r["batch_size"]))
-    want = (mode, str(p_dtype), batch_size)
+    want = (mode, str(p_dtype),
+            got[2] if batch_size is None else batch_size)
     if got != want:
         raise ValueError(
             "mid checkpoint was written by engine %r with %s momenta and "
             "%d lanes, but this run selects engine %r with %s momenta and "
             "%d lanes; rerun with the same configuration" % (got + want))
+
+
+def _fit_lanes(state: stt.ParticleState, b: int) -> stt.ParticleState:
+    """A host-split population (its lanes first, zero-weight FINISHED
+    padding after them) cut or padded to `b` lanes, so that a mid
+    checkpoint of one world size resumes on another."""
+    n = state.weight.shape[0]
+    if n == b:
+        return state
+    pad = (state.weight[b:] != 0) | (state.status[b:] != stt.FINISHED)
+    if n > b and bool(pad.any()):
+        raise ValueError(f"the mid checkpoint's population has lanes "
+                         f"beyond this run's {b}")
+    return stt.ParticleState(**{
+        k: (v[:b] if n > b else torch.cat([v, torch.full(
+            (b - n,), stt.FINISHED if k == "status" else 0,
+            dtype=v.dtype, device=v.device)]))
+        for k, v in vars(state).items()})
 
 
 def populate_eps_target(energy_transfer_frac: float, u0: float,

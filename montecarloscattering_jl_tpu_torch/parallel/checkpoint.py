@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from ..models.profile import ShockProfile
+from .shard import barrier
 
 MANIFEST = "__manifest__"
 _PACKAGE = __name__.split(".")[0]
@@ -222,13 +223,16 @@ class MidCheckpointer:
     the cadence hits.  ``context_fn`` is installed by the driver before
     each species and supplies the driver-level half of the payload
     (profile, histories, completed species' IonFinals).  ``seconds``
-    sums the time spent saving."""
+    sums the time spent saving.  Under a `mesh` (parallel/shard.Mesh)
+    every rank builds the payload, whose sums are collectives, and rank
+    0 alone writes it while the others wait."""
 
     def __init__(self, path: str, every: int = 8,
-                 stop_after_save: bool = False):
+                 stop_after_save: bool = False, mesh=None):
         self.path = path
         self.every = max(int(every), 1)
         self.stop_after_save = stop_after_save
+        self.mesh = mesh
         self.context_fn = None
         self.n_saved = 0
         self.seconds = 0.0
@@ -250,7 +254,10 @@ class MidCheckpointer:
         payload = dict(payload_fn())
         if self.context_fn is not None:
             payload["driver"] = self.context_fn()
-        save_mid_checkpoint(self.path, payload)
+        if self.mesh is None or self.mesh.rank == 0:
+            save_mid_checkpoint(self.path, payload)
+        if self.mesh is not None:
+            barrier(self.mesh)
         self.seconds += time.perf_counter() - t0
         self.n_saved += 1
         if self.stop_after_save:

@@ -21,6 +21,18 @@
   seconds, and the device ms a step at each window size (CUDA events
   around every graph replay).  A checkout without the ladder (its
   ``run`` takes no compact_levels) runs once, as "none".
+* ``--mesh-spread N``: chip_smoke.py phase f32's run (the flagship at
+  65,536 a pcut, 2 iterations, float32 on K1) with N random seeds (the
+  config's and the next N - 1), once in this process and once on the
+  mesh hybrid ladder of two ranks sharing the card (gloo): each run's
+  pushes, trajectories and every segment's new lanes; over the run and
+  over iteration 1, the largest relative difference (over the smaller)
+  between two one-process runs, and each seed's mesh run against its
+  one-process run.  The split makes
+  n_saved * (target // n_saved) new lanes, which halves where n_saved
+  crosses target / 2, so runs that are statistically the same differ in
+  their counts (PERF.md, PR 9: why the mesh phase of chip_smoke.py
+  holds the hybrid's counts to a bound in iteration 1 only).
 * ``--cold``: the science variant and then the SED flagship once each,
   the process's first runs, as a CLI run is (the reductions' pinned
   host buffers are allocated anew): wall and phases.  With ``--root``
@@ -32,6 +44,7 @@ Prints the card's name and power limit first.  Run by path, so that
 
     python montecarloscattering_jl_tpu_torch/scripts/probe_driver.py \\
         [--root DIR] [--spread 3] [--overlap] [--cold] [--compact 0,2,-1]
+        [--mesh-spread 6]
 """
 
 from __future__ import annotations
@@ -110,6 +123,79 @@ def spread(n_runs: int) -> dict:
     print(f"subtimed run: wall {wall:.3f} s, transport "
           f"{res.timers.totals['transport']:.3f} s, split "
           f"{json.dumps(res.subtimers)}")
+    return out
+
+
+def f32_flagship(seed: int | None = None):
+    """chip_smoke.py phase f32's config (2 iterations, smoothing on,
+    wl.LANES a pcut), with another random seed where given."""
+    from montecarloscattering_jl_tpu_torch.scripts import (
+        flagship_nonlinear as fn, workloads as wl)
+
+    cfg = fn.nonlinear_config(wl.LANES, 2)
+    if seed is not None:
+        cfg.random_seed = seed
+    return cfg
+
+
+def count_rows(res) -> list:
+    """Per iteration: pushes, trajectories, each segment's new lanes."""
+    return [dict(pushes=f.n_pushes, trajectories=f.n_trajectories,
+                 n_new=f.n_new)
+            for itr in res.iterations for f in itr.ion_finals]
+
+
+def mesh_spread_rank(mesh, seeds) -> list:
+    """One rank of --mesh-spread: the f32 flagship on the mesh hybrid
+    ladder for each seed; (rows, wall s) a seed."""
+    import torch
+
+    from montecarloscattering_jl_tpu_torch.engine.driver import run
+
+    out = []
+    for seed in seeds:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run(f32_flagship(seed), mesh.device, p_dtype=torch.float32,
+                  mesh=mesh)
+        torch.cuda.synchronize()
+        out.append((count_rows(res), time.perf_counter() - t0))
+    return out
+
+
+def mesh_spread(n_seeds: int) -> dict:
+    import torch
+
+    from montecarloscattering_jl_tpu_torch.parallel import multihost
+
+    seeds = [f32_flagship().random_seed + k for k in range(n_seeds)]
+    total = lambda rows, key: sum(r[key] for r in rows)
+    single = []
+    for seed in seeds:
+        res, wall = timed_run(f32_flagship(seed), torch.float32)
+        single.append(count_rows(res))
+        print(f"mesh-spread seed {seed}, one process: wall {wall:.3f} s, "
+              f"{json.dumps(single[-1])}")
+    mesh = multihost.spawn(mesh_spread_rank, 2, args=(seeds,),
+                           backend="gloo", device="cuda", timeout=1800)[0]
+    for seed, (rows, wall) in zip(seeds, mesh):
+        print(f"mesh-spread seed {seed}, mesh hybrid (2 ranks sharing the "
+              f"card, gloo): wall {wall:.3f} s, {json.dumps(rows)}")
+    out = {}
+    for span, sl in (("run", slice(None)), ("iteration 1", slice(0, 1))):
+        out[span] = dict(single={}, mesh={})
+        for key in ("pushes", "trajectories"):
+            vals = [total(r[sl], key) for r in single]
+            out[span]["single"][key] = max(
+                abs(a - b) / min(a, b)
+                for i, a in enumerate(vals) for b in vals[i + 1:])
+            out[span]["mesh"][key] = [
+                abs(total(m[sl], key) - v) / min(total(m[sl], key), v)
+                for (m, _), v in zip(mesh, vals)]
+        print(f"mesh-spread, {span}: largest relative difference between "
+              f"two one-process runs {json.dumps(out[span]['single'])}; "
+              f"each mesh run against its seed's one-process run "
+              f"{json.dumps(out[span]['mesh'])}")
     return out
 
 
@@ -205,6 +291,9 @@ def main(argv=None) -> int:
                     help="uninterrupted nonlinear flagship runs (>= 2)")
     ap.add_argument("--overlap", action="store_true")
     ap.add_argument("--cold", action="store_true")
+    ap.add_argument("--mesh-spread", type=int, default=0,
+                    help="seeds of the f32 flagship, one process against "
+                         "the mesh hybrid (>= 2)")
     ap.add_argument("--compact", default="",
                     help="comma-separated compaction depths of the f64 "
                          "flagship (-1 auto)")
@@ -233,6 +322,8 @@ def main(argv=None) -> int:
         overlap()
     if args.compact:
         compact([int(v) for v in args.compact.split(",")])
+    if args.mesh_spread >= 2:
+        mesh_spread(args.mesh_spread)
     return 0
 
 

@@ -9,7 +9,10 @@ graph) against the same segment on the CPU, the compaction ladder
 lane for lane against the uncompacted drain and its graphs replayed
 across segments; and the batched emission
 functions (models/emission/device.py) on the card against the per-zone
-NumPy oracles.  Every test here needs the
+NumPy oracles; and the mesh (parallel/): two ranks sharing the card
+under gloo against one process (counts exact, lanes bit for bit), two
+cards under NCCL where there are two, and NCCL's one card a rank where
+there is one.  Every test here needs the
 card: it carries the ``cuda`` marker and skips without one.  Run on the
 card with
 
@@ -465,3 +468,70 @@ def test_graphs_replay_across_segments(card):
     for f in dataclasses.fields(st0):
         assert torch.equal(getattr(st, f.name), getattr(ref, f.name)), \
             f.name
+
+
+# ---- the mesh: ranks on the card (tests/torch_mesh_cases.py) --------------
+
+
+def test_two_ranks_share_one_card_with_gloo(card):
+    """Two ranks on cuda:0 joined by gloo (two processes sharing the
+    card): the XLA engine (float64, under fused=True, so the host split)
+    and K1 (float32, fused=False) give the single-process counts and
+    exit reasons exactly, and every lane handed to the host split bit
+    for bit, on tests/test_parallel.py's small config."""
+    import torch_mesh_cases as mc
+    from montecarloscattering_jl_tpu_torch.parallel import multihost
+
+    cases = [("xla-f64", False), ("k1-f32-host", False)]
+    ranks = multihost.spawn(mc.engine_cases, 2, args=(cases,),
+                            backend="gloo", device="cuda", timeout=600)
+    for i, ref_case in enumerate(("xla-f64-host", "k1-f32-host")):
+        ref = mc.engine_case(None, ref_case, device=card)
+        for rank in ranks:
+            got = rank[i]
+            assert got["mesh"]["device"] == "cuda:0"
+            assert (got["pushes"], got["trajectories"], got["n_new"]) == (
+                ref["pushes"], ref["trajectories"], ref["n_new"])
+            np.testing.assert_array_equal(got["reasons"][1:],
+                                          ref["reasons"][1:])
+        for a, b in zip(ref["split_inputs"], ranks[0][i]["split_inputs"]):
+            n = len(a["weight"])
+            for k in a:
+                np.testing.assert_array_equal(b[k][:n], a[k], err_msg=k)
+
+
+def test_two_cards_with_nccl(card):
+    """A rank a card under NCCL: the same counts as one process."""
+    import torch_mesh_cases as mc
+    from montecarloscattering_jl_tpu_torch.parallel import multihost
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    ranks = multihost.spawn(mc.engine_cases, 2,
+                            args=([("xla-f64", False)],), backend="nccl",
+                            device="cuda", timeout=600)
+    ref = mc.engine_case(None, "xla-f64-host", device=card)
+    assert [r[0]["mesh"]["device"] for r in ranks] == ["cuda:0", "cuda:1"]
+    for r in ranks:
+        assert (r[0]["pushes"], r[0]["trajectories"]) == (
+            ref["pushes"], ref["trajectories"])
+
+
+def test_nccl_takes_one_card_a_rank(card, tmp_path):
+    """With one card, two NCCL ranks are refused: by NCCL itself when
+    both use card 0, by make_mesh before that, and by the CLI's
+    --devices 2 before any rank starts."""
+    import torch_mesh_cases as mc
+    from montecarloscattering_jl_tpu_torch.__main__ import main as cli_main
+    from montecarloscattering_jl_tpu_torch.parallel import multihost
+
+    if torch.cuda.device_count() != 1:
+        pytest.skip("needs exactly one CUDA card")
+    with pytest.raises((RuntimeError, TimeoutError)):
+        multihost.spawn(mc.nccl_all_reduce_on_card_0, 2, backend="nccl",
+                        device="cpu", timeout=120)
+    with pytest.raises(RuntimeError, match="gloo"):
+        multihost.spawn(mc.engine_cases, 2, args=([],), backend="nccl",
+                        device="cuda", timeout=120)
+    with pytest.raises(RuntimeError, match="NCCL"):
+        cli_main([CFG, "-o", str(tmp_path), "--devices", "2"])

@@ -286,7 +286,8 @@ def _finalize_both(runs, mp, mode):
         psd=fi.psd, therm_psd=fi.therm_psd, num_crossings=fi.num_crossings,
         esc=fi.esc, spectra_sf=fi.spectra_sf, spectra_pf=fi.spectra_pf,
         n_pushes=fi.n_pushes, n_trajectories=fi.n_trajectories,
-        reason_counts=fi.reason_counts, retro_entries=fi.retro_entries,
+        n_new=fi.n_new, splits=fi.splits, reason_counts=fi.reason_counts,
+        retro_entries=fi.retro_entries,
         energy_received=fi.energy_received,
         energy_radiated=fi.energy_radiated)
     a = jdriver.ion_finalize(ref.setup, res, ref.setup.profile, 0, True)
