@@ -5,8 +5,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
 1. Prints the card (nvidia-smi name and power limit) and builds every
    kernel of the port with nvcc for sm_90a, one nvcc per source, all
    started together: K1 (csrc/mega_step.cu, one instance per flag word
-   of ops/mega.py INSTANCES) and K2/K3 (csrc/psd_hist.cu), with each
-   kernel's registers, stack and spills.
+   of ops/mega.py INSTANCES), K2/K3 (csrc/psd_hist.cu) and K5
+   (csrc/helix_step.cu, the instances of ops/helix.py INSTANCES), with
+   each kernel's registers, stack and spills.
 2. ``k1``: holds K1 against its plain PyTorch version (ops/mega.py
    step_twin) on the card, on the flagship population:
    tests/data/dsa_nonrel.toml, 65,536 injected lanes at pcut index 2.
@@ -41,8 +42,25 @@ Run from the root of a checkout:  python3 chip_smoke.py
    one ``index_add_`` of the same records (the library call, never used
    by the port), and checked against float64.  Every kernel and the
    ``index_add_`` are timed under CUDA-graph replay, the way the
-   transport path launches K2, and eagerly; K2 also on the helix step's
+   plain step's graphs launch K2, and eagerly; K2 also on the helix step's
    own tensors (int64 zones, float64 weights).
+4b. ``k5``: holds K5 (ops/helix.py, the XLA engine's helix step in one
+   launch a 64-step block) against the plain step's block (ops/step.py
+   _block) on the card: (a) its in-kernel uniforms against
+   rng.lane_uniforms_xla, bit for bit, on 69,632 keys at counters 0, 1,
+   63, 1,000, 2^31 - 1 and random ones; (b) one window of the f64
+   flagship population (phase f64's config, its 69,632 injected lanes at
+   pcut 0); (c) a full drain of the same lanes through run_segment at
+   the auto compaction depth, K5 against the plain step's CUDA graphs;
+   (d) a window of each flag case at float64 (scripts/workloads.py
+   helix_flag_case: the science protons and electrons, the shipped
+   switches, the f(r_g) law on both) and of the f32 flagship with
+   detectors.  Per lane within K5_TOL (integer fields equal on all but
+   MAX_DIVERGENT of the lanes), the float64 tallies within K5_TALLY_TOL
+   of their largest entry, the PSD within HIST_TOL; each case prints the
+   instance it ran, K5's ms a window (CUDA events, enqueued), the plain
+   block's under graph replay and the bound; a case with an instance of
+   its own also runs the run-time instance (the same bits, its time).
 5. ``f32``: drives the K1 path: ``engine.driver.run`` on the flagship
    nonlinear config with float32 momenta (65,536 particles per pcut,
    smoothing on, 2 iterations); checks that every transport launch went
@@ -73,7 +91,7 @@ Run from the root of a checkout:  python3 chip_smoke.py
    above 1e-90.
 9. ``electrons``: examples/03 with photon production off and the
    baseline's energy-transfer fraction 0.1 at float64 momenta (the XLA
-   engine and K2), cut to its first 4 pcuts and a 2,000-step helix cap: the
+   engine, K5), cut to its first 4 pcuts and a 2,000-step helix cap: the
    ions' pool, the electrons' received and radiated energy must be
    positive.  Float64, because a thermal proton's gamma - 1 (~2e-8) and
    an electron's loss in a step (~1e-10 of its momentum) are below a
@@ -84,20 +102,22 @@ Run from the root of a checkout:  python3 chip_smoke.py
 10. ``f64``: drives the XLA-engine path, the JAX CLI's default: the
    flagship config with float64 momenta and two x_spec detectors at
    -/+0.5 r_g0, 1 iteration, cut to its first 4 pcuts; checks that every
-   PSD deposit went through K2 (none through its plain version, no K1
-   launch), that the output files with mc_xspec.dat are written, that
-   both detectors' spectra are positive, and the slope.
+   block launched K5 (its PSD deposits through K2's warp deposit inside
+   it; no plain block, no standalone K2, no K1), that the output files
+   with mc_xspec.dat are written, that both detectors' spectra are
+   positive, and the slope; prints the pushes against the same run on
+   the plain step (PR 8).
 11. ``resume``: phase f64's run again, with a segment-boundary
     checkpoint after every segment, stopped by MCS_MID_STOP_AFTER=1 at
     the first save (before the second of its 4 segments) and resumed
-    from it to the end: every deposit of both runs through K2; against
+    from it to the end: every block of both runs a K5 launch; against
     phase f64's run, pushes, trajectories and exit reasons exactly (one
     iteration of protons: no lane reads an atomically summed value),
     fluxes and spectra within 1e-9 of their largest entry, the PSDs
     within 1e-4 of max |psd|; the checkpoint's bytes and save times.
 12. ``shipped``: configs/baseline.toml as shipped (no-scatter, no-DSA)
-    at float64 on the XLA engine, 1 iteration: every PSD deposit
-    through K2, the coupled CSVs written, pushes and trajectories
+    at float64 on the XLA engine, 1 iteration: every block a K5
+    launch, the coupled CSVs written, pushes and trajectories
     printed.
 13. ``nonlinear``: the nonlinear flagship (scripts/flagship_nonlinear.py
     of the port) at 65,536 a pcut, 10 iterations on K1, an iteration
@@ -115,10 +135,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
     compact_levels=0 and holds it to phase f64's run as phase resume
     does, prints both runs' wall, transport and graph captures, then
     drains the flagship's injected population (69,632 lanes, pcut 0)
-    once at levels 0 and once at auto through ``run_segment``: every
-    per-lane field bit-identical, and the device ms a step at each
-    window size (CUDA events around each graph replay).
-15. ``oblique``: the oblique step at float64 on the flagship population:
+    once at levels 0 and once at auto through ``run_segment`` (K5 on
+    every block): every per-lane field bit-identical, and the device ms
+    a step at each window size (CUDA events around each K5 launch).
+15. ``oblique``: the oblique step at float64 on the flagship population
+   (the plain step: the oblique branches are not in K5):
     64 steps at theta_B = 0 through the oblique branches against the
     parallel ones (integer fields equal, float fields within 1e-12
     relative), and 64 steps at theta_B = 30 degrees in a uniform flow
@@ -150,8 +171,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
     flagship's 69,632 injected lanes, pcut 0, f64) with each rank
     draining its shard at the per-shard auto compaction depth; the
     gathered lanes bit-identical in every field to phase compact's.
-    Every rank's drains launch K1 (none the twin) in (1) and (2), and K2
-    deposits every step of (3) on every rank.  Each part prints its
+    Every rank's drains launch K1 (none the twin) in (1) and (2), and
+    every block of (3) is a K5 launch on every rank.  Each part prints its
     wall, pushes, pushes/s, launches a rank and the collectives with
     their seconds.  (4) With two cards or more, (1) again under NCCL, a
     card a rank; with one, a line says it did not run.
@@ -249,25 +270,57 @@ K1_OPS_PER_PUSH = 560
 # bytes of one lane's state K1 reads (80) and writes (68)
 K1_STATE_BYTES = 148
 HIST_RECORD_BYTES = 16                     # cell, lo, hi, w
+# phase k5: K5 against the plain step on the card, per lane (momenta
+# relative to |p|) and in every float64 tally (of its largest entry;
+# the PSD takes HIST_TOL), lanes whose integer fields differ counted and
+# held to MAX_DIVERGENT; the uniforms' counters; timing repeats
+K5_TOL = 1e-12
+K5_TALLY_TOL = 1e-9
+K5_INTS = ("status", "reason", "nsteps", "igrid", "tcut", "flags")
+K5_COUNTERS = (0, 1, 63, 1000, 2 ** 31 - 1)
+K5_CAP, K5_REPS = 10_000, 10
+# the H100 SXM's float64 rate outside the tensor cores
+F64_OPS_S = 34e12
+# K5's floating-point operations a push, counted from csrc/helix_step.cu
+# on the flagship's branches (a moving proton, two x_spec detectors,
+# about one step in three crossing a boundary): the zone fields and the
+# gyro radius (2), four hypot (~30), the pmax test, gyro period and
+# scattering (~30 with cos and two sqrt), the acceleration time and
+# movement (~20), the zone search (7 compares), the shock-frame momentum
+# and its momentum bin (~30), the crossing's angle bin and flux values
+# (~10 a step on average), the detector entries (~25), the downstream
+# tests (~15) and the casts and selects around them (~60); the three
+# Threefry blocks (~230 integer operations) are not counted
+K5_OPS_PER_PUSH = 230
+# bytes of one lane's state K5 reads and writes a launch (float64 and
+# float32 momenta: 112 + 96, 84 + 72)
+K5_STATE_BYTES = {8: 208, 4: 156}
+# phase f64's pushes on the plain step (PERF.md §5, PR 8)
+F64_PLAIN_PUSHES = 536_113_343
 
 
 def fail(msg: str) -> None:
     raise RuntimeError(msg)
 
 
-def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound(n_bytes: float, n_ops: float,
+          ops_s: float = F32_OPS_S) -> tuple[float, str]:
     """The least time [ms] the card could take: bytes over the memory
-    rate or operations over the float32 rate, whichever is larger."""
-    t_b, t_o = n_bytes / HBM_BYTES_S * 1e3, n_ops / F32_OPS_S * 1e3
+    rate or operations over their rate (the float32 rate unless given),
+    whichever is larger."""
+    t_b, t_o = n_bytes / HBM_BYTES_S * 1e3, n_ops / ops_s * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
-def compare_lanes(a, b) -> dict:
-    """Per-lane differences between two states (K1 = a, twin = b)."""
+def compare_lanes(a, b, tol: float = ULP_BOUND,
+                  ints=("status", "reason", "nsteps", "flags", "tcut")) -> dict:
+    """Per-lane differences between two states (the kernel's = a, the
+    plain version's = b): lanes whose integer fields `ints` differ, and
+    float fields beyond `tol` relative on the others."""
     import torch
     out = {}
     same = torch.ones_like(a.status, dtype=torch.bool)
-    for name in ("status", "reason", "nsteps", "flags", "tcut"):
+    for name in ints:
         eq = getattr(a, name) == getattr(b, name)
         out[f"mismatch_{name}"] = int((~eq).sum())
         same &= eq
@@ -282,7 +335,7 @@ def compare_lanes(a, b) -> dict:
         rel = ((va - vb).abs() / scale.clamp(min=1e-300))[same]
         rel = torch.where(va[same] == vb[same], 0.0, rel)
         worst = max(worst, float(rel.max()) if rel.numel() else 0.0)
-        n_off += int((rel > ULP_BOUND).sum())
+        n_off += int((rel > tol).sum())
         out[f"maxrel_{name}"] = float(rel.max()) if rel.numel() else 0.0
     out["float_lanes_over_bound"] = n_off
     out["divergent_lanes"] = int((~same).sum())
@@ -571,6 +624,240 @@ def hist_phase(dev) -> dict:
     return out
 
 
+def k5_uniforms(st) -> int:
+    """K5's in-kernel uniforms (its debug entry) against
+    rng.lane_uniforms_xla on the card, bit for bit, at every counter of
+    K5_COUNTERS and at random per-lane counters; returns the values
+    compared."""
+    import torch
+
+    from montecarloscattering_jl_tpu_torch.ops import helix, rng
+
+    n, dev = st.key0.shape[0], st.key0.device
+    gen = torch.Generator().manual_seed(10)
+    ctrs = [torch.full((n,), c, dtype=torch.int32, device=dev)
+            for c in K5_COUNTERS]
+    ctrs.append(torch.randint(0, 2 ** 31 - 1, (n,), generator=gen,
+                              dtype=torch.int32).to(dev))
+    bad = sum(int((helix.uniforms(st.key0, st.key1, c)
+                   != rng.lane_uniforms_xla(st.key0, st.key1, c)).sum())
+              for c in ctrs)
+    print(f"k5 uniforms: {n} keys at counters {list(K5_COUNTERS)} and at "
+          f"random ones: {bad} of {8 * n * len(ctrs)} differ")
+    if bad:
+        fail(f"k5 uniforms: {bad} differ from rng.lane_uniforms_xla")
+    return 8 * n * len(ctrs)
+
+
+def hold_k5_tallies(tag, tk, tp) -> dict:
+    """Every tally of K5 (tk) against the plain step's (tp): the largest
+    difference over the largest entry, within K5_TALLY_TOL (the PSD,
+    float32: HIST_TOL); returns them with the PSD's max abs error."""
+    import torch
+
+    out = {}
+    for f in dataclasses.fields(tp):
+        b = getattr(tp, f.name)
+        if not isinstance(b, torch.Tensor):
+            continue
+        a = getattr(tk, f.name).double()
+        b = b.double()
+        err = float((a - b).abs().max())
+        scale = float(b.abs().max())
+        tol = HIST_TOL if f.name == "psd_diff" else K5_TALLY_TOL
+        if not (math.isfinite(err) and err <= tol * scale):
+            fail(f"{tag}: {f.name} differs by {err!r} (largest entry "
+                 f"{scale!r}, bound {tol} of it)")
+        out[f.name] = err / scale if scale else 0.0
+        if f.name == "psd_diff":
+            out["psd_max_abs_err"] = err
+    return out
+
+
+def time_windows(st, st0, block, reps: int) -> float:
+    """Mean device ms of block() over `reps` runs (after a first, a
+    warm-up), the lanes reset to st0 before each: CUDA events around the
+    block alone."""
+    import torch
+
+    from montecarloscattering_jl_tpu_torch.ops import state as stt
+
+    total = 0.0
+    for r in range(reps + 1):
+        stt.copy_into(st, st0)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        block()
+        ev[1].record()
+        torch.cuda.synchronize()
+        if r:
+            total += ev[0].elapsed_time(ev[1])
+    return total / reps
+
+
+def hold_k5(tag, tb, st0, fresh_tal) -> dict:
+    """One WINDOW-step K5 launch against the plain step's block
+    (ops/step.py _block) from the same lanes: per lane within K5_TOL,
+    integer fields equal on all but MAX_DIVERGENT of the lanes, every
+    tally (hold_k5_tallies); then K5's ms a window (CUDA events around
+    the launch, enqueued) against the plain block's under CUDA-graph
+    replay (the plain step's path before K5), in the order plain, K5,
+    K5, plain, and the window's bound."""
+    import torch
+
+    from montecarloscattering_jl_tpu_torch.ops import helix
+    from montecarloscattering_jl_tpu_torch.ops import state as stt
+    from montecarloscattering_jl_tpu_torch.ops import step as xla_step
+
+    p = helix.pack(tb)
+    f64 = p.p_dtype == torch.float64
+    n = st0.weight.shape[0]
+    s_k, t_k = stt.clone(st0), fresh_tal()
+    s_p, t_p = stt.clone(st0), fresh_tal()
+    kl = helix.HelixLaunch(s_k, t_k, p)
+    torch.cuda.synchronize()
+    kl.enqueue(WINDOW, K5_CAP)
+    xla_step._block(s_p, t_p, tb, WINDOW, K5_CAP)
+    torch.cuda.synchronize()
+    lanes = compare_lanes(s_k, s_p, K5_TOL, K5_INTS)
+    print(f"{tag} window per-lane: {json.dumps(lanes)}")
+    if lanes["divergent_lanes"] > MAX_DIVERGENT * n:
+        fail(f"{tag} window: {lanes['divergent_lanes']} lanes diverge")
+    if lanes["float_lanes_over_bound"] > MAX_DIVERGENT * n:
+        fail(f"{tag} window: {lanes['float_lanes_over_bound']} float "
+             f"fields beyond {K5_TOL:g} relative")
+    tal = hold_k5_tallies(f"{tag} window", t_k, t_p)
+    fin = stt.finalize_tallies(t_p)
+    totals = {k: float(getattr(fin, k).double().sum()) for k in (
+        "num_crossings", "weight_coupled", "energy_pool", "retro_entries",
+        "energy_received", "energy_radiated", "spectra_sf")}
+    pushes = int((s_p.nsteps - st0.nsteps).sum())
+    touched = sum(2 * int(torch.count_nonzero(v)) * v.element_size()
+                  for v in (getattr(t_p, f.name)
+                            for f in dataclasses.fields(t_p))
+                  if isinstance(v, torch.Tensor))
+    g = xla_step._BlockGraph(s_p, t_p, tb, WINDOW, K5_CAP)
+    plain = lambda: time_windows(s_p, st0, g.replay, 2)
+    k5 = lambda: time_windows(s_k, st0, lambda: kl.enqueue(WINDOW, K5_CAP),
+                              K5_REPS)
+    p1, k1a, k1b, p2 = plain(), k5(), k5(), plain()
+    ms, plain_ms = (k1a + k1b) / 2, (p1 + p2) / 2
+    runtime = None
+    rt = helix.instance_of(f64, helix.CT_RUNTIME)
+    if p.instance != rt:
+        # the run-time instance on the same window: the same bits, and
+        # its time beside the specialised instance's
+        s_r, t_r = stt.clone(st0), fresh_tal()
+        kr = helix.HelixLaunch(s_r, t_r, dataclasses.replace(p, instance=rt))
+        kr.enqueue(WINDOW, K5_CAP)
+        torch.cuda.synchronize()
+        diff = [f.name for f in dataclasses.fields(st0)
+                if not torch.equal(getattr(s_r, f.name),
+                                   getattr(s_k, f.name))]
+        if diff:
+            fail(f"{tag}: the run-time instance differs from instance "
+                 f"{p.instance} in {diff}")
+        runtime = dict(instance=rt, ms=time_windows(
+            s_r, st0, lambda: kr.enqueue(WINDOW, K5_CAP), K5_REPS))
+    b_ms, b_by = bound(n * K5_STATE_BYTES[st0.pb.element_size()] + touched,
+                       pushes * K5_OPS_PER_PUSH,
+                       F64_OPS_S if f64 else F32_OPS_S)
+    inst = helix.INSTANCES[p.instance]
+    print(f"{tag}: instance {p.instance} {inst} (word {p.word:#x}); "
+          f"{WINDOW} steps x {n} lanes ({pushes} pushes): K5 {k1a:.4f} / "
+          f"{k1b:.4f} ms, plain step under graph replay {p1:.2f} / "
+          f"{p2:.2f} ms; bound {b_ms:.5f} ms ({b_by}); the run-time "
+          f"instance {json.dumps(runtime)}; tallies against plain "
+          f"{json.dumps(tal)}; plain totals {json.dumps(totals)}")
+    return dict(instance=p.instance, word=p.word, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, pushes=pushes, lanes=lanes,
+                tallies=tal, max_abs_err=tal["psd_max_abs_err"],
+                runtime=runtime)
+
+
+def k5_phase(dev) -> dict:
+    """Phase k5: K5 against the plain step on the card.  (a) The
+    uniforms; (b) one window of the f64 flagship population (phase
+    f64's config, the engine's 69,632 injected lanes at pcut 0); (c) a
+    full drain of the same lanes at the auto compaction depth through
+    run_segment, K5 against the plain step's graphs (per lane, tallies,
+    K5's device ms a step at each window size); (d) a window of each
+    flag case at float64 (scripts/workloads.py helix_flag_case) and of
+    the f32 flagship with x_spec detectors at float32."""
+    import torch
+
+    from montecarloscattering_jl_tpu_torch.engine.run import TransportEngine
+    from montecarloscattering_jl_tpu_torch.engine.setup import build_setup
+    from montecarloscattering_jl_tpu_torch.ops import state as stt
+    from montecarloscattering_jl_tpu_torch.ops import step as xla_step
+    from montecarloscattering_jl_tpu_torch.scripts import workloads as wl
+
+    def flagship(p_dtype):
+        cfg = flagship_config(p_dtype, 1, True)
+        setup = build_setup(cfg)
+        eng = TransportEngine(setup, device=dev, p_dtype=p_dtype)
+        ss = eng.step_static(0)
+        tb = xla_step.step_tables(
+            eng.segment_grids(setup.profile),
+            eng.segment_scalars(0, 0, setup.profile.bmag2), ss, dev)
+        st0 = wl.flagship_population(setup, cfg, dev, lanes=eng.batch_size,
+                                     p_dtype=p_dtype)
+        b = setup.bins
+        fresh = lambda: stt.make_tallies(setup.nb, b.n_mom, b.n_theta, dev,
+                                         n_xspec=ss.n_xspec)
+        return eng, tb, st0, fresh
+
+    eng, tb, st0, fresh = flagship(torch.float64)
+    out = dict(uniforms=k5_uniforms(st0))
+    out["flagship"] = hold_k5("k5 flagship", tb, st0, fresh)
+
+    # a full drain at the auto depth, K5 against the plain step's graphs
+    drains = {}
+    for who in ("plain", "k5"):
+        st, tl = stt.clone(st0), fresh()
+        g = xla_step.GraphCache()
+        g.timing = True
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        taken = xla_step.run_segment(st, tl, tb,
+                                     compact_levels=eng.compact_levels,
+                                     graphs=g, plain=who == "plain")
+        torch.cuda.synchronize()
+        drains[who] = (st, tl, dict(
+            wall=time.perf_counter() - t0, steps=taken,
+            pushes=int((st.nsteps - st0.nsteps).sum()),
+            captures=g.captures, capture_s=g.capture_s,
+            step_ms={str(k): v for k, v in g.step_ms().items()}))
+        print(f"k5 drain ({who}, {eng.compact_levels} levels): "
+              f"{json.dumps(drains[who][2])}")
+    (sk, tk, rk), (sp, tp, rp) = drains["k5"], drains["plain"]
+    lanes = compare_lanes(sk, sp, K5_TOL, K5_INTS)
+    print(f"k5 drain per-lane: {json.dumps(lanes)}")
+    n = st0.weight.shape[0]
+    if (lanes["divergent_lanes"] > MAX_DIVERGENT * n
+            or lanes["float_lanes_over_bound"] > MAX_DIVERGENT * n):
+        fail(f"k5 drain: {lanes}")
+    tal = hold_k5_tallies("k5 drain", tk, tp)
+    print(f"k5 drain tallies against plain: {json.dumps(tal)}")
+    window_ms = {k: v[1] * WINDOW for k, v in rk["step_ms"].items()}
+    print(f"k5 drain: K5's device ms a {WINDOW}-step window by window "
+          f"size {json.dumps(window_ms)}")
+    out["drain"] = dict(k5=rk, plain=rp, lanes=lanes, tallies=tal,
+                        window_ms=window_ms)
+
+    cases = {}
+    for case in wl.FLAG_CASES:
+        if case[4] == 1.0:
+            continue        # the f(r_g) law at alpha = 1: K1's own check
+        c = wl.helix_flag_case(case, dev)
+        cases[case[0]] = hold_k5(f"k5 {case[0]}", c["tb"], c["st0"],
+                                 c["fresh_tal"])
+    _, tb32, st32, fresh32 = flagship(torch.float32)
+    cases["f32 x_spec"] = hold_k5("k5 f32 x_spec", tb32, st32, fresh32)
+    out["cases"] = cases
+    return out
+
+
 def slope_of(res) -> tuple[float, float]:
     """The downstream power-law slope of iteration 1 and its theory."""
     import numpy as np
@@ -592,36 +879,45 @@ def slope_of(res) -> tuple[float, float]:
 
 def zero_counts() -> None:
     """Every kernel's launch count and the plain versions' calls to 0."""
-    from montecarloscattering_jl_tpu_torch.ops import hist, mega
+    from montecarloscattering_jl_tpu_torch.ops import helix, hist, mega
 
     mega.LAUNCHES = mega.TWIN_CALLS = mega.HOST_WAITS = 0
     hist.LAUNCHES = hist.BAND_LAUNCHES = hist.PLAIN_CALLS = 0
+    helix.LAUNCHES = helix.DEPOSIT_STEPS = helix.PLAIN_CALLS = 0
 
 
 def read_counts() -> dict:
-    from montecarloscattering_jl_tpu_torch.ops import hist, mega
+    from montecarloscattering_jl_tpu_torch.ops import helix, hist, mega
 
     return dict(k1=mega.LAUNCHES, k1_host_waits=mega.HOST_WAITS,
                 twin=mega.TWIN_CALLS, k2=hist.LAUNCHES,
-                k3=hist.BAND_LAUNCHES, hist_plain=hist.PLAIN_CALLS)
+                k3=hist.BAND_LAUNCHES, hist_plain=hist.PLAIN_CALLS,
+                k5=helix.LAUNCHES, k5_deposit_steps=helix.DEPOSIT_STEPS,
+                plain_blocks=helix.PLAIN_CALLS)
 
 
 def check_engine(tag, counts, p_dtype) -> None:
     """Every drain of a float32 run launched K1 (none the twin or the XLA
-    engine, and no drain waits on the host once a launch); every deposit
-    of a float64 run launched K2 (none its plain version, no K1)."""
+    engine, and no drain waits on the host once a launch); every block
+    of a float64 run launched K5, its PSD deposits through K2's warp
+    deposit inside it (no plain block, no standalone K2 or its plain
+    version, no K1)."""
     import torch
 
     if p_dtype == torch.float32:
-        if counts["k1"] <= 0 or counts["twin"] != 0 or counts["k2"] != 0:
+        if (counts["k1"] <= 0 or counts["twin"] != 0 or counts["k2"] != 0
+                or counts["k5"] != 0 or counts["plain_blocks"] != 0):
             fail(f"{tag}: {counts} (every drain must launch K1, none the "
                  f"twin or the XLA engine)")
         if counts["k1_host_waits"] >= counts["k1"]:
             fail(f"{tag}: {counts} (the drains wait on the host once a "
                  f"launch)")
-    elif (counts["k2"] <= 0 or counts["hist_plain"] != 0
+    elif (counts["k5"] <= 0 or counts["k5_deposit_steps"] != WINDOW
+          * counts["k5"] or counts["plain_blocks"] != 0
+          or counts["k2"] != 0 or counts["hist_plain"] != 0
           or counts["k1"] != 0 or counts["twin"] != 0):
-        fail(f"{tag}: {counts} (every deposit must launch K2, no K1)")
+        fail(f"{tag}: {counts} (every block must launch K5, none the plain "
+             f"step, no K1)")
 
 
 def drive(cfg, dev, p_dtype, tag: str, cap: int = 0, killed: bool = False,
@@ -753,7 +1049,10 @@ def main_path(dev, p_dtype, n_itrs: int, x_spec: bool) -> dict:
     if not math.isfinite(slope) or abs(slope - expect) > 0.45:
         fail(f"{tag}: slope {slope} vs {expect}")
     if p_dtype != torch.float32:
-        print(f"{tag}: drain graphs {json.dumps(graphs_line(res))}")
+        print(f"{tag}: drain graphs {json.dumps(graphs_line(res))}; "
+              f"ladder launches {json.dumps(res.launches)}; {res.n_pushes} "
+              f"pushes against {F64_PLAIN_PUSHES} on the plain step (PR 8, "
+              f"PERF.md §5): {res.n_pushes - F64_PLAIN_PUSHES:+d}")
     if x_spec:
         fi = res.iterations[0].ion_finals[0]
         tot = [(float(fi.spectra_sf[:, i].sum()),
@@ -1404,6 +1703,7 @@ def mesh_path(dev, f32, compact) -> dict:
                     pushes_per_s=pushes / wall,
                     k1_launches=[r["counts"]["k1"] for r in rows],
                     k2_launches=[r["counts"]["k2"] for r in rows],
+                    k5_launches=[r["counts"]["k5"] for r in rows],
                     twin_calls=[r["counts"]["twin"] for r in rows],
                     collectives=[r["collectives"] for r in rows],
                     collective_s=[r["collective_s"] for r in rows])
@@ -1572,13 +1872,15 @@ def main() -> int:
     dev = torch.device("cuda:0")
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
-    libs = build.build_all(["mega_step", "psd_hist"], verbose=True)
+    libs = build.build_all(["mega_step", "psd_hist", "helix_step"],
+                           verbose=True)
     print(f"build (nvcc, in parallel): {time.perf_counter() - t0:.2f} s "
           f"({', '.join(p.name for p in libs.values())})")
 
     done = {}
     for phase, fn in (("k1", kernel_vs_twin), ("flags", kernel_vs_twin_flags),
                       ("hist", hist_phase),
+                      ("k5", k5_phase),
                       ("f32", lambda d: main_path(d, torch.float32, 2,
                                                   False)),
                       ("science", science_path),
@@ -1601,7 +1903,9 @@ def main() -> int:
     # after the phases: an instance's resident blocks are known once it
     # has launched
     instances = k1_instances(build.LOGS.get("mega_step", ""))
-    print(json.dumps({"kernels": kernel_records(done, instances)}))
+    k5_inst = k5_instances(build.LOGS.get("helix_step", ""))
+    print(f"K5 instances: {json.dumps(k5_inst)}")
+    print(json.dumps({"kernels": kernel_records(done, instances, k5_inst)}))
     print(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -1635,11 +1939,37 @@ def k1_instances(ptxas_log: str) -> list:
             for i, word in enumerate(mega.INSTANCES)]
 
 
-def kernel_records(done, instances) -> list:
+def k5_instances(ptxas_log: str) -> list:
+    """Every K5 instance (ops/helix.py INSTANCES) with its registers and
+    local-memory bytes a thread from the CUDA runtime and, where this run
+    compiled the source, its stack frame and spill bytes."""
+    import re
+
+    from montecarloscattering_jl_tpu_torch.ops import helix
+
+    said = {}
+    for blk in re.split(r"Compiling entry function '", ptxas_log)[1:]:
+        m = re.match(r"\w*helix_step_kernelI([df])Li(n?)(\d+)E", blk)
+        regs = re.search(r"Used (\d+) registers", blk)
+        mem = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                        r"stores, (\d+) bytes spill loads", blk)
+        if m and regs and mem:
+            word = -int(m.group(3)) if m.group(2) else int(m.group(3))
+            said[(m.group(1) == "d", word)] = dict(
+                ptxas_registers=int(regs.group(1)),
+                stack_bytes=int(mem.group(1)),
+                spill_store_bytes=int(mem.group(2)),
+                spill_load_bytes=int(mem.group(3)))
+    return [dict(helix.instance_attrs(i), **said.get(key, {}))
+            for i, key in enumerate(helix.INSTANCES)]
+
+
+def kernel_records(done, instances, k5_inst) -> list:
     """The kernels line: every kernel with its main-path launches (K1 on
     the flagship f32, science, electrons32, sed, nonlinear, kw, endurance
-    and mesh paths, K2 on the f64 flagship, resume, shipped, electron,
-    compact and mesh paths, the mesh's on every rank), its error
+    and mesh paths, K5 on the f64 flagship, resume, shipped, electron,
+    compact and mesh paths, the mesh's on every rank; K2's standalone
+    launches on the same paths, and its deposits inside K5), its error
     against its plain
     version, its time, its plain version's, its bound and the library
     call's.  K2's and K4's ``ms`` and ``library_ms`` are device times
@@ -1657,10 +1987,15 @@ def kernel_records(done, instances) -> list:
                    + done["nonlinear"]["counts"]["k1"]
                    + done["kw"]["counts"]["k1"]
                    + done["endurance"]["counts"]["k1"] + mesh("k1"))
-    k2_launches = (done["f64"]["k2"] + done["shipped"]["counts"]["k2"]
-                   + done["electrons"]["counts"]["k2"]
-                   + done["resume"]["counts"]["k2"]
-                   + done["compact"]["counts"]["k2"] + mesh("k2"))
+    f64_paths = lambda kernel: (
+        done["f64"][kernel] + done["shipped"]["counts"][kernel]
+        + done["electrons"]["counts"][kernel]
+        + done["resume"]["counts"][kernel]
+        + done["compact"]["counts"][kernel] + mesh(kernel))
+    k2_launches = f64_paths("k2")
+    k5_deposits = f64_paths("k5_deposit_steps")
+    k5 = done["k5"]
+    k5f = k5["flagship"]
     rec = lambda r: dict(max_abs_err=r["max_abs_err"], ms=r["ms"],
                          plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                          bound_by=r["bound_by"],
@@ -1668,6 +2003,23 @@ def kernel_records(done, instances) -> list:
     eager = lambda r: dict(eager_ms=r["eager_ms"],
                            library_eager_ms=r["library_eager_ms"])
     return [
+        {"name": "K5 helix_step", "route": "cuda",
+         "source": src + "helix_step.cu",
+         "replaces": "montecarloscattering_jl_tpu/ops/step.py:198",
+         "launches": f64_paths("k5"), **rec(k5f),
+         "window_ms_by_size": k5["drain"]["window_ms"],
+         "lane_max_rel": max(v for k, v in k5f["lanes"].items()
+                             if k.startswith("maxrel_")),
+         "cases": {k: dict(instance=v["instance"], ms=v["ms"],
+                           plain_ms=v["plain_ms"], bound_ms=v["bound_ms"],
+                           divergent_lanes=v["lanes"]["divergent_lanes"])
+                   for k, v in k5["cases"].items()},
+         "instances": k5_inst,
+         "note": "the XLA engine's helix step (not a Pallas kernel); "
+                 "timed on the f64 flagship's 64-step window at 69,632 "
+                 "lanes, enqueued; plain_ms: the plain step's block under "
+                 "CUDA-graph replay; no single PyTorch call computes a "
+                 "helix step"},
         {"name": "K1 mega_step", "route": "cuda",
          "source": src + "mega_step.cu",
          "replaces": "montecarloscattering_jl_tpu/ops/pallas_step.py:225",
@@ -1687,11 +2039,15 @@ def kernel_records(done, instances) -> list:
          "source": src + "psd_hist.cu",
          "replaces": "montecarloscattering_jl_tpu/ops/pallas_hist.py:149",
          "launches": k2_launches, **rec(k2), **eager(k2),
+         "deposits_in_k5": k5_deposits,
          "wide_ms": hp["K2 (69,632 records, int64 zones, float64 "
                        "weights)"]["ms"],
-         "note": "ms and library_ms under CUDA-graph replay, as the "
-                 "path launches it; wide_ms: on the helix step's int64 "
-                 "zones and float64 weights"},
+         "note": "ms and library_ms under CUDA-graph replay; launches: "
+                 "its standalone launches on the main paths (the plain "
+                 "oblique step's, none on a path); deposits_in_k5: the "
+                 "helix steps whose PSD records K5 deposited through "
+                 "K2's warp deposit (csrc/psd_deposit.cuh); wide_ms: on "
+                 "the plain step's int64 zones and float64 weights"},
         {"name": "K3 psd_scatter_band", "route": "cuda",
          "source": src + "psd_hist.cu",
          "replaces": "scripts/probe_hist.py:97",

@@ -70,6 +70,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lane_common.cuh"
+
 #define ZMAX 128
 // threads a block, and the blocks an SM must hold (the register cap:
 // 65,536 / (K1_BLOCK * K1_MIN_BLOCKS) a thread)
@@ -123,38 +125,6 @@ constexpr int kInstances[] = {
     CT_ELECTRON | FLAG_RAD_LOSSES | CT_SCIENCE | FLAG_CUSTOM_FRG,
     CT_RUNTIME};
 constexpr int kNumInstances = sizeof(kInstances) / sizeof(int);
-
-__device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
-  return (x << r) | (x >> (32 - r));
-}
-
-// Threefry-2x32, 20 rounds (the jax.random core PRF)
-__device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
-                                             uint32_t c0, uint32_t c1,
-                                             uint32_t* y0, uint32_t* y1) {
-  const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
-  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
-  uint32_t x0 = c0 + ks[0];
-  uint32_t x1 = c1 + ks[1];
-#pragma unroll
-  for (int d = 0; d < 5; ++d) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      x0 = x0 + x1;
-      x1 = rotl32(x1, rot[d % 2][j]);
-      x1 = x1 ^ x0;
-    }
-    x0 = x0 + ks[(d + 1) % 3];
-    x1 = x1 + ks[(d + 2) % 3] + (uint32_t)(d + 1);
-  }
-  *y0 = x0;
-  *y1 = x1;
-}
-
-// a 16-bit integer as a uniform in (0, 1)
-__device__ __forceinline__ float unit16(uint32_t h) {
-  return ((float)h + 0.5f) * (1.0f / 65536.0f);
-}
 
 // u[4 + j] of a step (j in 0..3): the j-th 16-bit half of the step's
 // second Threefry block
@@ -242,33 +212,6 @@ __device__ __forceinline__ int zone_near(const double* xg, int nb, double x,
   return zone_of(xg, nb, x);
 }
 
-// The sums of x[0..N) over each group of lanes of `mask` (the lanes
-// converged at the call) that hold the same key, valid on the group's
-// lowest lane, for which it returns true.  Each round a lane adds the
-// values of its next higher peer still in, and the peers at odd
-// positions drop out.
-template <int N, typename T, typename KeyT>
-__device__ __forceinline__ bool group_sums(unsigned mask, KeyT key,
-                                           T (&x)[N]) {
-  const int lane = threadIdx.x & 31;
-  unsigned peers = __match_any_sync(mask, key);
-  const bool leader = lane == __ffs(peers) - 1;
-  int pos = __popc(peers & ((1u << lane) - 1u));     // peers below me
-  peers &= 0xfffffffeu << lane;                      // peers above me
-  while (__any_sync(mask, peers != 0u)) {
-    const int next = __ffs(peers);                   // 0: none left
-    const int src = next ? next - 1 : lane;
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      const T t = __shfl_sync(mask, x[j], src);
-      if (next) x[j] += t;
-    }
-    peers &= __ballot_sync(mask, (pos & 1) == 0);
-    pos >>= 1;
-  }
-  return leader;
-}
-
 // The next unclaimed index of a device cursor, one atomicAdd for the
 // lanes converged at the call
 __device__ __forceinline__ int claim(int* cursor) {
@@ -279,18 +222,6 @@ __device__ __forceinline__ int claim(int* cursor) {
   if (lane == leader) base = atomicAdd(cursor, __popc(mask));
   base = __shfl_sync(mask, base, leader);
   return base + __popc(mask & ((1u << lane) - 1u));
-}
-
-__device__ __forceinline__ double warp_sum(double v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ int warp_sum_i(int v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  return v;
 }
 
 // the launch's arrays: a lane's state (in place), the segment's tables,

@@ -88,9 +88,14 @@ class RunResult:
     n_trajectories: int = 0
     timers: object = None
     subtimers: dict | None = None     # MCS_SUBTIMERS=1 transport split
-    # the XLA engine's captured drain blocks (ops/step.py GraphCache):
-    # captures and their seconds
+    # the XLA engine's drain blocks (ops/step.py GraphCache): the oblique
+    # step's graph captures and their seconds, and the blocks' device
+    # times under GraphCache.timing
     graphs: object = None
+    # the ladders' kernel launches on this rank: K1, K2, K5 and K5's
+    # helix steps, and plain blocks on a CUDA device (engine/run.py
+    # launch_counts)
+    launches: dict | None = None
     # this rank's mesh (parallel/shard.Mesh.summary): world size, rank,
     # device, backend, collectives and their seconds; None on one device
     mesh: dict | None = None
@@ -435,6 +440,7 @@ def run(cfg: RunConfig | str, device="cuda", out_dir: str | None = None,
         timers.counts["mid_checkpoint"] += mid_ckpt.n_saved
     result.subtimers = dict(engine.subtimers) or None
     result.graphs = engine.graphs
+    result.launches = dict(engine.launches)
 
     if out_dir is not None:
         from .io import write_outputs

@@ -17,12 +17,18 @@ engines drain a segment, chosen as the JAX package chooses them
 * otherwise the XLA engine (ops/step.py run_segment; run_ion_xla_hybrid,
   fused_ion.py:162-218, and on the CPU the scan ladder run_ion_fused,
   run.py:520-536, with the same segment semantics): float64 momenta by
-  default, x_spec detectors and oblique fields.  Its drain runs the
-  live-lane compaction ladder (``compact_levels``, -1 auto as in the
-  JAX package, run.py:104-142), and its state, tallies and segment
-  tables live in buffers that stay for the engine's life, so that the
-  drain's CUDA graphs, captured once per window size, replay across
-  segments, species and iterations (``graphs``).
+  default, x_spec detectors and oblique fields.  On a CUDA card its
+  drain is one K5 launch (ops/helix.py) a 64-step block of the
+  parallel-field step.  The drain runs the live-lane compaction ladder
+  (``compact_levels``, -1 auto as in the JAX package, run.py:104-142),
+  and its state, tallies and segment tables live in buffers that stay
+  for the engine's life, so that the oblique step's CUDA graphs,
+  captured once per window size, replay across segments, species and
+  iterations (``graphs``).
+
+``TransportEngine.launches`` counts the kernels the ladders launched
+(K1, K2, K5 and K5's steps) and the plain blocks on a CUDA device, over
+the engine's life (``RunResult.launches``).
 
 Keys are derived as the JAX package derives them, so both packages hand
 every lane the same random stream on either engine.
@@ -67,7 +73,7 @@ from ..utils import constants as K
 from ..utils.config import RunConfig
 from ..utils.params import E_REL_PT
 from ..models.injection import init_pop
-from ..ops import mega, rng
+from ..ops import helix, hist, mega, rng
 from ..ops import step as xla_step
 from ..ops import state as stt
 from ..ops.cuts import pcut_split
@@ -86,6 +92,13 @@ COMPACT_FLOOR = 4096
 
 def _round_up(n: int, m: int = 128) -> int:
     return ((n + m - 1) // m) * m
+
+
+def launch_counts() -> dict:
+    """The kernels' launch counters and the plain blocks on a CUDA
+    device, as they stand."""
+    return dict(k1=mega.LAUNCHES, k2=hist.LAUNCHES, k5=helix.LAUNCHES,
+                k5_steps=helix.DEPOSIT_STEPS, plain_blocks=helix.PLAIN_CALLS)
 
 
 def auto_compact_levels(batch_size: int) -> int:
@@ -185,6 +198,7 @@ class TransportEngine:
         self.base_key = rng.key(cfg.random_seed)
         self.n_tcut_slots = max(len(cfg.tcuts), 1)
         self.subtimers = defaultdict(float)    # MCS_SUBTIMERS=1
+        self.launches = defaultdict(int)       # launch_counts() of the ladders
         if self.compact_levels < 0:
             self.compact_levels = auto_compact_levels(
                 self.batch_size // self.world)
@@ -411,6 +425,7 @@ class TransportEngine:
             t0 = time.perf_counter()
 
         p_pcut_hi = pcut_hi_momentum(cfg.energy_pcut_hi, s.mass)
+        launched = launch_counts()
         for i_pcut in range(start, len(cfg.pcuts)):
             sc = self.segment_scalars(i_ion, i_pcut, prof.bmag2)
             if k1:
@@ -479,6 +494,8 @@ class TransportEngine:
                     **self._summed(tal=tal, esc=esc, reasons=reasons),
                     pushes=pushes, trajectories=trajectories,
                     n_new=list(seg_new), it=it))
+        for k, v in launch_counts().items():
+            self.launches[k] += v - launched[k]
         if world > 1:
             shard.reduce_ion_accumulators(mesh, tal, esc, reasons)
         if subt:

@@ -2,8 +2,9 @@
 
 Every ``csrc/<name>.cu`` has a plain C interface and is compiled by
 nvcc for sm_90a into its own shared library in the package's ``build/``
-directory (listed in .gitignore), named by a hash of the source and the
-flags, so a changed source rebuilds and an unchanged one is reused.
+directory (listed in .gitignore), named by a hash of the source, the
+shared headers (``csrc/*.cuh``) and the flags, so a changed source or
+header rebuilds and an unchanged one is reused.
 Libraries are loaded with ctypes.  Nothing here runs at import: a
 kernel is built at its wrapper's first launch, or ahead of time by
 ``build_all`` (chip_smoke.py builds every source in parallel).
@@ -45,7 +46,10 @@ def nvcc() -> str:
 
 def _target(name: str) -> tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
-    tag = hashlib.sha256(src.read_bytes()
+    h = hashlib.sha256(src.read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        h.update(hdr.name.encode() + hdr.read_bytes())
+    tag = hashlib.sha256(h.digest()
                          + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return src, BUILD_DIR / f"lib{name}_{tag[:16]}.so"
 

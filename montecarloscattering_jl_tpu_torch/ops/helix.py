@@ -1,0 +1,346 @@
+"""K5: the XLA engine's helix step as one hand-written kernel.
+
+Replaces the JAX package's XLA-compiled ``helix_step``
+(montecarloscattering_jl_tpu/ops/step.py:198-684, with
+``_downstream_logic`` and ``_retro_step``) on an NVIDIA Hopper card:
+one launch of csrc/helix_step.cu runs a block of helix steps (the
+drain's SYNC_EVERY = 64) for every lane of a window, one thread a lane,
+in place of the plain step's ~300 small kernels a step.  It is the
+engine of every configuration K1 refuses (engine/run.py ``uses_k1``):
+float64 momenta, the CLI's default, and float32 with x_spec detectors.
+Parallel field only (theta_B = 0, the only geometry the config
+admits); the oblique step stays ops/step.py's plain one.
+
+* ``pack(tb)``: ``StepTables.k`` and the plain step's Python constants
+  as one float64 vector in the order of KV_NAMES (the ``KV`` enum of the
+  source), the integer statics as one int32 vector (KI_NAMES, ``KI``),
+  the flag word and the instance that runs it.
+* ``HelixLaunch``: K5 on one window of lanes, its tallies and packed
+  tables, validated once; ``enqueue`` launches on the current stream
+  through ctypes and waits for nothing.
+* ``block``: the wrapper.  Lanes on the CPU take the plain version,
+  ops/step.py ``_block`` (``helix_step`` n times), which is K5's spec
+  and what chip_smoke.py and the tests hold it against on the card;
+  lanes on a CUDA device launch K5 or raise.
+* ``uniforms``: the XLA stream's eight uniforms of each lane, from the
+  kernel's own generator on a CUDA device (its debug entry), from
+  rng.lane_uniforms_xla on the CPU.
+* ``INSTANCES``: K5 is compiled once per (momentum dtype, flag word) of
+  this table; CT_RUNTIME reads the flags at run time and serves every
+  configuration of its dtype, and the float64 flagship's word (x_spec
+  detectors alone) has an instance of its own, compiled without the
+  other branches (221 registers a thread in the run-time instance).
+
+Counters (plain integers; chip_smoke.py sets them to 0 around a driven
+run): ``LAUNCHES`` (K5 launches), ``DEPOSIT_STEPS`` (the helix steps of
+those launches, each depositing its PSD records through K2's warp
+deposit, csrc/psd_deposit.cuh, where K2 was launched once a step) and
+``PLAIN_CALLS`` (plain blocks on a CUDA device, ops/step.py ``_block``:
+the oblique step and the comparisons).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from dataclasses import dataclass
+
+import torch
+
+from ..utils.constants import RAD_LOSS_FAC
+from ..utils.params import E_REL_PT, MAX_HELIX_STEPS
+from . import build, rng
+
+LAUNCHES = 0
+DEPOSIT_STEPS = 0
+PLAIN_CALLS = 0
+
+# the float64 scalar vector (csrc/helix_step.cu enum KV, the same order):
+# StepTables.k, then the plain step's Python scalars
+K_NAMES = ("m", "mc", "e0", "two_m", "abs_charge", "qb2", "pcut",
+           "pcut_prev", "pmax", "u2", "g0u0", "pe_crit", "gamma_e_crit",
+           "inj_frac", "b_cmbz", "one", "three", "ten", "c", "two_pi",
+           "spike", "tiny", "tiny30", "cmax_coarse", "cmax_fine",
+           "xn_coarse", "xn_fine", "eta", "twelve_pi", "frg_rg0", "frg_am1",
+           "feb_up", "feb_dw", "x_stop", "age_max", "ux_dw", "gsf_dw",
+           "gef_dw", "b_dw", "bcos_dw", "bsin_dw")
+S_NAMES = ("eta3", "rad", "e_rel", "psd_mom_min", "log_pmin", "dcos",
+           "cos_fine", "theta_min", "log_tmin", "ewf", "ftiny")
+KV_NAMES = K_NAMES + S_NAMES
+# the int vector (enum KI)
+KI_NAMES = ("nb", "i_grid_feb", "i_shock", "n_mom", "n_theta", "bpd_mom",
+            "bpd_theta", "n_xspec", "nx", "n_slots", "flags")
+# the launch's pointers (enum PTR): ParticleState, StepTables and Tallies
+# fields by name, and the packed vectors
+STATE_NAMES = ("weight", "pb", "pperp", "phi", "ux_prev", "xn_per",
+               "t_step", "x", "prp_x", "acctime", "igrid", "tcut", "status",
+               "reason", "nsteps", "flags", "key0", "key1")
+TABLE_NAMES = ("x_grid", "ux", "gamma_sf", "gamma_ef", "btot", "eps_target",
+               "x_spec", "tcuts", "recv_prefix", "kv", "ki")
+TALLY_NAMES = ("psd_diff", "flux_diff", "esc", "spectra_sf", "spectra_pf",
+               "pool_diff", "weight_coupled", "spectra_coupled", "counts")
+PTR_NAMES = STATE_NAMES + TABLE_NAMES + TALLY_NAMES
+
+# bits of the flag word (enum of FLAG_* in the source)
+(FLAG_DONT_SCATTER, FLAG_DONT_DSA, FLAG_RAD_LOSSES, FLAG_RETRO, FLAG_TCUTS,
+ FLAG_ENERGY_TRANSFER, FLAG_CUSTOM_EPS_B, FLAG_CUSTOM_FRG, FLAG_ELECTRON,
+ FLAG_REFLECT, FLAG_AGE_CUT, FLAG_FEB_DW, FLAG_XSPEC) = (
+     1 << b for b in range(13))
+_SS_FLAGS = (("dont_scatter", FLAG_DONT_SCATTER), ("dont_dsa", FLAG_DONT_DSA),
+             ("do_rad_losses", FLAG_RAD_LOSSES), ("do_retro", FLAG_RETRO),
+             ("do_tcuts", FLAG_TCUTS),
+             ("do_energy_transfer", FLAG_ENERGY_TRANSFER),
+             ("use_custom_eps_b", FLAG_CUSTOM_EPS_B),
+             ("is_electron", FLAG_ELECTRON))
+CT_RUNTIME = -1
+# K5's instances (csrc/helix_step.cu kInstances): (float64 momenta, word);
+# the run-time instance of each dtype, and the float64 flagship's word
+# (x_spec detectors, no other flag)
+INSTANCES = ((True, CT_RUNTIME), (False, CT_RUNTIME), (True, FLAG_XSPEC))
+
+_MOMENTUM_DTYPES = (torch.float64, torch.float32)
+
+
+def flag_word(tb) -> int:
+    """The flag word of a StepTables: its StepStatic switches, the custom
+    f(r_g) law, the shock's reflection, the age cut, the downstream FEB
+    and the x_spec detectors."""
+    ss = tb.ss
+    word = 0
+    for name, bit in _SS_FLAGS:
+        if getattr(ss, name):
+            word |= bit
+    for on, bit in ((ss.frg_rg0_cm > 0.0, FLAG_CUSTOM_FRG),
+                    (tb.reflect, FLAG_REFLECT), (tb.age_cut, FLAG_AGE_CUT),
+                    (tb.feb_dw_on, FLAG_FEB_DW),
+                    (ss.n_xspec > 0, FLAG_XSPEC)):
+        if on:
+            word |= bit
+    return word
+
+
+def instance_of(f64: bool, word: int) -> int:
+    """Index into INSTANCES of the instance that runs `word` at this
+    momentum dtype: the one compiled for it, else the run-time one."""
+    if (f64, word) in INSTANCES:
+        return INSTANCES.index((f64, word))
+    return INSTANCES.index((f64, CT_RUNTIME))
+
+
+def python_scalars(ss, pdt: torch.dtype) -> dict:
+    """The Python constants of the plain step (ops/step.py and the bin
+    functions of models/psd_bins.py), as float64 values: the kernel
+    rounds each to the momentum dtype where the plain step's torch op
+    rounds it."""
+    return dict(eta3=ss.eta_mfp / 3.0, rad=RAD_LOSS_FAC, e_rel=E_REL_PT,
+                psd_mom_min=ss.psd_mom_min,
+                log_pmin=math.log10(ss.psd_mom_min), dcos=ss.dcos,
+                cos_fine=ss.cos_fine, theta_min=ss.theta_min,
+                log_tmin=math.log10(ss.theta_min),
+                ewf=ss.electron_weight_fac, ftiny=torch.finfo(pdt).tiny)
+
+
+@dataclass
+class Packed:
+    """One StepTables packed for K5."""
+
+    tb: object              # the StepTables (the kernel reads its tables)
+    kv: torch.Tensor        # [len(KV_NAMES)] float64
+    ki: torch.Tensor        # [len(KI_NAMES)] int32
+    word: int
+    instance: int
+    p_dtype: torch.dtype
+
+
+def pack(tb) -> Packed:
+    """`tb`'s scalars and statics in the order the kernel reads them, on
+    the tables' device (the 0-dim ``k`` tensors are stacked there: no
+    host wait).  Raises NotImplementedError for the oblique step."""
+    ss = tb.ss
+    if not ss.parallel:
+        raise NotImplementedError(
+            "K5 runs the parallel-field step; the oblique step is "
+            "ops/step.py's plain one")
+    pdt = tb.ux.dtype
+    if pdt not in _MOMENTUM_DTYPES:
+        raise ValueError(f"momenta in {pdt}: K5 takes float64 or float32")
+    dev = tb.x_grid.device
+    f64 = torch.float64
+    scal = python_scalars(ss, pdt)
+    kv = torch.cat([
+        torch.stack([tb.k[n].to(f64).reshape(()) for n in K_NAMES]),
+        torch.tensor([scal[n] for n in S_NAMES], dtype=f64, device=dev)])
+    word = flag_word(tb)
+    ints = dict(nb=ss.nb, i_grid_feb=ss.i_grid_feb, i_shock=ss.i_shock,
+                n_mom=ss.n_mom, n_theta=ss.n_theta,
+                bpd_mom=ss.bins_per_dec_mom,
+                bpd_theta=ss.bins_per_dec_theta, n_xspec=ss.n_xspec,
+                nx=max(ss.n_xspec, 1), n_slots=tb.tcuts.shape[0], flags=word)
+    ki = torch.tensor([ints[n] for n in KI_NAMES], dtype=torch.int32,
+                      device=dev)
+    f64_momenta = pdt == torch.float64
+    return Packed(tb=tb, kv=kv, ki=ki, word=word,
+                  instance=instance_of(f64_momenta, word), p_dtype=pdt)
+
+
+# ---------------------------------------------------------------------------
+# K5: build, bind, launch
+# ---------------------------------------------------------------------------
+
+_LIB = None
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        lib = build.library("helix_step")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.mcs_helix_launch.argtypes = [p] + [i] * 6 + [p]
+        lib.mcs_helix_launch.restype = i
+        lib.mcs_helix_uniforms.argtypes = [p] * 4 + [i, p]
+        lib.mcs_helix_uniforms.restype = i
+        ip = ctypes.POINTER(i)
+        lib.mcs_helix_instance.argtypes = [i, ip, ip]
+        lib.mcs_helix_instance_attrs.argtypes = [i, ip, ip]
+        built = []
+        for k in range(lib.mcs_helix_num_instances()):
+            f64, word = i(), i()
+            lib.mcs_helix_instance(k, ctypes.byref(f64), ctypes.byref(word))
+            built.append((bool(f64.value), word.value))
+        if tuple(built) != INSTANCES:
+            raise RuntimeError(f"K5 was built with the instances {built}, "
+                               f"ops/helix.py lists {INSTANCES}")
+        _LIB = lib
+    return _LIB
+
+
+def instance_attrs(i: int) -> dict:
+    """Registers and bytes of local memory (stack and spills) a thread of
+    K5's instance `i`, from the CUDA runtime."""
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    err = _lib().mcs_helix_instance_attrs(i, ctypes.byref(regs),
+                                          ctypes.byref(local))
+    if err != 0:
+        raise RuntimeError(f"K5 instance {i}: CUDA error {err}")
+    f64, word = INSTANCES[i]
+    return dict(f64=f64, word=word, registers=regs.value,
+                local_bytes=local.value)
+
+
+def _want(a: torch.Tensor, name: str, dtype, shape, dev) -> None:
+    if a.dtype != dtype or tuple(a.shape) != tuple(shape) \
+            or a.device != dev or not a.is_contiguous():
+        raise ValueError(f"{name}: want contiguous {dtype} {tuple(shape)} on "
+                         f"{dev}, got {a.dtype} {tuple(a.shape)} on "
+                         f"{a.device}")
+
+
+def _check(st, tl, p: Packed) -> None:
+    """Raise ValueError on what the kernel does not take."""
+    tb, ss = p.tb, p.tb.ss
+    pdt, f64, i32 = p.p_dtype, torch.float64, torch.int32
+    n = st.weight.shape[0]
+    dev = st.weight.device
+    for name in STATE_NAMES:
+        dt = (f64 if name in ("x", "prp_x", "acctime") else
+              i32 if name in ("igrid", "tcut", "status", "reason", "nsteps",
+                              "flags", "key0", "key1") else pdt)
+        _want(getattr(st, name), f"state.{name}", dt, (n,), dev)
+    nb, nz, n_slots = ss.nb, ss.nb + 1, tb.tcuts.shape[0]
+    nx = max(ss.n_xspec, 1)
+    for name, dt, shape in (
+            ("x_grid", f64, (nb,)), ("ux", pdt, (nb,)),
+            ("gamma_sf", pdt, (nb,)), ("gamma_ef", pdt, (nb,)),
+            ("btot", pdt, (nb,)), ("eps_target", pdt, (nb,)),
+            ("x_spec", f64, (ss.n_xspec,)), ("tcuts", f64, (n_slots,)),
+            ("recv_prefix", f64, (nz,))):
+        _want(getattr(tb, name), name, dt, shape, dev)
+    _want(p.kv, "kv", f64, (len(KV_NAMES),), dev)
+    _want(p.ki, "ki", i32, (len(KI_NAMES),), dev)
+    n_cells = (ss.n_mom + 1) * 2 * (ss.n_theta + 1)
+    for name, dt, shape in (
+            ("psd_diff", torch.float32, (n_cells, nz)),
+            ("flux_diff", f64, (4, nz)), ("esc", f64, (4,)),
+            ("spectra_sf", f64, (ss.n_mom + 1, nx)),
+            ("spectra_pf", f64, (ss.n_mom + 1, nx)),
+            ("pool_diff", f64, (nz,)), ("weight_coupled", f64, (n_slots,)),
+            ("spectra_coupled", f64, (ss.n_mom + 1, n_slots)),
+            ("counts", f64, (3,))):
+        _want(getattr(tl, name), name, dt, shape, dev)
+    if n_cells * nz >= 2 ** 31:
+        raise ValueError(f"psd: K5 indexes fewer than 2^31 entries, got "
+                         f"{n_cells} x {nz}")
+    if 4 * nz * 8 > 227 * 1024:
+        raise ValueError(f"{nz} zone boundaries: K5's block flux array "
+                         f"holds at most {227 * 1024 // 32}")
+
+
+class HelixLaunch:
+    """K5 on one window of lanes `st`, tallies `tl` and packed tables `p`
+    on a CUDA device, validated once: ``enqueue(n, max_helix)`` runs n
+    helix steps of every lane in place, adding to the tallies, on the
+    current stream.  The tensors must outlive the object."""
+
+    def __init__(self, st, tl, p: Packed):
+        _check(st, tl, p)
+        self.device = st.weight.device
+        if self.device.type != "cuda":
+            raise ValueError(f"no helix kernel for device {self.device}")
+        tensors = dict(kv=p.kv, ki=p.ki)
+        ptrs = []
+        for name in PTR_NAMES:
+            src = (st if name in STATE_NAMES else
+                   tl if name in TALLY_NAMES else None)
+            a = (getattr(src, name) if src is not None else
+                 tensors[name] if name in tensors else getattr(p.tb, name))
+            ptrs.append(a.data_ptr())
+        self._ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
+        self._n = st.weight.shape[0]
+        self._nz = p.tb.ss.nb + 1
+        self.instance, self._word = p.instance, p.word
+        self._fn = _lib().mcs_helix_launch
+
+    def enqueue(self, n_steps: int, max_helix: int) -> None:
+        global LAUNCHES, DEPOSIT_STEPS
+        if n_steps < 1:
+            raise ValueError(f"n_steps = {n_steps}")
+        stream = torch.cuda.current_stream(self.device).cuda_stream
+        err = self._fn(self._ptrs, self._n, n_steps, max_helix, self._nz,
+                       self.instance, self._word, ctypes.c_void_p(stream))
+        if err != 0:
+            raise RuntimeError(f"K5 launch failed: CUDA error {err}")
+        LAUNCHES += 1
+        DEPOSIT_STEPS += n_steps
+
+
+def block(st, tl, tb, n: int, max_helix: int | None = None) -> None:
+    """`n` helix steps of every lane of `st`, in place, deposited into
+    `tl`: the plain version (ops/step.py ``_block``) for lanes on the
+    CPU, one K5 launch for lanes on a CUDA device."""
+    if max_helix is None:
+        max_helix = MAX_HELIX_STEPS
+    if st.weight.device.type == "cpu":
+        from .step import _block
+        _block(st, tl, tb, n, max_helix)
+        return
+    HelixLaunch(st, tl, pack(tb)).enqueue(n, max_helix)
+
+
+def uniforms(key0: torch.Tensor, key1: torch.Tensor,
+             nsteps: torch.Tensor) -> torch.Tensor:
+    """The XLA stream's eight float32 uniforms of each lane at its step
+    count nsteps, [8, B]: K5's own generator (its debug entry) on a CUDA
+    device, rng.lane_uniforms_xla on the CPU."""
+    if key0.device.type == "cpu":
+        return rng.lane_uniforms_xla(key0, key1, nsteps)
+    n = key0.shape[0]
+    for name, a in (("key0", key0), ("key1", key1), ("nsteps", nsteps)):
+        _want(a, name, torch.int32, (n,), key0.device)
+    out = torch.empty(8, n, dtype=torch.float32, device=key0.device)
+    ptr = lambda a: ctypes.c_void_p(a.data_ptr())
+    err = _lib().mcs_helix_uniforms(
+        ptr(key0), ptr(key1), ptr(nsteps), ptr(out), n,
+        ctypes.c_void_p(torch.cuda.current_stream(key0.device).cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"K5 uniforms failed: CUDA error {err}")
+    return out

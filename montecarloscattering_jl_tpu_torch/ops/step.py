@@ -8,8 +8,11 @@ until no lane is ACTIVE, on a window of the lanes that halves as they
 end (the live-lane compaction ladder, :724-850).  This is the engine of
 every config K1 does not run (engine/run.py): float64 momenta -- the
 CLI's default -- x_spec detectors and oblique fields.  The JAX package
-computes this step outside any Pallas kernel, so plain torch is its counterpart; the one kernel on the path is
-the PSD deposit, K2 (ops/hist.py), launched once a step.
+left this step to XLA; on a CUDA card the drain runs it as K5
+(ops/helix.py, csrc/helix_step.cu), one launch a 64-step block, and
+``helix_step`` / ``_block`` here are K5's plain version: its spec, the
+CPU path, and the oblique step on the card (not in K5; its PSD deposit
+launches K2, ops/hist.py, once a step).
 
 Branches: the parallel-field step (theta_B = 0, the only geometry the
 config admits) and the oblique one (``StepStatic.parallel`` False: the
@@ -37,8 +40,10 @@ What differs from the JAX engine, on purpose:
 * The compaction ladder halves the window only at the drain's host
   check every SYNC_EVERY steps, not at every step; a lane that is not
   ACTIVE does not step, so the lanes come out the same either way.
-* On a CUDA device each window's 64-step block replays a CUDA graph,
-  captured once per window size and set of tensors (``GraphCache``).
+* On a CUDA device each window's 64-step block of the parallel-field
+  step is one K5 launch; a block of the oblique step replays a CUDA
+  graph of the plain step, captured once per window size and set of
+  tensors (``GraphCache``).
 
 Arithmetic follows the reference in the momentum dtype of the state:
 float32 uniforms and the float32 scattering and return phases, float64
@@ -59,7 +64,7 @@ import torch
 from ..models.psd_bins import psd_bin_angle, psd_bin_momentum
 from ..utils.constants import C_CGS, RAD_LOSS_FAC
 from ..utils.params import ALL_FLUX_SPIKE_AWAY, E_REL_PT, MAX_HELIX_STEPS
-from . import hist, rng
+from . import helix, hist, rng
 from .mega import floor_mod
 from .scattering import gyro_period, radiation_loss, scattering
 from .state import (ACTIVE, C_RAD, C_RECV, C_RETRO, FINISHED, FL_DW, FL_INJ,
@@ -747,7 +752,10 @@ def _deposit(tl: Tallies, deps: dict) -> None:
 def _block(st: ParticleState, tl: Tallies, tb: StepTables, n: int,
            max_helix: int) -> None:
     """`n` helix steps, the uniforms of the block drawn at once: a lane
-    ACTIVE at step s of the block has made exactly s steps in it."""
+    ACTIVE at step s of the block has made exactly s steps in it.  K5's
+    plain version; on a CUDA device it counts in helix.PLAIN_CALLS."""
+    if st.weight.device.type == "cuda":
+        helix.PLAIN_CALLS += 1
     ctr = st.nsteps[None] + torch.arange(n, dtype=torch.int32,
                                          device=st.weight.device)[:, None]
     u_blk = rng.lane_uniforms_xla(st.key0, st.key1, ctr)
@@ -774,37 +782,39 @@ def _tensors(obj) -> list:
 
 
 class _BlockGraph:
-    """One S-step block captured as a CUDA graph and replayed: the
-    plain-torch step is some 300 small kernels, and launching them one
-    by one from the host takes several times their device time.  A
-    replay runs the captured kernels on the same tensors (the state and
-    tallies are updated in place).  Capture only records, so K2's
-    launches counted while capturing are taken back, and every replay
-    adds the number of K2 launches it makes."""
+    """One S-step block of the plain step captured as a CUDA graph and
+    replayed: the plain-torch step is some 300 small kernels, and
+    launching them one by one from the host takes several times their
+    device time.  A replay runs the captured kernels on the same tensors
+    (the state and tallies are updated in place).  Capture only records,
+    so the K2 launches and the plain block counted while capturing are
+    taken back, and every replay adds what it runs."""
 
     def __init__(self, st, tl, tb, n, max_helix, pool=None):
         self.graph = torch.cuda.CUDAGraph()
-        before = hist.LAUNCHES
+        before = hist.LAUNCHES, helix.PLAIN_CALLS
         with torch.cuda.graph(self.graph, pool=pool):
             _block(st, tl, tb, n, max_helix)
-        self.k2_launches = hist.LAUNCHES - before
-        hist.LAUNCHES = before
+        self.k2_launches = hist.LAUNCHES - before[0]
+        hist.LAUNCHES, helix.PLAIN_CALLS = before
 
     def replay(self) -> None:
         self.graph.replay()
         hist.LAUNCHES += self.k2_launches
+        helix.PLAIN_CALLS += 1
 
 
 class GraphCache:
-    """The drain's captured blocks, kept across segments: one graph per
+    """The drain's blocks on a CUDA device.  The plain step's captured
+    blocks (the oblique step's), kept across segments: one graph per
     window size, step configuration and set of tensors (their addresses,
     shapes and dtypes are part of the key, so a graph replays only on
     the tensors it was captured on).  The graphs share one memory pool;
     they never run at once and keep no output of their own.  Counts the
     captures and their seconds; with `timing` set (on a cache, or on
-    the class for every cache), CUDA events around every replay give the
-    device time a step at each window size (``step_ms``, read after the
-    work has finished)."""
+    the class for every cache), CUDA events around every block, a K5
+    launch or a graph replay, give the device time a step at each
+    window size (``step_ms``, read after the work has finished)."""
 
     timing = False
 
@@ -830,13 +840,15 @@ class GraphCache:
         self.captures += 1
         return g
 
-    def replay(self, g: _BlockGraph, size: int, n: int) -> None:
+    def run(self, size: int, n: int, block) -> None:
+        """block() (one block of `n` steps on a window of `size` lanes),
+        between two CUDA events when timing."""
         if not self.timing:
-            g.replay()
+            block()
             return
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         ev[0].record()
-        g.replay()
+        block()
         ev[1].record()
         self._events.append((size, n, ev[0], ev[1]))
 
@@ -866,9 +878,9 @@ def _permute(st: ParticleState, order: torch.Tensor) -> None:
 def run_segment(st: ParticleState, tl: Tallies, tb: StepTables,
                 sync_every: int = SYNC_EVERY,
                 max_helix: int | None = None, compact_levels: int = 0,
-                graphs: GraphCache | None = None) -> int:
+                graphs: GraphCache | None = None, plain: bool = False) -> int:
     """Step every lane until none is ACTIVE (one pcut segment), in place;
-    returns the number of helix steps taken (one K2 launch each).
+    returns the number of helix steps taken.
 
     The host checks for ACTIVE lanes only every `sync_every` steps.  The
     extra steps are exact no-ops: a lane that is not ACTIVE does not
@@ -884,16 +896,26 @@ def run_segment(st: ParticleState, tl: Tallies, tb: StepTables,
     lane ends bit-identical to `compact_levels=0`, back in its own slot;
     only the summation order of the shared tallies changes.
 
-    On a CUDA device the blocks replay CUDA graphs from `graphs` (a
-    fresh cache when None).  A window whose graph is not cached captures
-    it at once when the cache holds a graph already; the first window of
-    an empty cache runs its first block eagerly (which warms the step's
-    kernels up) and captures the next."""
+    On a CUDA device every block of the parallel-field step is one K5
+    launch (ops/helix.py): no graph, and no plain block in its place (a
+    K5 that does not build or launch raises).  The oblique branches are
+    not in K5 yet (ROADMAP.md): the oblique step's blocks replay CUDA
+    graphs of the plain step from `graphs` (a fresh cache when None).  A
+    window whose graph is not cached captures it at once when the cache
+    holds a graph already; the first window of an empty cache runs its
+    first block eagerly (which warms the step's kernels up) and captures
+    the next.  `graphs` also times the blocks (GraphCache.timing).  On
+    the CPU every block is the plain ``_block``.  `plain` asks for the
+    plain step's graphs on a CUDA device in place of K5, the reference
+    that chip_smoke.py and the tests hold K5 to."""
     if max_helix is None:
         max_helix = MAX_HELIX_STEPS
     cuda = st.weight.device.type == "cuda"
+    k5 = cuda and tb.ss.parallel and not plain
     if cuda and graphs is None:
         graphs = GraphCache()
+    packed = helix.pack(tb) if k5 else None
+    launches = {}           # window size -> K5 on that window
     b = st.weight.shape[0]
     sizes = window_sizes(b, compact_levels)
     level, win = 0, st
@@ -916,13 +938,22 @@ def run_segment(st: ParticleState, tl: Tallies, tb: StepTables,
             while level + 1 < len(sizes) and n_act <= sizes[level + 1]:
                 level += 1
             win, blocks = _window(st, sizes[level]), 0
-        if cuda:
+        size = sizes[level]
+        if k5:
+            kl = launches.get(size)
+            if kl is None:
+                kl = launches[size] = helix.HelixLaunch(win, tl, packed)
+            graphs.run(size, sync_every,
+                       lambda: kl.enqueue(sync_every, max_helix))
+        elif cuda:
             key = graphs.key(win, tl, tb, sync_every, max_helix)
             g = graphs.graphs.get(key)
             if g is None and (blocks > 0 or graphs.graphs):
                 g = graphs.capture(key, win, tl, tb, sync_every, max_helix)
-        if cuda and g is not None:
-            graphs.replay(g, sizes[level], sync_every)
+            if g is not None:
+                graphs.run(size, sync_every, g.replay)
+            else:
+                _block(win, tl, tb, sync_every, max_helix)
         else:
             _block(win, tl, tb, sync_every, max_helix)
         taken += sync_every

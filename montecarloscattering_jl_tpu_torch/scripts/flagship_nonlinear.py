@@ -98,7 +98,8 @@ def main(argv=None) -> int:
                       for k, v in res.timers.totals.items()})
     if res.subtimers:
         print("transport breakdown:", {k: round(v, 2)
-                                       for k, v in res.subtimers.items()})
+                                       for k, v in res.subtimers.items()},
+              "launches:", res.launches)
     return 0
 
 

@@ -17,10 +17,12 @@
 * ``--compact LEVELS``: the f64 flagship of chip_smoke.py's phase f64
   (float64 on the XLA engine, two x_spec detectors, 1 iteration, its
   first 4 pcuts) at each compaction depth of the comma-separated list
-  (-1 auto): wall, transport, pushes/s, the graph captures and their
-  seconds, and the device ms a step at each window size (CUDA events
-  around every graph replay).  A checkout without the ladder (its
-  ``run`` takes no compact_levels) runs once, as "none".
+  (-1 auto): wall, transport, pushes/s, the ladders' launches, the
+  graph captures and their seconds, and the device ms a step at each
+  window size (CUDA events around every block: a K5 launch, or a graph
+  replay of the plain step in a checkout from before K5).  A checkout
+  without the ladder (its ``run`` takes no compact_levels) runs once,
+  as "none".
 * ``--mesh-spread N``: chip_smoke.py phase f32's run (the flagship at
   65,536 a pcut, 2 iterations, float32 on K1) with N random seeds (the
   config's and the next N - 1), once in this process and once on the
@@ -122,7 +124,8 @@ def spread(n_runs: int) -> dict:
                           MCS_SUBTIMERS="1")
     print(f"subtimed run: wall {wall:.3f} s, transport "
           f"{res.timers.totals['transport']:.3f} s, split "
-          f"{json.dumps(res.subtimers)}")
+          f"{json.dumps(res.subtimers)}, launches "
+          f"{json.dumps(getattr(res, 'launches', None))}")
     return out
 
 
@@ -254,7 +257,8 @@ def compact(levels: list) -> None:
         out = dict(levels="none" if lv is None else lv, wall=wall,
                    transport=t["transport"], pushes=res.n_pushes,
                    pushes_per_s=res.n_pushes / wall,
-                   trajectories=res.n_trajectories)
+                   trajectories=res.n_trajectories,
+                   launches=getattr(res, "launches", None))
         g = getattr(res, "graphs", None)
         if g is not None:
             out.update(captures=g.captures, capture_s=g.capture_s,
@@ -313,7 +317,7 @@ def main(argv=None) -> int:
         print("probe_driver: no CUDA device", file=sys.stderr)
         return 1
     print(f"nvidia-smi: {wl.card_line()}; root: {root}")
-    build.build_all(["mega_step", "psd_hist"])
+    build.build_all(sorted(src.stem for src in build.CSRC.glob("*.cu")))
     if args.cold:
         cold()
     if args.spread >= 2:

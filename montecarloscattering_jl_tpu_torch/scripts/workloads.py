@@ -7,6 +7,8 @@ probes (probe_k1.py, profile_run.py) and the tests share.
 * ``flag_case``: one of FLAG_CASES on configs/baseline.toml (electron
   density 1): lanes placed to reach every static-flag branch of K1
   (``flag_population``), the tables and the tallies.
+  ``helix_flag_case``: the same lanes in a momentum dtype with the XLA
+  engine's tables, for K5.
 * ``load_variant`` / ``science_variant``: a config with edits, and the
   science runs' switches (scripts/flagship_baseline.py --dsa
   --pcuts-per-decade 4 --max-helix-steps 200000 --n-pts-mult 4).
@@ -100,7 +102,8 @@ def flagship_case(dev, lanes: int = LANES) -> dict:
                                                    b.n_theta, dev))
 
 
-def flag_population(cfg, setup, i_ion, dev, lanes: int = LANES, seed=0):
+def flag_population(cfg, setup, i_ion, dev, lanes: int = LANES, seed=0,
+                    p_dtype=None):
     """`lanes` lanes that reach every flag branch within one window, as
     tests/torch_flag_cases.py places them: a quarter upstream within
     0.01 r_g0 (times the species' mass over the protons') of the shock
@@ -110,14 +113,15 @@ def flag_population(cfg, setup, i_ion, dev, lanes: int = LANES, seed=0):
     grid end (custom eps_B) with the PRP 1 to 3% ahead (the retro walk)
     at 3-30 m c (electrons up to 10^E_TOP m c).  Acceleration times sit
     around a tcut, an eighth past the age limit; the last step size is a
-    fine step in the lane's zone.  Returns the state and the largest
-    momentum."""
+    fine step in the lane's zone.  Momenta in `p_dtype` (float32 when
+    None).  Returns the state and the largest momentum."""
     import numpy as np
     import torch
 
     from montecarloscattering_jl_tpu_torch.ops import rng, state as stt
     from montecarloscattering_jl_tpu_torch.utils import constants as K
 
+    p_dtype = p_dtype or torch.float32
     g = np.random.default_rng(seed)
     s = cfg.species[i_ion]
     mc = s.mass * K.C_CGS
@@ -144,13 +148,14 @@ def flag_population(cfg, setup, i_ion, dev, lanes: int = LANES, seed=0):
     st = stt.init_state(
         np.ones(lanes), ptot, ptot * mu, x, ig, prof.ux_sk[ig],
         cfg.xn_per_fine, x_stop, rng.key(seed), dev, downstream=dw,
-        inj=dw & (x > x_stop), acctime=acct, tcut=slot.astype(np.int32))
+        inj=dw & (x > x_stop), acctime=acct, tcut=slot.astype(np.int32),
+        p_dtype=p_dtype)
     prp = np.where(x > x_stop, x * g.uniform(1.01, 1.03, lanes), x_stop)
     gamma = np.hypot(ptot / mc, 1.0)
     t_step = (2.0 * np.pi * gamma * mc / (abs(s.charge) * prof.btot[ig])
               / cfg.xn_per_fine)
     st.prp_x = torch.from_numpy(prp).to(dev)
-    st.t_step = torch.from_numpy(t_step).to(dev, torch.float32)
+    st.t_step = torch.from_numpy(t_step).to(dev, p_dtype)
     return st, float(ptot.max())
 
 
@@ -268,12 +273,41 @@ def flag_case(case, dev, lanes: int = LANES) -> dict:
     1) with the case's switches, flag_population's lanes of its species,
     K1's tables at a pcut above every lane, and a maker of fresh
     tallies."""
+    from montecarloscattering_jl_tpu_torch.ops import mega
+
+    c = _flag_setup(case, dev, lanes, None)
+    tag, _, _, _, frg_alpha, _ = case
+    mega.check_supported(c["ss"])
+    tabs = mega.mega_tables(c["grids"], c["sc"], c["ss"], dev)
+    if bool(tabs.flags & mega.FLAG_CUSTOM_FRG) != (frg_alpha is not None):
+        raise RuntimeError(f"flags {tag}: the f(r_g) bit is "
+                           f"{tabs.flags:#x}")
+    return dict(c, tabs=tabs)
+
+
+def helix_flag_case(case, dev, lanes: int = LANES, p_dtype=None) -> dict:
+    """One of FLAG_CASES as flag_case sets it up, with momenta in
+    `p_dtype` (float64 when None) and the XLA engine's tables (`tb`,
+    ops/step.py step_tables), for K5."""
+    import torch
+
+    from montecarloscattering_jl_tpu_torch.ops import step as xla_step
+
+    c = _flag_setup(case, dev, lanes, p_dtype or torch.float64)
+    return dict(c, tb=xla_step.step_tables(c["grids"], c["sc"], c["ss"],
+                                           dev))
+
+
+def _flag_setup(case, dev, lanes: int, p_dtype) -> dict:
+    """flag_case's grids, scalars, StepStatic, lanes (momenta in
+    `p_dtype`, float32 when None; the grids in `p_dtype`, float64 when
+    None) and a maker of fresh tallies."""
     import numpy as np
 
     from montecarloscattering_jl_tpu_torch.engine.run import (
         TransportEngine, populate_eps_target)
     from montecarloscattering_jl_tpu_torch.engine.setup import build_setup
-    from montecarloscattering_jl_tpu_torch.ops import mega, state as stt
+    from montecarloscattering_jl_tpu_torch.ops import state as stt
 
     tag, i_ion, science, want, frg_alpha, _ = case
     cfg = load_variant(BASELINE, replace=[("DENZ_ION = [1.0, 0.0]",
@@ -284,13 +318,15 @@ def flag_case(case, dev, lanes: int = LANES) -> dict:
         cfg.use_custom_frg = True
         cfg.frg_alpha, cfg.frg_rg0_rg = frg_alpha, FRG_RG0_RG
     setup = build_setup(cfg)
-    eng = TransportEngine(setup, device=dev)
+    eng = TransportEngine(setup, device=dev,
+                          **({} if p_dtype is None else dict(p_dtype=p_dtype)))
     prof = setup.profile
     eps = populate_eps_target(cfg.energy_transfer_frac, cfg.u0,
                               cfg.gamma0, setup.u2, setup.gamma2, prof)
     grids = eng.segment_grids(prof, eps_target=eps,
                               recv_pool=np.full(setup.nb, RECV_PER_ZONE))
-    st0, p_top = flag_population(cfg, setup, i_ion, dev, lanes)
+    st0, p_top = flag_population(cfg, setup, i_ion, dev, lanes,
+                                 p_dtype=p_dtype)
     # a pcut above every lane: the window saves none of them
     i_pcut = next(i for i, p in enumerate(cfg.pcuts) if p > 2.0 * p_top)
     sc = eng.segment_scalars(i_ion, i_pcut, prof.bmag2)
@@ -298,16 +334,10 @@ def flag_case(case, dev, lanes: int = LANES) -> dict:
     off = [f for f in want if not getattr(ss, f)]
     if off:
         raise RuntimeError(f"flags {tag}: {off} are off in the config")
-    mega.check_supported(ss)
-    tabs = mega.mega_tables(grids, sc, ss, dev)
-    if bool(tabs.flags & mega.FLAG_CUSTOM_FRG) != (frg_alpha is not None):
-        raise RuntimeError(f"flags {tag}: the f(r_g) bit is "
-                           f"{tabs.flags:#x}")
     b = setup.bins
     fresh_tal = lambda: stt.make_tallies(
         setup.nb, b.n_mom, b.n_theta, dev, n_tcut_slots=eng.n_tcut_slots)
-    return dict(tabs=tabs, st0=st0, fresh_tal=fresh_tal, grids=grids, sc=sc,
-                ss=ss)
+    return dict(st0=st0, fresh_tal=fresh_tal, grids=grids, sc=sc, ss=ss)
 
 
 def clone_state(st):

@@ -3,10 +3,13 @@ card: K1 (csrc/mega_step.cu) against its twin (the custom f(r_g) law
 on and off), K2 and K3
 (csrc/psd_hist.cu) against ops/hist.py's plain versions (K2 also on
 one address and on int64 / float64 records), every compiled instance of
-K1 on lanes that reach its branches, a drain in one launch, and the XLA
-engine's float64 segment (ops/step.py, K2 inside, replayed as a CUDA
-graph) against the same segment on the CPU, the compaction ladder
-lane for lane against the uncompacted drain and its graphs replayed
+K1 on lanes that reach its branches, a drain in one launch, K5
+(csrc/helix_step.cu) against the plain step's block (ops/step.py
+_block) on every flag case, on the flagship at float64 and at float32
+with detectors, and its uniforms against rng.lane_uniforms_xla; the XLA
+engine's float64 segment (ops/step.py, one K5 launch a block) against
+the same segment on the CPU, the compaction ladder lane for lane
+against the uncompacted drain, and the oblique step's graphs replayed
 across segments; and the batched emission
 functions (models/emission/device.py) on the card against the per-zone
 NumPy oracles; and the mesh (parallel/): two ranks sharing the card
@@ -25,7 +28,11 @@ the twin's torch ops call, so per-lane state agrees to 16 f32 ulp
 relative (momenta relative to the lane's |p|) on all but at most 0.1% of
 lanes, and tally totals to 1e-4 (f32 atomics in another order).  K2 and
 K3 agree with their plain versions to 1e-4 of the largest PSD entry
-(f32 sums in another order).  The float64 segment on the card agrees
+(f32 sums in another order).  K5 is built as K1 is and follows the
+plain step operation by operation: per lane within 1e-12 relative on
+all but 0.1% of the lanes (measured: bit for bit), float64 tallies
+within 1e-9 of their largest entry and the PSD within 1e-4 (atomics in
+another order), the uniforms bit for bit.  The float64 segment on the card agrees
 with the CPU's on all but 0.1% of lanes' integer fields; the card's
 float32 cos of the scattering phase may differ from the CPU's by an ulp,
 which moves momenta by ~1e-7 a step, so float fields agree to 1e-4
@@ -46,6 +53,7 @@ from montecarloscattering_jl_tpu_torch.engine.setup import build_setup
 from montecarloscattering_jl_tpu_torch.models.injection import init_pop
 from montecarloscattering_jl_tpu_torch.ops import mega, rng
 from montecarloscattering_jl_tpu_torch.ops import state as stt
+from montecarloscattering_jl_tpu_torch.scripts import workloads as wl
 from montecarloscattering_jl_tpu_torch.utils import load_config
 
 pytestmark = pytest.mark.cuda
@@ -306,7 +314,7 @@ def test_hist_wrapper_raises_on_bad_input(card):
 
 
 def test_xla_segment_matches_cpu(card):
-    from montecarloscattering_jl_tpu_torch.ops import hist, step
+    from montecarloscattering_jl_tpu_torch.ops import helix, hist, step
     cfg = load_config(CFG)
     cfg.x_spec = [-0.5 * cfg.rg0, 0.5 * cfg.rg0]
     setup = build_setup(cfg)
@@ -329,11 +337,14 @@ def test_xla_segment_matches_cpu(card):
         tb = step.step_tables(eng.segment_grids(prof),
                               eng.segment_scalars(0, 2, prof.bmag2),
                               eng.step_static(0), dev)
-        before = hist.LAUNCHES
+        before = hist.LAUNCHES, helix.DEPOSIT_STEPS, helix.PLAIN_CALLS
         taken = step.run_segment(st, tl, tb, max_helix=512)
         if dev.type == "cuda":
             torch.cuda.synchronize()
-            assert hist.LAUNCHES - before == taken   # one K2 launch a step
+            # every step in K5, its deposits inside it: no K2 launch, no
+            # plain block
+            assert (hist.LAUNCHES, helix.DEPOSIT_STEPS - before[1],
+                    helix.PLAIN_CALLS) == (before[0], taken, before[2])
         out[dev.type] = (st.to_numpy(), tl.to_numpy())
     (sg, tg), (sc, tc) = out["cuda"], out["cpu"]
     same = np.ones(LANES, bool)
@@ -410,7 +421,6 @@ def _f64_segment(card, lanes):
     """The flagship's injected population (`lanes` lanes, float64) with
     the XLA engine's tables at pcut index 0 and fresh tallies."""
     from montecarloscattering_jl_tpu_torch.ops import step
-    from montecarloscattering_jl_tpu_torch.scripts import workloads as wl
 
     cfg = load_config(CFG)
     setup = build_setup(cfg)
@@ -426,19 +436,23 @@ def _f64_segment(card, lanes):
 
 
 def test_compaction_on_the_card_is_lane_for_lane(card):
-    """The compaction ladder with graph-replayed windows (8,192 lanes,
+    """The compaction ladder with K5 on every window (8,192 lanes,
     windows 8,192 to 1,024) leaves every lane bit-identical to the
     uncompacted drain, in its own slot; counts exact, the PSDs within
-    1e-4 of their largest entry (float32 atomics in another order)."""
-    from montecarloscattering_jl_tpu_torch.ops import step
+    1e-4 of their largest entry (float32 atomics in another order); one
+    K5 launch a block, no graph capture, no plain block."""
+    from montecarloscattering_jl_tpu_torch.ops import helix, step
 
     st0, tb, fresh = _f64_segment(card, 8192)
     out = {}
     for lv in (0, 3):
         st, tl = stt.clone(st0), fresh()
         g = step.GraphCache()
-        step.run_segment(st, tl, tb, compact_levels=lv, graphs=g)
+        before = helix.LAUNCHES, helix.PLAIN_CALLS
+        taken = step.run_segment(st, tl, tb, compact_levels=lv, graphs=g)
         torch.cuda.synchronize()
+        assert (helix.LAUNCHES - before[0], helix.PLAIN_CALLS) == (
+            taken // step.SYNC_EVERY, before[1])
         out[lv] = (st, stt.finalize_tallies(tl), g)
     for f in dataclasses.fields(st0):
         assert torch.equal(getattr(out[0][0], f.name),
@@ -446,19 +460,24 @@ def test_compaction_on_the_card_is_lane_for_lane(card):
     assert torch.equal(out[0][1].num_crossings, out[3][1].num_crossings)
     a, c = out[0][1].psd, out[3][1].psd
     assert float((a - c).abs().max()) <= 1e-4 * float(a.abs().max())
-    assert out[3][2].captures > out[0][2].captures >= 1
+    assert out[3][2].captures == out[0][2].captures == 0
 
 
 def test_graphs_replay_across_segments(card):
-    """A second segment on the same buffers replays the graphs the first
-    captured: no new capture, and the same lanes as a fresh cache."""
+    """The oblique step (not in K5: its blocks replay CUDA graphs of the
+    plain step): a second segment on the same buffers replays the graphs
+    the first captured, no new capture, and the same lanes as a fresh
+    cache."""
     from montecarloscattering_jl_tpu_torch.ops import step
 
     st0, tb, fresh = _f64_segment(card, 4096)
+    tb = dataclasses.replace(tb, ss=dataclasses.replace(tb.ss,
+                                                        parallel=False))
     g = step.GraphCache()
     st, tl = stt.clone(st0), fresh()
     step.run_segment(st, tl, tb, compact_levels=2, graphs=g)
     captured = g.captures
+    assert captured >= 1
     stt.copy_into(st, st0)
     step.run_segment(st, tl, tb, compact_levels=2, graphs=g)
     assert g.captures == captured
@@ -468,6 +487,109 @@ def test_graphs_replay_across_segments(card):
     for f in dataclasses.fields(st0):
         assert torch.equal(getattr(st, f.name), getattr(ref, f.name)), \
             f.name
+
+
+# ---- K5 against the plain step's block ------------------------------------
+
+def _hold_k5(tb, st0, fresh, n_steps=64):
+    """One K5 launch against the plain block from the same lanes: per
+    lane and in every tally (the module's bounds)."""
+    from montecarloscattering_jl_tpu_torch.ops import helix, step
+
+    n = st0.weight.shape[0]
+    s_k, t_k, s_p, t_p = stt.clone(st0), fresh(), stt.clone(st0), fresh()
+    before = helix.LAUNCHES
+    helix.block(s_k, t_k, tb, n_steps, 10_000)
+    assert helix.LAUNCHES == before + 1
+    step._block(s_p, t_p, tb, n_steps, 10_000)
+    torch.cuda.synchronize()
+    same = torch.ones(n, dtype=torch.bool, device=st0.device)
+    for name in ("status", "reason", "nsteps", "igrid", "tcut", "flags"):
+        same &= getattr(s_k, name) == getattr(s_p, name)
+    assert int((~same).sum()) <= 1e-3 * n
+    ptot = torch.hypot(s_p.pb.double(), s_p.pperp.double())
+    for name in ("pb", "pperp", "phi", "x", "prp_x", "acctime", "t_step",
+                 "ux_prev", "xn_per"):
+        a = getattr(s_k, name).double()[same]
+        b = getattr(s_p, name).double()[same]
+        scale = ptot[same] if name in ("pb", "pperp") else b.abs()
+        over = (a - b).abs() > 1e-12 * scale
+        assert int(over.sum()) <= 1e-3 * n, name
+    for f in dataclasses.fields(t_p):
+        b = getattr(t_p, f.name)
+        if not isinstance(b, torch.Tensor):
+            continue
+        a, b = getattr(t_k, f.name).double(), b.double()
+        tol = 1e-4 if f.name == "psd_diff" else 1e-9
+        assert float((a - b).abs().max()) <= tol * float(b.abs().max()), \
+            f.name
+    return s_p, t_p
+
+
+@pytest.mark.parametrize("case", wl.FLAG_CASES, ids=lambda c: c[0])
+def test_k5_matches_plain_step_flags(card, case):
+    """A 64-step window of each flag case (4,096 of scripts/workloads.py
+    flag_population's lanes at float64) through K5 against the plain
+    block."""
+    c = wl.helix_flag_case(case, card, lanes=LANES)
+    _, t_p = _hold_k5(c["tb"], c["st0"], c["fresh_tal"])
+    assert float(t_p.flux_diff.abs().sum()) > 0
+
+
+@pytest.mark.parametrize("pdt", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_k5_matches_plain_step_flagship(card, pdt):
+    """The flagship's injected lanes with two x_spec detectors, at
+    float64 (its own instance) and float32 (the float32 instance)."""
+    from montecarloscattering_jl_tpu_torch.ops import helix, step
+
+    cfg = load_config(CFG)
+    cfg.x_spec = [-0.5 * cfg.rg0, 0.5 * cfg.rg0]
+    setup = build_setup(cfg)
+    eng = TransportEngine(setup, device=card, p_dtype=pdt)
+    ss = eng.step_static(0)
+    tb = step.step_tables(eng.segment_grids(setup.profile),
+                          eng.segment_scalars(0, 0, setup.profile.bmag2),
+                          ss, card)
+    assert helix.INSTANCES[helix.pack(tb).instance] == (
+        pdt == torch.float64, helix.FLAG_XSPEC if pdt == torch.float64
+        else helix.CT_RUNTIME)
+    st0 = wl.flagship_population(setup, cfg, card, lanes=LANES, p_dtype=pdt)
+    b = setup.bins
+    _, t_p = _hold_k5(tb, st0, lambda: stt.make_tallies(
+        setup.nb, b.n_mom, b.n_theta, card, n_xspec=2))
+    assert float(t_p.spectra_sf.sum()) > 0
+
+
+@pytest.mark.parametrize("ctr", [0, 1, 63, 1000, 2 ** 31 - 1, -1])
+def test_k5_uniforms_are_the_xla_stream(card, ctr):
+    """K5's in-kernel uniforms (its debug entry) bit for bit against
+    rng.lane_uniforms_xla at one counter for every lane (-1: a random
+    counter a lane)."""
+    from montecarloscattering_jl_tpu_torch.ops import helix
+
+    k0, k1 = rng.fold_in_lanes(rng.key(11), 69_632, card)
+    if ctr < 0:
+        ns = torch.randint(0, 2 ** 31 - 1, (69_632,),
+                           generator=torch.Generator().manual_seed(4),
+                           dtype=torch.int32).to(card)
+    else:
+        ns = torch.full((69_632,), ctr, dtype=torch.int32, device=card)
+    assert torch.equal(helix.uniforms(k0, k1, ns),
+                       rng.lane_uniforms_xla(k0, k1, ns))
+
+
+def test_k5_wrapper_raises_on_bad_input(card):
+    from montecarloscattering_jl_tpu_torch.ops import helix
+
+    st0, tb, fresh = _f64_segment(card, 256)
+    p = helix.pack(tb)
+    with pytest.raises(ValueError):
+        helix.HelixLaunch(dataclasses.replace(st0, pb=st0.pb.float()),
+                          fresh(), p)
+    with pytest.raises(ValueError):
+        helix.HelixLaunch(st0, dataclasses.replace(
+            fresh(), flux_diff=torch.zeros(3, device=card)), p)
 
 
 # ---- the mesh: ranks on the card (tests/torch_mesh_cases.py) --------------

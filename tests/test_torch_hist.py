@@ -281,7 +281,7 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc"):
         build.build_all(["psd_hist"])
     assert sorted(p.name for p in build.CSRC.glob("*.cu")) == [
-        "mega_step.cu", "psd_hist.cu"]
+        "helix_step.cu", "mega_step.cu", "psd_hist.cu"]
 
 
 # ---------------------------------------------------------------------------
