@@ -44,23 +44,30 @@ Run from the root of a checkout:  python3 chip_smoke.py
    ``index_add_`` are timed under CUDA-graph replay, the way the
    plain step's graphs launch K2, and eagerly; K2 also on the helix step's
    own tensors (int64 zones, float64 weights).
-4b. ``k5``: holds K5 (ops/helix.py, the XLA engine's helix step in one
-   launch a 64-step block) against the plain step's block (ops/step.py
-   _block) on the card: (a) its in-kernel uniforms against
-   rng.lane_uniforms_xla, bit for bit, on 69,632 keys at counters 0, 1,
-   63, 1,000, 2^31 - 1 and random ones; (b) one window of the f64
-   flagship population (phase f64's config, its 69,632 injected lanes at
-   pcut 0); (c) a full drain of the same lanes through run_segment at
-   the auto compaction depth, K5 against the plain step's CUDA graphs;
-   (d) a window of each flag case at float64 (scripts/workloads.py
-   helix_flag_case: the science protons and electrons, the shipped
-   switches, the f(r_g) law on both) and of the f32 flagship with
-   detectors.  Per lane within K5_TOL (integer fields equal on all but
-   MAX_DIVERGENT of the lanes), the float64 tallies within K5_TALLY_TOL
-   of their largest entry, the PSD within HIST_TOL; each case prints the
-   instance it ran, K5's ms a window (CUDA events, enqueued), the plain
-   block's under graph replay and the bound; a case with an instance of
-   its own also runs the run-time instance (the same bits, its time).
+4b. ``k5``: holds K5 (ops/helix.py, the XLA engine's helix step: one
+   persistent launch a pcut segment, the drain, or a window of n steps)
+   against the plain step (ops/step.py) on the card: (a) its in-kernel
+   uniforms against rng.lane_uniforms_xla, bit for bit, on 69,632 keys
+   at counters 0, 1, 63, 1,000, 2^31 - 1 and random ones; (b) one
+   64-step window of the f64 flagship population (phase f64's config,
+   its 69,632 injected lanes at pcut 0) against the plain block; (c)
+   the drain of the same lanes through run_segment (``hold_drain``): a
+   full segment at the engine's helix cap, and one capped at K5_SEG_CAP
+   steps, each against the plain step's CUDA graphs and K5's block loop
+   (``blocks=True``) at the auto compaction depth: one K5 launch, no
+   host read inside it, the loop's steps, every lane bit for bit against
+   the loop (FL_JRET included) and equal to the plain step's; (d) a
+   window and a drain capped at DRAIN_CAP of each flag case at float64
+   (scripts/workloads.py helix_flag_case: the science protons and
+   electrons, the shipped switches, the f(r_g) law on both) and of the
+   f32 flagship with detectors.  Windows per lane within K5_TOL (integer
+   fields equal on all but MAX_DIVERGENT of the lanes); the float64
+   tallies within K5_TALLY_TOL of their largest entry, the PSD within
+   HIST_TOL; each case prints the instance it ran, K5's ms (CUDA
+   events), the plain step's under graph replay and the bound; a case
+   with an instance of its own also runs the run-time instance (the same
+   bits, its time); the drain's instance prints its registers and the
+   blocks an SM holds.
 5. ``f32``: drives the K1 path: ``engine.driver.run`` on the flagship
    nonlinear config with float32 momenta (65,536 particles per pcut,
    smoothing on, 2 iterations); checks that every transport launch went
@@ -102,22 +109,23 @@ Run from the root of a checkout:  python3 chip_smoke.py
 10. ``f64``: drives the XLA-engine path, the JAX CLI's default: the
    flagship config with float64 momenta and two x_spec detectors at
    -/+0.5 r_g0, 1 iteration, cut to its first 4 pcuts; checks that every
-   block launched K5 (its PSD deposits through K2's warp deposit inside
-   it; no plain block, no standalone K2, no K1), that the output files
+   segment was one K5 drain (its PSD deposits through K2's warp deposit
+   inside it; no host read inside it, no plain block, no standalone K2,
+   no K1) and that the drains' pushes are the run's, that the output files
    with mc_xspec.dat are written, that both detectors' spectra are
    positive, and the slope; prints the pushes against the same run on
    the plain step (PR 8).
 11. ``resume``: phase f64's run again, with a segment-boundary
     checkpoint after every segment, stopped by MCS_MID_STOP_AFTER=1 at
     the first save (before the second of its 4 segments) and resumed
-    from it to the end: every block of both runs a K5 launch; against
+    from it to the end: every segment of both runs a K5 drain; against
     phase f64's run, pushes, trajectories and exit reasons exactly (one
     iteration of protons: no lane reads an atomically summed value),
     fluxes and spectra within 1e-9 of their largest entry, the PSDs
     within 1e-4 of max |psd|; the checkpoint's bytes and save times.
 12. ``shipped``: configs/baseline.toml as shipped (no-scatter, no-DSA)
-    at float64 on the XLA engine, 1 iteration: every block a K5
-    launch, the coupled CSVs written, pushes and trajectories
+    at float64 on the XLA engine, 1 iteration: every segment a K5
+    drain, the coupled CSVs written, pushes and trajectories
     printed.
 13. ``nonlinear``: the nonlinear flagship (scripts/flagship_nonlinear.py
     of the port) at 65,536 a pcut, 10 iterations on K1, an iteration
@@ -128,16 +136,16 @@ Run from the root of a checkout:  python3 chip_smoke.py
     uninterrupted run's pushes and trajectories; iterations 5-10 of the
     resumed run agree with the uninterrupted run's within 3 times the
     spread of two uninterrupted runs (NONLINEAR_SPREAD).
-14. ``compact``: the XLA engine's live-lane compaction ladder.  Phases
-    f64, resume, shipped and electrons run it at its auto depth (5
-    levels at the flagship's 69,632 lanes: windows down to 2,176), the
-    CLI's default; this phase runs phase f64's config again at
-    compact_levels=0 and holds it to phase f64's run as phase resume
-    does, prints both runs' wall, transport and graph captures, then
-    drains the flagship's injected population (69,632 lanes, pcut 0)
-    once at levels 0 and once at auto through ``run_segment`` (K5 on
-    every block): every per-lane field bit-identical, and the device ms
-    a step at each window size (CUDA events around each K5 launch).
+14. ``compact``: the XLA engine's live-lane compaction ladder, which
+    K5's drain makes moot (no lane moves).  This phase runs phase f64's
+    config again at compact_levels=0 and holds it to phase f64's run
+    (the auto depth, the CLI's default) as phase resume does, prints
+    both runs' wall, transport and graph captures, then runs one segment
+    of the flagship's injected population (69,632 lanes, pcut 0) through
+    K5's drain and through K5's block loop at levels 0 and auto
+    (``run_segment(..., blocks=True)``: windows down to 2,176): every
+    per-lane field bit-identical, each one's device ms and the loop's ms
+    a step at each window size (CUDA events around each launch).
 15. ``oblique``: the oblique step at float64 on the flagship population
    (the plain step: the oblique branches are not in K5):
     64 steps at theta_B = 0 through the oblique branches against the
@@ -172,12 +180,21 @@ Run from the root of a checkout:  python3 chip_smoke.py
     draining its shard at the per-shard auto compaction depth; the
     gathered lanes bit-identical in every field to phase compact's.
     Every rank's drains launch K1 (none the twin) in (1) and (2), and
-    every block of (3) is a K5 launch on every rank.  Each part prints its
+    its segment in (3) is one K5 drain on every rank.  Each part prints its
     wall, pushes, pushes/s, launches a rank and the collectives with
     their seconds.  (4) With two cards or more, (1) again under NCCL, a
     card a rank; with one, a line says it did not run.
+19. ``cli``: the port's CLI as a user runs it, ``python -m
+    montecarloscattering_jl_tpu_torch CONFIG -o DIR``, one process a
+    config, on configs/baseline.toml and examples/01-04 as shipped (no
+    cut: each fits CLI_TIMEOUT), at the CLI's default float64 (K5's
+    drain): exit code 0, the completion line with the config's
+    iterations and nonzero pushes, and the file set; each wall time.
 
-Every phase that fails raises, so the script exits non-zero; it also
+The float64 phases' segments (f64, resume, shipped, electrons, compact,
+mesh part 3) are K5 drains, one launch a segment with no host read
+inside it (``check_engine``), and a driven run's pushes are its
+drains'.  Every phase that fails raises, so the script exits non-zero; it also
 exits non-zero without a CUDA device.  The line before the last is a
 JSON summary of the kernels, the last line the device record.
 """
@@ -279,6 +296,19 @@ K5_TALLY_TOL = 1e-9
 K5_INTS = ("status", "reason", "nsteps", "igrid", "tcut", "flags")
 K5_COUNTERS = (0, 1, 63, 1000, 2 ** 31 - 1)
 K5_CAP, K5_REPS = 10_000, 10
+# phase k5's drains: the flag cases' segments capped at DRAIN_CAP steps
+# (a multiple of 64: the capped lanes keep FL_JRET), and the flagship's
+# capped at K5_SEG_CAP (not one: the block loop runs on to 1,024 and
+# clears it)
+K5_SEG_CAP = 1000
+# phase cli: the shipped configs the CLI runs as they are, at its
+# default (float64 momenta: the XLA engine, K5's drain), and each run's
+# time limit
+CLI_CONFIGS = ("configs/baseline.toml", "examples/01_test_particle.toml",
+               "examples/02_nonlinear_smoothed.toml",
+               "examples/03_electron_synch_ic.toml",
+               "examples/04_hadronic_sed.toml")
+CLI_TIMEOUT = 240
 # the H100 SXM's float64 rate outside the tensor cores
 F64_OPS_S = 34e12
 # K5's floating-point operations a push, counted from csrc/helix_step.cu
@@ -775,19 +805,135 @@ def hold_k5(tag, tb, st0, fresh_tal) -> dict:
                 runtime=runtime)
 
 
+def bit_view(t):
+    """`t`'s bits: a float tensor viewed as integers of its width."""
+    import torch
+
+    if not t.is_floating_point():
+        return t
+    return t.view({8: torch.int64, 4: torch.int32}[t.element_size()])
+
+
+def same_bits(a, b) -> bool:
+    """Two tensors equal bit for bit (NaN payloads and the sign of zero
+    included)."""
+    import torch
+
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(bit_view(a), bit_view(b)))
+
+
+def hold_drain(tag, tb, st0, fresh_tal, cap=None, levels: int = 0) -> dict:
+    """One pcut segment of `st0` (helix cap `cap`, the engine's when
+    None) three ways through ``run_segment``: the plain step's CUDA
+    graphs (``plain=True``) and K5's block loop (``blocks=True``), both at
+    compaction depth `levels`, and K5's drain.  The drain must be one K5
+    launch with no host read inside it, return the loop's steps, and
+    leave every lane as both leave it: bit for bit in every field against
+    the block loop, the same values against the plain step (the bits
+    that differ are counted); its tallies within K5_TALLY_TOL of their
+    largest entry of both (the PSD within HIST_TOL).  Each run's device ms
+    (CUDA events: the drain's one launch; the sum of the loop's blocks,
+    the plain step's scaled from its replayed blocks to all of them) and
+    the drain's bound."""
+    import torch
+
+    from montecarloscattering_jl_tpu_torch.ops import helix
+    from montecarloscattering_jl_tpu_torch.ops import state as stt
+    from montecarloscattering_jl_tpu_torch.ops import step as xla_step
+
+    f64 = st0.pb.dtype == torch.float64
+    runs = {}
+    for who in ("plain", "blocks", "drain"):
+        st, tl = stt.clone(st0), fresh_tal()
+        g = xla_step.GraphCache()
+        g.timing = True
+        before = (helix.LAUNCHES, helix.DRAINS, helix.HOST_READS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        taken = xla_step.run_segment(st, tl, tb, max_helix=cap,
+                                     compact_levels=levels, graphs=g,
+                                     plain=who == "plain",
+                                     blocks=who == "blocks")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        seg = g.segment_ms()[0]
+        ms = seg["ms"]
+        if who == "plain":   # its first block ran eagerly, untimed
+            ms *= (taken // xla_step.SYNC_EVERY) / max(seg["blocks"], 1)
+        runs[who] = (st, tl, dict(
+            wall=wall, steps=taken, ms=ms,
+            pushes=int((st.nsteps - st0.nsteps).sum(dtype=torch.int64)),
+            launches=helix.LAUNCHES - before[0],
+            drains=helix.DRAINS - before[1],
+            host_reads=helix.HOST_READS - before[2], captures=g.captures,
+            window_ms={str(k): v[1] * xla_step.SYNC_EVERY
+                       for k, v in g.step_ms().items()}))
+    sd, td, rd = runs["drain"]
+    if (rd["launches"], rd["drains"], rd["host_reads"]) != (1, 1, 0):
+        fail(f"{tag}: the drain made {rd['launches']} K5 launches "
+             f"({rd['drains']} drains) and {rd['host_reads']} host reads")
+    out = dict(drain=rd, blocks=runs["blocks"][2], plain=runs["plain"][2])
+    for ref in ("blocks", "plain"):
+        sr, tr, rr = runs[ref]
+        if rr["steps"] != rd["steps"] or rr["pushes"] != rd["pushes"]:
+            fail(f"{tag}: the drain took {rd['steps']} steps, "
+                 f"{rd['pushes']} pushes; the {ref} loop {rr['steps']}, "
+                 f"{rr['pushes']}")
+        bits = {}
+        for f in dataclasses.fields(st0):
+            a, b = getattr(sd, f.name), getattr(sr, f.name)
+            if ref == "blocks" and not same_bits(a, b):
+                fail(f"{tag}: the drain's {f.name} differs from the block "
+                     f"loop's")
+            same = (a == b) | (a.isnan() & b.isnan()) \
+                if a.is_floating_point() else a == b
+            if not bool(same.all()):
+                fail(f"{tag}: the drain's {f.name} differs from the plain "
+                     f"step's on {int((~same).sum())} lanes")
+            if not same_bits(a, b):
+                bits[f.name] = int((bit_view(a) != bit_view(b)).sum())
+        out[f"tallies_vs_{ref}"] = hold_k5_tallies(f"{tag} vs {ref}", td, tr)
+        out[f"bits_vs_{ref}"] = bits
+    touched = sum(2 * int(torch.count_nonzero(v)) * v.element_size()
+                  for v in (getattr(td, f.name)
+                            for f in dataclasses.fields(td))
+                  if isinstance(v, torch.Tensor))
+    n = st0.weight.shape[0]
+    b_ms, b_by = bound(n * K5_STATE_BYTES[st0.pb.element_size()] + touched,
+                       rd["pushes"] * K5_OPS_PER_PUSH,
+                       F64_OPS_S if f64 else F32_OPS_S)
+    out.update(ms=rd["ms"], plain_ms=runs["plain"][2]["ms"],
+               blocks_ms=runs["blocks"][2]["ms"], bound_ms=b_ms,
+               bound_by=b_by, bound_share=b_ms / rd["ms"],
+               max_abs_err=out["tallies_vs_plain"]["psd_max_abs_err"])
+    print(f"{tag}: {n} lanes, cap {cap}, levels {levels}: drain "
+          f"{rd['ms']:.4f} ms ({rd['pushes']} pushes, {rd['steps']} "
+          f"steps), block loop {out['blocks_ms']:.4f} ms, plain step "
+          f"{out['plain_ms']:.2f} ms; bound {b_ms:.5f} ms ({b_by}, "
+          f"{100 * b_ms / rd['ms']:.2f}%); lanes bit for bit against the "
+          f"block loop, bits differing from the plain step "
+          f"{json.dumps(out['bits_vs_plain'])}; tallies against plain "
+          f"{json.dumps(out['tallies_vs_plain'])}; runs "
+          f"{json.dumps({k: v[2] for k, v in runs.items()})}")
+    return out
+
+
 def k5_phase(dev) -> dict:
     """Phase k5: K5 against the plain step on the card.  (a) The
     uniforms; (b) one window of the f64 flagship population (phase
-    f64's config, the engine's 69,632 injected lanes at pcut 0); (c) a
-    full drain of the same lanes at the auto compaction depth through
-    run_segment, K5 against the plain step's graphs (per lane, tallies,
-    K5's device ms a step at each window size); (d) a window of each
-    flag case at float64 (scripts/workloads.py helix_flag_case) and of
-    the f32 flagship with x_spec detectors at float32."""
+    f64's config, the engine's 69,632 injected lanes at pcut 0); (c) the
+    drain of the same lanes, a full segment at the engine's helix cap,
+    against the plain step's graphs and K5's block loop at the auto
+    compaction depth (hold_drain), and the same segment capped at
+    K5_SEG_CAP steps; (d) a window and a segment capped at DRAIN_CAP of
+    each flag case at float64 (scripts/workloads.py helix_flag_case) and
+    of the f32 flagship with x_spec detectors at float32."""
     import torch
 
     from montecarloscattering_jl_tpu_torch.engine.run import TransportEngine
     from montecarloscattering_jl_tpu_torch.engine.setup import build_setup
+    from montecarloscattering_jl_tpu_torch.ops import helix
     from montecarloscattering_jl_tpu_torch.ops import state as stt
     from montecarloscattering_jl_tpu_torch.ops import step as xla_step
     from montecarloscattering_jl_tpu_torch.scripts import workloads as wl
@@ -810,51 +956,28 @@ def k5_phase(dev) -> dict:
     eng, tb, st0, fresh = flagship(torch.float64)
     out = dict(uniforms=k5_uniforms(st0))
     out["flagship"] = hold_k5("k5 flagship", tb, st0, fresh)
+    out["drain"] = hold_drain("k5 drain", tb, st0, fresh,
+                              levels=eng.compact_levels)
+    out["capped"] = hold_drain("k5 drain capped", tb, st0, fresh,
+                               cap=K5_SEG_CAP, levels=eng.compact_levels)
+    p = helix.pack(tb)
+    out["residency"] = helix.instance_attrs(p.instance, tb.ss.nb + 1)
+    print(f"k5 drain: instance {p.instance}, {json.dumps(out['residency'])}")
 
-    # a full drain at the auto depth, K5 against the plain step's graphs
-    drains = {}
-    for who in ("plain", "k5"):
-        st, tl = stt.clone(st0), fresh()
-        g = xla_step.GraphCache()
-        g.timing = True
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        taken = xla_step.run_segment(st, tl, tb,
-                                     compact_levels=eng.compact_levels,
-                                     graphs=g, plain=who == "plain")
-        torch.cuda.synchronize()
-        drains[who] = (st, tl, dict(
-            wall=time.perf_counter() - t0, steps=taken,
-            pushes=int((st.nsteps - st0.nsteps).sum()),
-            captures=g.captures, capture_s=g.capture_s,
-            step_ms={str(k): v for k, v in g.step_ms().items()}))
-        print(f"k5 drain ({who}, {eng.compact_levels} levels): "
-              f"{json.dumps(drains[who][2])}")
-    (sk, tk, rk), (sp, tp, rp) = drains["k5"], drains["plain"]
-    lanes = compare_lanes(sk, sp, K5_TOL, K5_INTS)
-    print(f"k5 drain per-lane: {json.dumps(lanes)}")
-    n = st0.weight.shape[0]
-    if (lanes["divergent_lanes"] > MAX_DIVERGENT * n
-            or lanes["float_lanes_over_bound"] > MAX_DIVERGENT * n):
-        fail(f"k5 drain: {lanes}")
-    tal = hold_k5_tallies("k5 drain", tk, tp)
-    print(f"k5 drain tallies against plain: {json.dumps(tal)}")
-    window_ms = {k: v[1] * WINDOW for k, v in rk["step_ms"].items()}
-    print(f"k5 drain: K5's device ms a {WINDOW}-step window by window "
-          f"size {json.dumps(window_ms)}")
-    out["drain"] = dict(k5=rk, plain=rp, lanes=lanes, tallies=tal,
-                        window_ms=window_ms)
-
-    cases = {}
+    cases, drains = {}, {}
     for case in wl.FLAG_CASES:
         if case[4] == 1.0:
             continue        # the f(r_g) law at alpha = 1: K1's own check
         c = wl.helix_flag_case(case, dev)
         cases[case[0]] = hold_k5(f"k5 {case[0]}", c["tb"], c["st0"],
                                  c["fresh_tal"])
+        drains[case[0]] = hold_drain(f"k5 {case[0]} drain", c["tb"],
+                                     c["st0"], c["fresh_tal"], cap=DRAIN_CAP)
     _, tb32, st32, fresh32 = flagship(torch.float32)
     cases["f32 x_spec"] = hold_k5("k5 f32 x_spec", tb32, st32, fresh32)
-    out["cases"] = cases
+    drains["f32 x_spec"] = hold_drain("k5 f32 x_spec drain", tb32, st32,
+                                      fresh32, cap=DRAIN_CAP)
+    out["cases"], out["case_drains"] = cases, drains
     return out
 
 
@@ -883,7 +1006,8 @@ def zero_counts() -> None:
 
     mega.LAUNCHES = mega.TWIN_CALLS = mega.HOST_WAITS = 0
     hist.LAUNCHES = hist.BAND_LAUNCHES = hist.PLAIN_CALLS = 0
-    helix.LAUNCHES = helix.DEPOSIT_STEPS = helix.PLAIN_CALLS = 0
+    helix.LAUNCHES = helix.DRAINS = helix.DEPOSIT_STEPS = 0
+    helix.HOST_READS = helix.PLAIN_CALLS = 0
 
 
 def read_counts() -> dict:
@@ -892,16 +1016,18 @@ def read_counts() -> dict:
     return dict(k1=mega.LAUNCHES, k1_host_waits=mega.HOST_WAITS,
                 twin=mega.TWIN_CALLS, k2=hist.LAUNCHES,
                 k3=hist.BAND_LAUNCHES, hist_plain=hist.PLAIN_CALLS,
-                k5=helix.LAUNCHES, k5_deposit_steps=helix.DEPOSIT_STEPS,
+                k5=helix.LAUNCHES, k5_drains=helix.DRAINS,
+                k5_host_reads=helix.HOST_READS,
+                k5_deposit_steps=helix.DEPOSIT_STEPS,
                 plain_blocks=helix.PLAIN_CALLS)
 
 
 def check_engine(tag, counts, p_dtype) -> None:
     """Every drain of a float32 run launched K1 (none the twin or the XLA
-    engine, and no drain waits on the host once a launch); every block
-    of a float64 run launched K5, its PSD deposits through K2's warp
-    deposit inside it (no plain block, no standalone K2 or its plain
-    version, no K1)."""
+    engine, and no drain waits on the host once a launch); every segment
+    of a float64 run is one K5 drain, its PSD deposits through K2's warp
+    deposit inside it (no K5 window, no host read inside a segment, no
+    plain block, no standalone K2 or its plain version, no K1)."""
     import torch
 
     if p_dtype == torch.float32:
@@ -912,12 +1038,13 @@ def check_engine(tag, counts, p_dtype) -> None:
         if counts["k1_host_waits"] >= counts["k1"]:
             fail(f"{tag}: {counts} (the drains wait on the host once a "
                  f"launch)")
-    elif (counts["k5"] <= 0 or counts["k5_deposit_steps"] != WINDOW
-          * counts["k5"] or counts["plain_blocks"] != 0
+    elif (counts["k5"] <= 0 or counts["k5_drains"] != counts["k5"]
+          or counts["k5_host_reads"] != 0 or counts["k5_deposit_steps"] <= 0
+          or counts["plain_blocks"] != 0
           or counts["k2"] != 0 or counts["hist_plain"] != 0
           or counts["k1"] != 0 or counts["twin"] != 0):
-        fail(f"{tag}: {counts} (every block must launch K5, none the plain "
-             f"step, no K1)")
+        fail(f"{tag}: {counts} (every segment must be one K5 drain with no "
+             f"host read inside it, none the plain step, no K1)")
 
 
 def drive(cfg, dev, p_dtype, tag: str, cap: int = 0, killed: bool = False,
@@ -975,6 +1102,10 @@ def drive(cfg, dev, p_dtype, tag: str, cap: int = 0, killed: bool = False,
           f"{wall:.2f} s ({res.n_pushes / wall / 1e6:.2f} M pushes/s); "
           f"launches {json.dumps(counts)}; phases {json.dumps(phases)}")
     check_engine(tag, counts, p_dtype)
+    if (p_dtype == torch.float64 and "resume" not in run_kw
+            and counts["k5_deposit_steps"] != res.n_pushes):
+        fail(f"{tag}: the K5 drains made {counts['k5_deposit_steps']} "
+             f"pushes, the run counts {res.n_pushes}")
     missing = [f for f in expected_files(cfg) if f not in written]
     if missing:
         fail(f"{tag}: output files missing: {missing} (got {written})")
@@ -1338,10 +1469,12 @@ def graphs_line(res) -> dict:
 
 def compact_path(dev, f64) -> dict:
     """Phase compact: phase f64's config at compact_levels=0, held to
-    phase f64's run (auto compaction) as phase resume holds its run;
-    then one run_segment of the flagship population at levels 0 and
-    auto, every per-lane field bit-identical, with the device ms a step
-    at each window size."""
+    phase f64's run (auto compaction; both K5 drains, where the depth is
+    moot) as phase resume holds its run; then one segment of the
+    flagship population through K5's drain and through K5's block loop
+    at levels 0 and auto, every per-lane field bit-identical, with each
+    one's device ms and the block loop's ms a step at each window
+    size."""
     import torch
 
     from montecarloscattering_jl_tpu_torch.engine.run import (
@@ -1366,7 +1499,9 @@ def compact_path(dev, f64) -> dict:
           f"transport {res.timers.totals['transport']:.2f} s, graphs "
           f"{json.dumps(graphs_line(res))}")
 
-    # one segment of the injected population, lane for lane
+    # one segment of the injected population, lane for lane: K5's drain
+    # (the engine's path, where the depth is moot) and K5's block loop at
+    # levels 0 and auto
     setup = res.setup
     ss = eng.step_static(0)
     tb = xla_step.step_tables(eng.segment_grids(setup.profile),
@@ -1376,7 +1511,8 @@ def compact_path(dev, f64) -> dict:
                                  p_dtype=torch.float64)
     b = setup.bins
     seg = {}
-    for lv in (0, auto):
+    for who, lv in (("drain", auto), ("levels 0", 0), (f"levels {auto}",
+                                                        auto)):
         st = stt.clone(st0)
         tl = stt.make_tallies(setup.nb, b.n_mom, b.n_theta, dev,
                               n_xspec=ss.n_xspec)
@@ -1385,27 +1521,30 @@ def compact_path(dev, f64) -> dict:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         taken = xla_step.run_segment(st, tl, tb, compact_levels=lv,
-                                     graphs=g)
+                                     graphs=g, blocks=who != "drain")
         torch.cuda.synchronize()
-        seg[lv] = (st, dict(wall=time.perf_counter() - t0, steps=taken,
-                            captures=g.captures, capture_s=g.capture_s,
-                            step_ms={str(k): v for k, v in
-                                     g.step_ms().items()}))
-        print(f"compact segment, levels {lv}: {json.dumps(seg[lv][1])}")
-    diff = [f.name for f in dataclasses.fields(st0)
-            if not torch.equal(getattr(seg[0][0], f.name),
-                               getattr(seg[auto][0], f.name))]
-    if diff:
-        fail(f"compact: the lanes of levels {auto} differ from levels 0 "
-             f"in {diff}")
+        seg[who] = (st, dict(wall=time.perf_counter() - t0, steps=taken,
+                             device_ms=g.segment_ms()[0]["ms"],
+                             captures=g.captures, capture_s=g.capture_s,
+                             step_ms={str(k): v for k, v in
+                                      g.step_ms().items()}))
+        print(f"compact segment, {who}: {json.dumps(seg[who][1])}")
+    for who in ("levels 0", f"levels {auto}"):
+        diff = [f.name for f in dataclasses.fields(st0)
+                if not same_bits(getattr(seg["drain"][0], f.name),
+                                 getattr(seg[who][0], f.name))]
+        if diff or seg[who][1]["steps"] != seg["drain"][1]["steps"]:
+            fail(f"compact: the drain's lanes differ from the block loop's "
+                 f"at {who} in {diff}, or its steps")
     print(f"compact segment: every per-lane field of {eng.batch_size} "
-          f"lanes bit-identical at levels 0 and {auto}")
+          f"lanes bit-identical in the drain and the block loop at levels "
+          f"0 and {auto}")
     return dict(counts=counts, wall=wall, wall_auto=f64["wall"],
                 transport=res.timers.totals["transport"],
                 transport_auto=ref.timers.totals["transport"],
                 graphs=graphs_line(res), graphs_auto=graphs_line(ref),
                 worst=worst, segment={k: v[1] for k, v in seg.items()},
-                lanes=seg[0][0].to_numpy())
+                lanes=seg["drain"][0].to_numpy())
 
 
 def oblique_path(dev) -> dict:
@@ -1849,6 +1988,52 @@ def nonlinear_path(dev) -> dict:
                 checkpoint_ms=ck_ms, worst=worst)
 
 
+def cli_phase(dev) -> dict:
+    """Phase cli: the port's CLI as a user runs it, ``python -m
+    montecarloscattering_jl_tpu_torch CONFIG -o DIR``, in a process of
+    its own on each of CLI_CONFIGS as shipped, at its default (float64
+    momenta on the XLA engine: K5's drain): exit code 0, its completion
+    line ("finished: N iterations, ...", the JAX CLI's; neither CLI
+    prints "Done") with the config's iterations and nonzero pushes,
+    "outputs written to", and the file set of expected_files.  Each
+    run's wall time, the process's start included."""
+    import re
+    import subprocess
+
+    from montecarloscattering_jl_tpu_torch.utils import load_config
+
+    out = {}
+    for rel in CLI_CONFIGS:
+        path = os.path.join(ROOT, rel)
+        cfg = load_config(path)
+        with tempfile.TemporaryDirectory() as d:
+            t0 = time.perf_counter()
+            r = subprocess.run(
+                [sys.executable, "-m", "montecarloscattering_jl_tpu_torch",
+                 path, "-o", d], cwd=ROOT, capture_output=True, text=True,
+                timeout=CLI_TIMEOUT)
+            wall = time.perf_counter() - t0
+            written = sorted(os.listdir(d))
+        if r.returncode != 0:
+            fail(f"cli {rel}: exit {r.returncode}: {r.stderr[-2000:]}")
+        m = re.search(r"finished: (\d+) iterations, (\d+) trajectories, "
+                      r"(\d+) pushes in ([\d.]+)s", r.stdout)
+        if (m is None or int(m.group(1)) != cfg.n_itrs
+                or int(m.group(3)) <= 0
+                or "outputs written to" not in r.stdout):
+            fail(f"cli {rel}: {r.stdout[-2000:]}")
+        missing = [f for f in expected_files(cfg) if f not in written]
+        if missing:
+            fail(f"cli {rel}: output files missing: {missing} (got "
+                 f"{written})")
+        out[rel] = dict(wall=wall, run_s=float(m.group(4)),
+                        iterations=cfg.n_itrs,
+                        trajectories=int(m.group(2)),
+                        pushes=int(m.group(3)), files=len(written))
+        print(f"cli {rel}: {json.dumps(out[rel])}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1872,7 +2057,9 @@ def main() -> int:
     dev = torch.device("cuda:0")
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
-    libs = build.build_all(["mega_step", "psd_hist", "helix_step"],
+    from montecarloscattering_jl_tpu_torch.ops import helix
+
+    libs = build.build_all(["mega_step", "psd_hist", *helix.targets()],
                            verbose=True)
     print(f"build (nvcc, in parallel): {time.perf_counter() - t0:.2f} s "
           f"({', '.join(p.name for p in libs.values())})")
@@ -1896,14 +2083,15 @@ def main() -> int:
                       ("kw", kw_path),
                       ("endurance", endurance_path),
                       ("mesh", lambda d: mesh_path(d, done["f32"],
-                                                   done["compact"]))):
+                                                   done["compact"])),
+                      ("cli", cli_phase)):
         t0 = time.perf_counter()
         done[phase] = fn(dev)
         print(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
     # after the phases: an instance's resident blocks are known once it
     # has launched
     instances = k1_instances(build.LOGS.get("mega_step", ""))
-    k5_inst = k5_instances(build.LOGS.get("helix_step", ""))
+    k5_inst = k5_instances()
     print(f"K5 instances: {json.dumps(k5_inst)}")
     print(json.dumps({"kernels": kernel_records(done, instances, k5_inst)}))
     print(f"chip_smoke wall: {time.perf_counter() - t_start:.1f} s")
@@ -1939,29 +2127,23 @@ def k1_instances(ptxas_log: str) -> list:
             for i, word in enumerate(mega.INSTANCES)]
 
 
-def k5_instances(ptxas_log: str) -> list:
-    """Every K5 instance (ops/helix.py INSTANCES) with its registers and
-    local-memory bytes a thread from the CUDA runtime and, where this run
-    compiled the source, its stack frame and spill bytes."""
-    import re
+def k5_instances() -> dict:
+    """Every K5 instance (ops/helix.py INSTANCES) of both builds (the
+    default and the f(r_g) law's, FRG_BUILD) with its registers and
+    local-memory bytes a thread from the CUDA runtime, its window
+    kernel's and its drain's, and, where this run compiled the source,
+    their stack frames and spill bytes."""
+    from montecarloscattering_jl_tpu_torch.ops import build, helix
 
-    from montecarloscattering_jl_tpu_torch.ops import helix
-
-    said = {}
-    for blk in re.split(r"Compiling entry function '", ptxas_log)[1:]:
-        m = re.match(r"\w*helix_step_kernelI([df])Li(n?)(\d+)E", blk)
-        regs = re.search(r"Used (\d+) registers", blk)
-        mem = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
-                        r"stores, (\d+) bytes spill loads", blk)
-        if m and regs and mem:
-            word = -int(m.group(3)) if m.group(2) else int(m.group(3))
-            said[(m.group(1) == "d", word)] = dict(
-                ptxas_registers=int(regs.group(1)),
-                stack_bytes=int(mem.group(1)),
-                spill_store_bytes=int(mem.group(2)),
-                spill_load_bytes=int(mem.group(3)))
-    return [dict(helix.instance_attrs(i), **said.get(key, {}))
+    out = {}
+    for frg, (name, defines, _) in enumerate(helix.targets()):
+        said = helix.ptxas_report(
+            build.LOGS.get(build.log_key(name, defines), ""))
+        out["frg" if frg else "default"] = [
+            dict(helix.instance_attrs(i, frg=bool(frg)),
+                 ptxas=said.get(key, {}))
             for i, key in enumerate(helix.INSTANCES)]
+    return out
 
 
 def kernel_records(done, instances, k5_inst) -> list:
@@ -1995,31 +2177,42 @@ def kernel_records(done, instances, k5_inst) -> list:
     k2_launches = f64_paths("k2")
     k5_deposits = f64_paths("k5_deposit_steps")
     k5 = done["k5"]
-    k5f = k5["flagship"]
+    k5f, k5d = k5["flagship"], k5["drain"]
     rec = lambda r: dict(max_abs_err=r["max_abs_err"], ms=r["ms"],
                          plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                          bound_by=r["bound_by"],
                          library_ms=r.get("library_ms"))
     eager = lambda r: dict(eager_ms=r["eager_ms"],
                            library_eager_ms=r["library_eager_ms"])
+    case = lambda v: dict(ms=v["ms"], plain_ms=v["plain_ms"],
+                          bound_ms=v["bound_ms"])
     return [
         {"name": "K5 helix_step", "route": "cuda",
          "source": src + "helix_step.cu",
          "replaces": "montecarloscattering_jl_tpu/ops/step.py:198",
-         "launches": f64_paths("k5"), **rec(k5f),
-         "window_ms_by_size": k5["drain"]["window_ms"],
+         "launches": f64_paths("k5"), "drains": f64_paths("k5_drains"),
+         "windows": f64_paths("k5") - f64_paths("k5_drains"),
+         "host_reads_in_segments": f64_paths("k5_host_reads"),
+         **rec(k5d), "block_loop_ms": k5d["blocks_ms"],
+         "bound_share": k5d["bound_share"],
+         "drain_pushes": k5d["drain"]["pushes"],
+         "capped_drain": case(k5["capped"]),
+         "window": dict(rec(k5f), instance=k5f["instance"]),
+         "window_ms_by_size": k5d["blocks"]["window_ms"],
          "lane_max_rel": max(v for k, v in k5f["lanes"].items()
                              if k.startswith("maxrel_")),
-         "cases": {k: dict(instance=v["instance"], ms=v["ms"],
-                           plain_ms=v["plain_ms"], bound_ms=v["bound_ms"],
+         "cases": {k: dict(instance=v["instance"], window=case(v),
+                           drain=case(k5["case_drains"][k]),
                            divergent_lanes=v["lanes"]["divergent_lanes"])
                    for k, v in k5["cases"].items()},
-         "instances": k5_inst,
-         "note": "the XLA engine's helix step (not a Pallas kernel); "
-                 "timed on the f64 flagship's 64-step window at 69,632 "
-                 "lanes, enqueued; plain_ms: the plain step's block under "
-                 "CUDA-graph replay; no single PyTorch call computes a "
-                 "helix step"},
+         "instances": k5_inst, "residency": k5["residency"],
+         "note": "the XLA engine's helix step (not a Pallas kernel); ms: "
+                 "one drain of the f64 flagship's 69,632 injected lanes "
+                 "(pcut 0, a full segment), CUDA events around its one "
+                 "launch; plain_ms: the same segment on the plain step's "
+                 "CUDA graphs, block_loop_ms: as K5 windows of 64 steps; "
+                 "window: one 64-step window, enqueued; no single "
+                 "PyTorch call computes a helix step"},
         {"name": "K1 mega_step", "route": "cuda",
          "source": src + "mega_step.cu",
          "replaces": "montecarloscattering_jl_tpu/ops/pallas_step.py:225",

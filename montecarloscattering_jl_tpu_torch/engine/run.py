@@ -17,14 +17,14 @@ engines drain a segment, chosen as the JAX package chooses them
 * otherwise the XLA engine (ops/step.py run_segment; run_ion_xla_hybrid,
   fused_ion.py:162-218, and on the CPU the scan ladder run_ion_fused,
   run.py:520-536, with the same segment semantics): float64 momenta by
-  default, x_spec detectors and oblique fields.  On a CUDA card its
-  drain is one K5 launch (ops/helix.py) a 64-step block of the
-  parallel-field step.  The drain runs the live-lane compaction ladder
-  (``compact_levels``, -1 auto as in the JAX package, run.py:104-142),
-  and its state, tallies and segment tables live in buffers that stay
-  for the engine's life, so that the oblique step's CUDA graphs,
-  captured once per window size, replay across segments, species and
-  iterations (``graphs``).
+  default, x_spec detectors and oblique fields.  On a CUDA card a
+  segment of the parallel-field step is one K5 drain (ops/helix.py).
+  The block loop (the CPU's, the oblique step's) runs the live-lane
+  compaction ladder (``compact_levels``, -1 auto as in the JAX package,
+  run.py:104-142; moot on K5's drain).  The state, tallies and segment
+  tables live in buffers that stay for the engine's life, so that the
+  oblique step's CUDA graphs, captured once per window size, replay
+  across segments, species and iterations (``graphs``).
 
 ``TransportEngine.launches`` counts the kernels the ladders launched
 (K1, K2, K5 and K5's steps) and the plain blocks on a CUDA device, over

@@ -2,9 +2,7 @@
 
 Replaces the JAX package's XLA-compiled ``helix_step``
 (montecarloscattering_jl_tpu/ops/step.py:198-684, with
-``_downstream_logic`` and ``_retro_step``) on an NVIDIA Hopper card:
-one launch of csrc/helix_step.cu runs a block of helix steps (the
-drain's SYNC_EVERY = 64) for every lane of a window, one thread a lane,
+``_downstream_logic`` and ``_retro_step``) on an NVIDIA Hopper card,
 in place of the plain step's ~300 small kernels a step.  It is the
 engine of every configuration K1 refuses (engine/run.py ``uses_k1``):
 float64 momenta, the CLI's default, and float32 with x_spec detectors.
@@ -15,13 +13,19 @@ admits); the oblique step stays ops/step.py's plain one.
   as one float64 vector in the order of KV_NAMES (the ``KV`` enum of the
   source), the integer statics as one int32 vector (KI_NAMES, ``KI``),
   the flag word and the instance that runs it.
-* ``HelixLaunch``: K5 on one window of lanes, its tallies and packed
-  tables, validated once; ``enqueue`` launches on the current stream
-  through ctypes and waits for nothing.
-* ``block``: the wrapper.  Lanes on the CPU take the plain version,
-  ops/step.py ``_block`` (``helix_step`` n times), which is K5's spec
-  and what chip_smoke.py and the tests hold it against on the card;
-  lanes on a CUDA device launch K5 or raise.
+* ``HelixDrain``: the engine's path, one persistent launch of
+  csrc/helix_step.cu a pcut segment: the card's resident threads claim
+  lanes from a device cursor and step each until it leaves ACTIVE.
+  ``enqueue`` launches on the current stream and waits for nothing;
+  ``finish`` reads the segment's one integer (the steps the 64-step
+  block loop would have taken; see ``drain_plain``).
+* ``HelixLaunch``: K5 on one window of lanes for n steps (the block
+  loop's 64-step block), one thread a lane: the comparisons' entry and
+  ``run_segment(..., blocks=True)``'s.
+* ``drain`` and ``block``: the wrappers.  Lanes on the CPU take the plain
+  versions, ``drain_plain`` and ops/step.py ``_block`` (``helix_step`` n
+  times), which are K5's spec and what chip_smoke.py and the tests hold
+  it against on the card; lanes on a CUDA device launch K5 or raise.
 * ``uniforms``: the XLA stream's eight uniforms of each lane, from the
   kernel's own generator on a CUDA device (its debug entry), from
   rng.lane_uniforms_xla on the CPU.
@@ -29,20 +33,28 @@ admits); the oblique step stays ops/step.py's plain one.
   this table; CT_RUNTIME reads the flags at run time and serves every
   configuration of its dtype, and the float64 flagship's word (x_spec
   detectors alone) has an instance of its own, compiled without the
-  other branches (221 registers a thread in the run-time instance).
+  other branches.  Words with the custom f(r_g) law run a build of
+  their own (``FRG_BUILD``).  The source's other compile-time knobs
+  (block size, blocks an SM) keep their defaults in the engine's
+  builds; scripts/probe_k5.py builds and binds (``bind``) the others.
 
 Counters (plain integers; chip_smoke.py sets them to 0 around a driven
-run): ``LAUNCHES`` (K5 launches), ``DEPOSIT_STEPS`` (the helix steps of
-those launches, each depositing its PSD records through K2's warp
-deposit, csrc/psd_deposit.cuh, where K2 was launched once a step) and
-``PLAIN_CALLS`` (plain blocks on a CUDA device, ops/step.py ``_block``:
-the oblique step and the comparisons).
+run): ``LAUNCHES`` (K5 launches: drains and windows), ``DRAINS`` (the
+drains among them), ``DEPOSIT_STEPS``
+(the helix steps whose PSD records K5 deposited through K2's warp
+deposit, csrc/psd_deposit.cuh, where K2 was launched once a step: a
+drain's pushes, a window's n steps), ``HOST_READS`` (the host's reads
+of the lanes inside a K5 segment: the block loop's check every 64
+steps; none on the drain) and ``PLAIN_CALLS`` (plain blocks on a CUDA
+device, ops/step.py ``_block``: the oblique step and the comparisons).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
+import re
 from dataclasses import dataclass
 
 import torch
@@ -50,10 +62,19 @@ import torch
 from ..utils.constants import RAD_LOSS_FAC
 from ..utils.params import E_REL_PT, MAX_HELIX_STEPS
 from . import build, rng
+from .state import ACTIVE, FL_JRET
 
 LAUNCHES = 0
+DRAINS = 0
 DEPOSIT_STEPS = 0
+HOST_READS = 0
 PLAIN_CALLS = 0
+
+# the build of K5 that runs the custom f(r_g) law (csrc/helix_step.cu
+# K5_FRG): torch.pow's bits need csrc/helix_pow.cu, built with FMA
+# contraction on and device-linked, which costs the relocatable build
+# registers and spills; every other flag word runs the default build
+FRG_BUILD = dict(defines={"K5_FRG": 1}, unit=("helix_pow", "-fmad=true"))
 
 # the float64 scalar vector (csrc/helix_step.cu enum KV, the same order):
 # StepTables.k, then the plain step's Python scalars
@@ -93,6 +114,9 @@ _SS_FLAGS = (("dont_scatter", FLAG_DONT_SCATTER), ("dont_dsa", FLAG_DONT_DSA),
              ("use_custom_eps_b", FLAG_CUSTOM_EPS_B),
              ("is_electron", FLAG_ELECTRON))
 CT_RUNTIME = -1
+# the drain's workspace (csrc/helix_step.cu enum WS_*): int32 words, a
+# header, then a (lane, steps) pair a lane at most
+WS_TAKEN, WS_PUSHES, WS_HEADER = 4, 6, 8
 # K5's instances (csrc/helix_step.cu kInstances): (float64 momenta, word);
 # the run-time instance of each dtype, and the float64 flagship's word
 # (x_spec detectors, no other flag)
@@ -151,6 +175,11 @@ class Packed:
     instance: int
     p_dtype: torch.dtype
 
+    @property
+    def frg(self) -> bool:
+        """The word runs the f(r_g) law: K5's FRG_BUILD runs it."""
+        return bool(self.word & FLAG_CUSTOM_FRG)
+
 
 def pack(tb) -> Packed:
     """`tb`'s scalars and statics in the order the kernel reads them, on
@@ -187,44 +216,97 @@ def pack(tb) -> Packed:
 # K5: build, bind, launch
 # ---------------------------------------------------------------------------
 
-_LIB = None
+_LIBS: dict = {}
 
 
-def _lib():
-    global _LIB
-    if _LIB is None:
-        lib = build.library("helix_step")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.mcs_helix_launch.argtypes = [p] + [i] * 6 + [p]
-        lib.mcs_helix_launch.restype = i
-        lib.mcs_helix_uniforms.argtypes = [p] * 4 + [i, p]
-        lib.mcs_helix_uniforms.restype = i
-        ip = ctypes.POINTER(i)
-        lib.mcs_helix_instance.argtypes = [i, ip, ip]
-        lib.mcs_helix_instance_attrs.argtypes = [i, ip, ip]
-        built = []
-        for k in range(lib.mcs_helix_num_instances()):
-            f64, word = i(), i()
-            lib.mcs_helix_instance(k, ctypes.byref(f64), ctypes.byref(word))
-            built.append((bool(f64.value), word.value))
-        if tuple(built) != INSTANCES:
-            raise RuntimeError(f"K5 was built with the instances {built}, "
-                               f"ops/helix.py lists {INSTANCES}")
-        _LIB = lib
-    return _LIB
+def targets() -> list:
+    """build.build_all's targets of K5's two builds: the default one and
+    the f(r_g) law's (FRG_BUILD)."""
+    return [("helix_step", None, None),
+            ("helix_step", FRG_BUILD["defines"], FRG_BUILD["unit"])]
 
 
-def instance_attrs(i: int) -> dict:
-    """Registers and bytes of local memory (stack and spills) a thread of
-    K5's instance `i`, from the CUDA runtime."""
-    regs, local = ctypes.c_int(), ctypes.c_int()
-    err = _lib().mcs_helix_instance_attrs(i, ctypes.byref(regs),
-                                          ctypes.byref(local))
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """`lib`, a build of csrc/helix_step.cu, with its entries' argument
+    types set; raises RuntimeError if its instances are not INSTANCES."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    ip = ctypes.POINTER(i)
+    lib.mcs_helix_launch.argtypes = [p] + [i] * 6 + [p]
+    lib.mcs_helix_launch.restype = i
+    lib.mcs_helix_drain.argtypes = [p] + [i] * 7 + [p, p]
+    lib.mcs_helix_drain.restype = i
+    lib.mcs_helix_uniforms.argtypes = [p] * 4 + [i, p]
+    lib.mcs_helix_uniforms.restype = i
+    lib.mcs_helix_instance.argtypes = [i, ip, ip]
+    lib.mcs_helix_instance_attrs.argtypes = [i, i, ip, ip]
+    lib.mcs_helix_drain_residency.argtypes = [i, i, ip, ip]
+    lib.mcs_helix_build.argtypes = [ip] * 3
+    built = []
+    for k in range(lib.mcs_helix_num_instances()):
+        f64, word = i(), i()
+        lib.mcs_helix_instance(k, ctypes.byref(f64), ctypes.byref(word))
+        built.append((bool(f64.value), word.value))
+    if tuple(built) != INSTANCES:
+        raise RuntimeError(f"K5 was built with the instances {built}, "
+                           f"ops/helix.py lists {INSTANCES}")
+    return lib
+
+
+def _lib(frg: bool = False):
+    """The library of K5's default build (or of the f(r_g) law's:
+    FRG_BUILD), bound."""
+    if frg not in _LIBS:
+        _LIBS[frg] = bind(build.library(*targets()[frg]))
+    return _LIBS[frg]
+
+
+def ptxas_report(log: str) -> dict:
+    """What ``-Xptxas -v`` said of K5's kernels in a build's log:
+    {(float64 momenta, word): {"window" or "drain": registers, stack
+    frame and spill bytes}}."""
+    out = {}
+    for blk in re.split(r"Compiling entry function '", log)[1:]:
+        m = re.match(r"\w*helix_(step|drain)_kernelI([df])Li(n?)(\d+)E",
+                     blk)
+        regs = re.search(r"Used (\d+) registers", blk)
+        mem = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                        r"stores, (\d+) bytes spill loads", blk)
+        if m and regs and mem:
+            word = -int(m.group(4)) if m.group(3) else int(m.group(4))
+            kind = "drain" if m.group(1) == "drain" else "window"
+            out.setdefault((m.group(2) == "d", word), {})[kind] = dict(
+                registers=int(regs.group(1)), stack=int(mem.group(1)),
+                spill_stores=int(mem.group(2)), spill_loads=int(mem.group(3)))
+    return out
+
+
+def _ints(fn, *args, n: int) -> list:
+    out = [ctypes.c_int() for _ in range(n)]
+    err = fn(*args, *(ctypes.byref(v) for v in out))
     if err != 0:
-        raise RuntimeError(f"K5 instance {i}: CUDA error {err}")
+        raise RuntimeError(f"K5: CUDA error {err}")
+    return [v.value for v in out]
+
+
+def instance_attrs(i: int, nz: int | None = None, frg: bool = False,
+                   lib: ctypes.CDLL | None = None) -> dict:
+    """Registers and bytes of local memory (stack and spills) a thread of
+    K5's instance `i` in the default build (or the f(r_g) one, or the
+    bound build `lib`), its window kernel's and its drain's, from the
+    CUDA runtime; with `nz` (zone boundaries), the drain's blocks an SM
+    and the card's SMs.  Also the build's knobs."""
+    lib = lib or _lib(frg)
+    regs, local = _ints(lib.mcs_helix_instance_attrs, i, 0, n=2)
+    d_regs, d_local = _ints(lib.mcs_helix_instance_attrs, i, 1, n=2)
+    block, min_blocks, frg_on = _ints(lib.mcs_helix_build, n=3)
     f64, word = INSTANCES[i]
-    return dict(f64=f64, word=word, registers=regs.value,
-                local_bytes=local.value)
+    out = dict(f64=f64, word=word, registers=regs, local_bytes=local,
+               drain_registers=d_regs, drain_local_bytes=d_local,
+               block=block, min_blocks=min_blocks, frg=frg_on)
+    if nz is not None:
+        per_sm, sms = _ints(lib.mcs_helix_drain_residency, i, nz, n=2)
+        out.update(drain_blocks_per_sm=per_sm, sms=sms)
+    return out
 
 
 def _want(a: torch.Tensor, name: str, dtype, shape, dev) -> None:
@@ -275,6 +357,23 @@ def _check(st, tl, p: Packed) -> None:
                          f"holds at most {227 * 1024 // 32}")
 
 
+def _pointers(st, tl, p: Packed) -> ctypes.Array:
+    """The kernel's N_PTR device pointers (enum PTR), checked."""
+    _check(st, tl, p)
+    dev = st.weight.device
+    if dev.type != "cuda":
+        raise ValueError(f"no helix kernel for device {dev}")
+    tensors = dict(kv=p.kv, ki=p.ki)
+    ptrs = []
+    for name in PTR_NAMES:
+        src = (st if name in STATE_NAMES else
+               tl if name in TALLY_NAMES else None)
+        a = (getattr(src, name) if src is not None else
+             tensors[name] if name in tensors else getattr(p.tb, name))
+        ptrs.append(a.data_ptr())
+    return (ctypes.c_void_p * len(ptrs))(*ptrs)
+
+
 class HelixLaunch:
     """K5 on one window of lanes `st`, tallies `tl` and packed tables `p`
     on a CUDA device, validated once: ``enqueue(n, max_helix)`` runs n
@@ -282,23 +381,12 @@ class HelixLaunch:
     current stream.  The tensors must outlive the object."""
 
     def __init__(self, st, tl, p: Packed):
-        _check(st, tl, p)
+        self._ptrs = _pointers(st, tl, p)
         self.device = st.weight.device
-        if self.device.type != "cuda":
-            raise ValueError(f"no helix kernel for device {self.device}")
-        tensors = dict(kv=p.kv, ki=p.ki)
-        ptrs = []
-        for name in PTR_NAMES:
-            src = (st if name in STATE_NAMES else
-                   tl if name in TALLY_NAMES else None)
-            a = (getattr(src, name) if src is not None else
-                 tensors[name] if name in tensors else getattr(p.tb, name))
-            ptrs.append(a.data_ptr())
-        self._ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
         self._n = st.weight.shape[0]
         self._nz = p.tb.ss.nb + 1
         self.instance, self._word = p.instance, p.word
-        self._fn = _lib().mcs_helix_launch
+        self._fn = _lib(p.frg).mcs_helix_launch
 
     def enqueue(self, n_steps: int, max_helix: int) -> None:
         global LAUNCHES, DEPOSIT_STEPS
@@ -311,6 +399,107 @@ class HelixLaunch:
             raise RuntimeError(f"K5 launch failed: CUDA error {err}")
         LAUNCHES += 1
         DEPOSIT_STEPS += n_steps
+
+
+def block_loop_steps(max_steps: int, max_helix: int, sync_every: int) -> int:
+    """The steps the block loop (ops/step.py run_segment, `sync_every`
+    steps a block, at most max_helix // sync_every + 2 blocks) takes on
+    a segment whose longest lane takes `max_steps` steps."""
+    if max_steps <= 0:
+        return 0
+    blocks = min(-(-max_steps // sync_every), max_helix // sync_every + 2)
+    return blocks * sync_every
+
+
+class HelixDrain:
+    """K5 as one persistent launch a pcut segment, on lanes `st`, tallies
+    `tl` and packed tables `p` on a CUDA device, validated once.
+    ``enqueue(max_helix, sync_every)`` steps every ACTIVE lane until it
+    leaves ACTIVE, in place, adding to the tallies, on the current
+    stream, and leaves the lanes as the block loop of `sync_every`-step
+    blocks leaves them (``drain_plain``); ``finish()`` then reads the
+    segment's result from the card, its one host read: the block loop's
+    steps (``block_loop_steps`` of the longest lane's).  The tensors
+    must outlive the object."""
+
+    def __init__(self, st, tl, p: Packed):
+        self._ptrs = _pointers(st, tl, p)
+        self.device = st.weight.device
+        self._n = st.weight.shape[0]
+        self._nz = p.tb.ss.nb + 1
+        self.instance, self._word = p.instance, p.word
+        self._ws = torch.empty(WS_HEADER + 2 * self._n, dtype=torch.int32,
+                               device=self.device)
+        self._fn = _lib(p.frg).mcs_helix_drain
+
+    def enqueue(self, max_helix: int, sync_every: int) -> None:
+        global LAUNCHES, DRAINS
+        if sync_every < 1:
+            raise ValueError(f"sync_every = {sync_every}")
+        cap = min(sync_every * (max_helix // sync_every + 2), 2 ** 31 - 1)
+        stream = torch.cuda.current_stream(self.device).cuda_stream
+        err = self._fn(self._ptrs, self._n, max_helix, sync_every, cap,
+                       self._nz, self.instance, self._word,
+                       ctypes.c_void_p(self._ws.data_ptr()),
+                       ctypes.c_void_p(stream))
+        if err != 0:
+            raise RuntimeError(f"K5 drain failed: CUDA error {err}")
+        LAUNCHES += 1
+        DRAINS += 1
+
+    def finish(self) -> int:
+        """The block loop's steps of the last enqueued drain (waits for
+        it); adds its pushes to DEPOSIT_STEPS."""
+        global DEPOSIT_STEPS
+        head = self._ws[:WS_HEADER].cpu()
+        DEPOSIT_STEPS += int(head[WS_PUSHES:WS_PUSHES + 2].view(torch.int64))
+        return int(head[WS_TAKEN])
+
+
+def _lanes(st, idx: torch.Tensor):
+    return dataclasses.replace(st, **{
+        f.name: getattr(st, f.name).index_select(0, idx)
+        for f in dataclasses.fields(st)})
+
+
+def drain_plain(st, tl, tb, max_helix: int, sync_every: int) -> int:
+    """K5's drain in plain PyTorch, its spec: step the ACTIVE lanes (and
+    only them) one step at a time until none is ACTIVE, then apply the
+    block loop's FL_JRET rule: the block loop clears the bit on a lane
+    that is not ACTIVE at every step it runs, so a lane keeps it only if
+    it stepped to the loop's last step (``block_loop_steps``; a lane that
+    was not ACTIVE took 0 steps).  Returns the block loop's steps.
+    In place; each step's tallies deposit as the plain step's do."""
+    from .step import helix_step
+
+    n0 = st.nsteps.clone()
+    while True:
+        idx = torch.nonzero(st.status == ACTIVE).flatten()
+        if idx.numel() == 0:
+            break
+        sub = _lanes(st, idx)
+        helix_step(sub, tl, tb,
+                   rng.lane_uniforms_xla(sub.key0, sub.key1, sub.nsteps),
+                   max_helix)
+        for f in dataclasses.fields(st):
+            getattr(st, f.name).index_copy_(0, idx, getattr(sub, f.name))
+    steps = st.nsteps - n0
+    taken = block_loop_steps(int(steps.max()) if steps.numel() else 0,
+                             max_helix, sync_every)
+    st.flags.copy_(torch.where(steps < taken, st.flags & ~FL_JRET,
+                               st.flags))
+    return taken
+
+
+def drain(st, tl, tb, max_helix: int, sync_every: int) -> int:
+    """One pcut segment of `st`, in place, deposited into `tl`: the plain
+    version (``drain_plain``) for lanes on the CPU, one K5 drain for
+    lanes on a CUDA device.  Returns the block loop's steps."""
+    if st.weight.device.type == "cpu":
+        return drain_plain(st, tl, tb, max_helix, sync_every)
+    d = HelixDrain(st, tl, pack(tb))
+    d.enqueue(max_helix, sync_every)
+    return d.finish()
 
 
 def block(st, tl, tb, n: int, max_helix: int | None = None) -> None:

@@ -8,11 +8,11 @@ until no lane is ACTIVE, on a window of the lanes that halves as they
 end (the live-lane compaction ladder, :724-850).  This is the engine of
 every config K1 does not run (engine/run.py): float64 momenta -- the
 CLI's default -- x_spec detectors and oblique fields.  The JAX package
-left this step to XLA; on a CUDA card the drain runs it as K5
-(ops/helix.py, csrc/helix_step.cu), one launch a 64-step block, and
-``helix_step`` / ``_block`` here are K5's plain version: its spec, the
-CPU path, and the oblique step on the card (not in K5; its PSD deposit
-launches K2, ops/hist.py, once a step).
+left this step to XLA; on a CUDA card a segment runs it as K5
+(ops/helix.py, csrc/helix_step.cu), one persistent launch a segment,
+and ``helix_step`` / ``_block`` here are K5's plain version: its spec,
+the CPU path, and the oblique step on the card (not in K5; its PSD
+deposit launches K2, ops/hist.py, once a step).
 
 Branches: the parallel-field step (theta_B = 0, the only geometry the
 config admits) and the oblique one (``StepStatic.parallel`` False: the
@@ -37,13 +37,13 @@ What differs from the JAX engine, on purpose:
 * The zone gather is an index gather and the zone lookup a
   ``searchsorted``; the JAX step's one-hot contraction and
   compare-and-sum give the same values exactly.
-* The compaction ladder halves the window only at the drain's host
+* The compaction ladder halves the window only at the block loop's host
   check every SYNC_EVERY steps, not at every step; a lane that is not
   ACTIVE does not step, so the lanes come out the same either way.
-* On a CUDA device each window's 64-step block of the parallel-field
-  step is one K5 launch; a block of the oblique step replays a CUDA
-  graph of the plain step, captured once per window size and set of
-  tensors (``GraphCache``).
+* On a CUDA device a segment of the parallel-field step is one K5
+  drain (no host check, no ladder); a block of the oblique step
+  replays a CUDA graph of the plain step, captured once per window
+  size and set of tensors (``GraphCache``).
 
 Arithmetic follows the reference in the momentum dtype of the state:
 float32 uniforms and the float32 scattering and return phases, float64
@@ -74,7 +74,7 @@ from .state import (ACTIVE, C_RAD, C_RECV, C_RETRO, FINISHED, FL_DW, FL_INJ,
 from .transforms import (hyp, transform_p_ps, transform_p_ps_parallel,
                          transform_p_psp, transform_p_psp_parallel)
 
-SYNC_EVERY = 64    # steps between the drain's host checks for ACTIVE lanes
+SYNC_EVERY = 64    # steps between the block loop's checks for ACTIVE lanes
 
 # uniform slots (step.py:66-74); the retro walk's large-angle scatter
 # reuses the scattering slots (retro lanes do not scatter)
@@ -812,9 +812,10 @@ class GraphCache:
     the tensors it was captured on).  The graphs share one memory pool;
     they never run at once and keep no output of their own.  Counts the
     captures and their seconds; with `timing` set (on a cache, or on
-    the class for every cache), CUDA events around every block, a K5
-    launch or a graph replay, give the device time a step at each
-    window size (``step_ms``, read after the work has finished)."""
+    the class for every cache), CUDA events around every block (a K5
+    window launch or a graph replay) and every K5 drain give the device
+    time a step at each window size (``step_ms``) and the device time of
+    each segment (``segment_ms``), read after the work has finished."""
 
     timing = False
 
@@ -824,6 +825,7 @@ class GraphCache:
         self.captures = 0
         self.capture_s = 0.0
         self._events = []     # (window size, steps, start, end)
+        self._segments = []   # (lanes, steps, [(start, end), ...])
 
     def key(self, st, tl, tb, n, max_helix) -> tuple:
         return (n, max_helix, tb.static(), tuple(
@@ -840,17 +842,44 @@ class GraphCache:
         self.captures += 1
         return g
 
+    def _events_pair(self) -> list:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        return ev
+
     def run(self, size: int, n: int, block) -> None:
         """block() (one block of `n` steps on a window of `size` lanes),
         between two CUDA events when timing."""
         if not self.timing:
             block()
             return
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        ev[0].record()
+        ev = self._events_pair()
         block()
         ev[1].record()
         self._events.append((size, n, ev[0], ev[1]))
+
+    def drain(self, d, size: int, max_helix: int, sync_every: int) -> int:
+        """One K5 drain `d` (helix.HelixDrain) of a segment of `size`
+        lanes, between two CUDA events when timing; returns its steps."""
+        ev = self._events_pair() if self.timing else None
+        d.enqueue(max_helix, sync_every)
+        if ev is not None:
+            ev[1].record()
+        taken = d.finish()
+        if ev is not None:
+            self._segments.append((size, taken, [tuple(ev)]))
+        return taken
+
+    def mark(self) -> int:
+        """Where the next segment's blocks start (``end_segment``)."""
+        return len(self._events)
+
+    def end_segment(self, size: int, steps: int, first: int) -> None:
+        """The blocks timed since ``mark`` returned `first` as one segment
+        of `size` lanes and `steps` steps."""
+        if self.timing:
+            self._segments.append((size, steps, [
+                (a, b) for _, _, a, b in self._events[first:]]))
 
     def step_ms(self) -> dict:
         """Window size -> (replayed steps, mean device ms a step)."""
@@ -860,6 +889,14 @@ class GraphCache:
             acc[size] = (steps + n, ms + a.elapsed_time(b))
         return {size: (steps, ms / steps) for size, (steps, ms)
                 in sorted(acc.items(), reverse=True)}
+
+    def segment_ms(self) -> list:
+        """Each timed segment: its lanes, its steps, its device ms (a
+        drain's launch, or the sum of the block loop's timed blocks) and
+        the launches or blocks timed (a first eager block is not)."""
+        return [dict(lanes=size, steps=steps, blocks=len(evs),
+                     ms=sum(a.elapsed_time(b) for a, b in evs))
+                for size, steps, evs in self._segments]
 
 
 def _window(st: ParticleState, size: int) -> ParticleState:
@@ -878,51 +915,67 @@ def _permute(st: ParticleState, order: torch.Tensor) -> None:
 def run_segment(st: ParticleState, tl: Tallies, tb: StepTables,
                 sync_every: int = SYNC_EVERY,
                 max_helix: int | None = None, compact_levels: int = 0,
-                graphs: GraphCache | None = None, plain: bool = False) -> int:
+                graphs: GraphCache | None = None, plain: bool = False,
+                blocks: bool = False) -> int:
     """Step every lane until none is ACTIVE (one pcut segment), in place;
-    returns the number of helix steps taken.
+    returns the number of helix steps the block loop takes:
+    `sync_every` times the blocks it runs.
 
-    The host checks for ACTIVE lanes only every `sync_every` steps.  The
-    extra steps are exact no-ops: a lane that is not ACTIVE does not
-    step (its count and state stay), and every tally is gated on a
-    moving lane, so the result does not depend on `sync_every`.
+    The block loop checks for ACTIVE lanes on the host every
+    `sync_every` steps.  The extra steps are exact no-ops: a lane that
+    is not ACTIVE does not step (its count and state stay; the step
+    clears its FL_JRET bit), and every tally is gated on a moving lane,
+    so the result does not depend on `sync_every`.
 
-    `compact_levels` > 0 turns on the live-lane compaction ladder
-    (step.py:724-850): the blocks run on a window of the lanes
-    (window_sizes), and at a host check that finds no more ACTIVE lanes
-    than the next window holds, a stable partition moves the ACTIVE
-    lanes to the front and the blocks go on with the smaller window.
-    A lane's uniforms are keyed by its own key and step count, so every
-    lane ends bit-identical to `compact_levels=0`, back in its own slot;
-    only the summation order of the shared tallies changes.
+    `compact_levels` > 0 turns on the live-lane compaction ladder of the
+    block loop (step.py:724-850): the blocks run on a window of the
+    lanes (window_sizes), and at a host check that finds no more ACTIVE
+    lanes than the next window holds, a stable partition moves the
+    ACTIVE lanes to the front and the blocks go on with the smaller
+    window.  A lane's uniforms are keyed by its own key and step count,
+    so every lane ends bit-identical to `compact_levels=0`, back in its
+    own slot; only the summation order of the shared tallies changes.
 
-    On a CUDA device every block of the parallel-field step is one K5
-    launch (ops/helix.py): no graph, and no plain block in its place (a
-    K5 that does not build or launch raises).  The oblique branches are
-    not in K5 yet (ROADMAP.md): the oblique step's blocks replay CUDA
-    graphs of the plain step from `graphs` (a fresh cache when None).  A
-    window whose graph is not cached captures it at once when the cache
-    holds a graph already; the first window of an empty cache runs its
-    first block eagerly (which warms the step's kernels up) and captures
-    the next.  `graphs` also times the blocks (GraphCache.timing).  On
-    the CPU every block is the plain ``_block``.  `plain` asks for the
-    plain step's graphs on a CUDA device in place of K5, the reference
-    that chip_smoke.py and the tests hold K5 to."""
+    On a CUDA device the parallel-field step is one K5 drain a segment
+    (ops/helix.py HelixDrain): the card's threads claim lanes from a
+    device cursor, the host reads one integer when the segment is over
+    and none inside it, and no lane moves, so `compact_levels` is moot
+    there; the lanes and the returned steps are the block loop's at
+    `compact_levels=0` (helix.drain_plain states the rule).  A drain
+    that does not build or launch raises: there is no fallback.
+    `blocks` asks for the block loop of K5 windows instead (one K5
+    launch a block, a host read each: helix.HOST_READS), for
+    comparisons.  The oblique branches are not in K5: the oblique step's
+    blocks replay CUDA graphs of the plain step from `graphs` (a fresh
+    cache when None).  A window whose graph is not cached captures it at
+    once when the cache holds a graph already; the first window of an
+    empty cache runs its first block eagerly (which warms the step's
+    kernels up) and captures the next.  `graphs` also times the drains
+    and blocks (GraphCache.timing).  On the CPU every block is the plain
+    ``_block``.  `plain` asks for the plain step's graphs on a CUDA
+    device in place of K5, the reference that chip_smoke.py and the
+    tests hold K5 to."""
     if max_helix is None:
         max_helix = MAX_HELIX_STEPS
     cuda = st.weight.device.type == "cuda"
     k5 = cuda and tb.ss.parallel and not plain
     if cuda and graphs is None:
         graphs = GraphCache()
+    b = st.weight.shape[0]
+    if k5 and not blocks:
+        return graphs.drain(helix.HelixDrain(st, tl, helix.pack(tb)), b,
+                            max_helix, sync_every)
     packed = helix.pack(tb) if k5 else None
     launches = {}           # window size -> K5 on that window
-    b = st.weight.shape[0]
     sizes = window_sizes(b, compact_levels)
     level, win = 0, st
     orig = None
-    taken = blocks = 0
+    taken = blocks_run = 0
+    first = graphs.mark() if cuda else 0
     for _ in range(max_helix // sync_every + 2):
         n_act = int((win.status == ACTIVE).sum())
+        if k5:
+            helix.HOST_READS += 1
         if n_act == 0:
             break
         if level + 1 < len(sizes) and n_act <= sizes[level + 1]:
@@ -937,7 +990,7 @@ def run_segment(st: ParticleState, tl: Tallies, tb: StepTables,
             o.copy_(o.index_select(0, order))
             while level + 1 < len(sizes) and n_act <= sizes[level + 1]:
                 level += 1
-            win, blocks = _window(st, sizes[level]), 0
+            win, blocks_run = _window(st, sizes[level]), 0
         size = sizes[level]
         if k5:
             kl = launches.get(size)
@@ -948,7 +1001,7 @@ def run_segment(st: ParticleState, tl: Tallies, tb: StepTables,
         elif cuda:
             key = graphs.key(win, tl, tb, sync_every, max_helix)
             g = graphs.graphs.get(key)
-            if g is None and (blocks > 0 or graphs.graphs):
+            if g is None and (blocks_run > 0 or graphs.graphs):
                 g = graphs.capture(key, win, tl, tb, sync_every, max_helix)
             if g is not None:
                 graphs.run(size, sync_every, g.replay)
@@ -957,10 +1010,12 @@ def run_segment(st: ParticleState, tl: Tallies, tb: StepTables,
         else:
             _block(win, tl, tb, sync_every, max_helix)
         taken += sync_every
-        blocks += 1
+        blocks_run += 1
     if orig is not None:
         # every lane back in its original slot
         inv = torch.empty_like(orig)
         inv[orig] = torch.arange(b, device=orig.device)
         _permute(st, inv)
+    if cuda:
+        graphs.end_segment(b, taken, first)
     return taken

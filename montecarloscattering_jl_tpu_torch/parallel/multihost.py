@@ -105,8 +105,10 @@ def _rank_main(rank, fn, n, port, backend, device, args, results,
     os.environ["LOCAL_RANK"] = str(rank)
     os.environ["LOCAL_WORLD_SIZE"] = str(n)
     if torch.device(device).type == "cpu":
-        # the ranks share the host's cores
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // n))
+        # the ranks share the host's cores, or the threads a process is
+        # given (OMP_NUM_THREADS), whichever are fewer
+        cores = min(os.cpu_count() or 1, torch.get_num_threads())
+        torch.set_num_threads(max(1, cores // n))
     init_distributed(f"localhost:{port}", n, rank, backend, device,
                      timeout)
     out = fn(make_mesh(n, device), *args)

@@ -18,9 +18,13 @@
   (float64 on the XLA engine, two x_spec detectors, 1 iteration, its
   first 4 pcuts) at each compaction depth of the comma-separated list
   (-1 auto): wall, transport, pushes/s, the ladders' launches, the
-  graph captures and their seconds, and the device ms a step at each
+  graph captures and their seconds, the device ms a step at each
   window size (CUDA events around every block: a K5 launch, or a graph
-  replay of the plain step in a checkout from before K5).  A checkout
+  replay of the plain step in a checkout from before K5) and each
+  segment's device ms.  A checkout with K5's drain runs each depth as
+  the drain (mode "drain": one launch a segment, its ms from CUDA
+  events around it) and as the block loop of K5 windows (mode
+  "blocks"), a checkout from before it as the block loop.  A checkout
   without the ladder (its ``run`` takes no compact_levels) runs once,
   as "none".
 * ``--mesh-spread N``: chip_smoke.py phase f32's run (the flagship at
@@ -227,43 +231,66 @@ def overlap() -> None:
                   f"{t.get('io', 0.0):.3f} s, {res.n_pushes} pushes")
 
 
+def f64_flagship():
+    """chip_smoke.py phase f64's config: the flagship at float64 with two
+    x_spec detectors, 1 iteration, wl.LANES a pcut, its first 4 pcuts."""
+    from montecarloscattering_jl_tpu_torch.scripts import workloads as wl
+    from montecarloscattering_jl_tpu_torch.utils import load_config
+
+    cfg = load_config(wl.CFG)
+    cfg.n_itrs = 1
+    cfg.do_smoothing = True
+    cfg.n_pts_inj = cfg.n_pts_pcut = cfg.n_pts_pcut_hi = wl.LANES
+    cfg.x_spec = [-0.5 * cfg.rg0, 0.5 * cfg.rg0]
+    cfg.pcuts = cfg.pcuts[:4]
+    return cfg
+
+
 def compact(levels: list) -> None:
+    import functools
     import inspect
 
     import torch
 
     from montecarloscattering_jl_tpu_torch.engine import driver
     from montecarloscattering_jl_tpu_torch.ops import step as xla_step
-    from montecarloscattering_jl_tpu_torch.scripts import workloads as wl
-    from montecarloscattering_jl_tpu_torch.utils import load_config
 
-    def f64_flagship():
-        cfg = load_config(wl.CFG)
-        cfg.n_itrs = 1
-        cfg.do_smoothing = True
-        cfg.n_pts_inj = cfg.n_pts_pcut = cfg.n_pts_pcut_hi = wl.LANES
-        cfg.x_spec = [-0.5 * cfg.rg0, 0.5 * cfg.rg0]
-        cfg.pcuts = cfg.pcuts[:4]
-        return cfg
-
+    # a checkout with K5's drain runs each depth twice: the drain (the
+    # engine's path) and the block loop of K5 windows (run_segment's
+    # ``blocks`` keyword, patched in for the run)
+    segment = xla_step.run_segment
+    modes = ([("drain", segment),
+              ("blocks", functools.partial(segment, blocks=True))]
+             if "blocks" in inspect.signature(segment).parameters
+             else [("blocks", segment)])
     if "compact_levels" not in inspect.signature(driver.run).parameters:
         levels = [None]
     else:
         xla_step.GraphCache.timing = True
     for lv in levels:
-        kw = {} if lv is None else dict(compact_levels=lv)
-        res, wall = timed_run(f64_flagship(), torch.float64, run_kw=kw)
-        t = res.timers.totals
-        out = dict(levels="none" if lv is None else lv, wall=wall,
-                   transport=t["transport"], pushes=res.n_pushes,
-                   pushes_per_s=res.n_pushes / wall,
-                   trajectories=res.n_trajectories,
-                   launches=getattr(res, "launches", None))
-        g = getattr(res, "graphs", None)
-        if g is not None:
-            out.update(captures=g.captures, capture_s=g.capture_s,
-                       step_ms={str(k): v for k, v in g.step_ms().items()})
-        print(f"compact {json.dumps(out)}", flush=True)
+        for mode, fn in modes:
+            kw = {} if lv is None else dict(compact_levels=lv)
+            xla_step.run_segment = fn
+            try:
+                res, wall = timed_run(f64_flagship(), torch.float64,
+                                      run_kw=kw)
+            finally:
+                xla_step.run_segment = segment
+            t = res.timers.totals
+            out = dict(levels="none" if lv is None else lv, mode=mode,
+                       wall=wall, transport=t["transport"],
+                       pushes=res.n_pushes,
+                       pushes_per_s=res.n_pushes / wall,
+                       trajectories=res.n_trajectories,
+                       launches=getattr(res, "launches", None))
+            g = getattr(res, "graphs", None)
+            if g is not None:
+                out.update(captures=g.captures, capture_s=g.capture_s,
+                           step_ms={str(k): v
+                                    for k, v in g.step_ms().items()})
+                if hasattr(g, "segment_ms"):
+                    out["segments"] = g.segment_ms()
+            print(f"compact {json.dumps(out)}", flush=True)
 
 
 def cold() -> None:
@@ -317,7 +344,10 @@ def main(argv=None) -> int:
         print("probe_driver: no CUDA device", file=sys.stderr)
         return 1
     print(f"nvidia-smi: {wl.card_line()}; root: {root}")
-    build.build_all(sorted(src.stem for src in build.CSRC.glob("*.cu")))
+    # the library sources (a checkout from before the f(r_g) build of K5
+    # has a library of every csrc/*.cu)
+    build.build_all(getattr(build, "LIBRARIES", None) or sorted(
+        src.stem for src in build.CSRC.glob("*.cu")))
     if args.cold:
         cold()
     if args.spread >= 2:

@@ -39,6 +39,7 @@ import __graft_entry__ as ge
 from montecarloscattering_jl_tpu.ops import step as stp
 from montecarloscattering_jl_tpu_torch.engine.run import (
     COMPACT_FLOOR, auto_compact_levels)
+from montecarloscattering_jl_tpu_torch.ops import helix
 from montecarloscattering_jl_tpu_torch.ops import state as tst
 from montecarloscattering_jl_tpu_torch.ops import step as tstep
 
@@ -97,6 +98,13 @@ def drains():
             mp.setattr(torch, "cos", _xla_cos)
             taken = tstep.run_segment(st, tl, tb, compact_levels=lv)
         out[lv] = (st, tl, taken)
+    # K5's drain, its plain version on the CPU (ops/helix.py drain_plain)
+    st, tl, tb = _port(state, tal, grids, sc, ss)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch, "cos", _xla_cos)
+        taken = helix.drain(st, tl, tb, tstep.MAX_HELIX_STEPS,
+                            tstep.SYNC_EVERY)
+    out["drain"] = (st, tl, taken)
     s, t = stp.run_segment_jit(state, tal, grids, sc, ss, 2)
     out["jax"] = (_np(s), _np(t))
     torch.set_num_threads(n_thr)
@@ -125,6 +133,25 @@ def test_every_lane_ended(drains):
 @pytest.mark.parametrize("lv", LEVELS[1:])
 def test_lanes_bit_identical_in_their_slots(drains, lv):
     ref, got = drains[0][0], drains[lv][0]
+    for f in dataclasses.fields(ref):
+        assert torch.equal(getattr(ref, f.name), getattr(got, f.name)), \
+            f.name
+
+
+@pytest.mark.parametrize("lv", LEVELS)
+def test_drain_takes_the_block_loops_steps(drains, lv):
+    """K5's drain (its plain version) returns the steps the block loop
+    takes at every compaction depth: whole 64-step blocks up to the
+    longest lane's steps, which the budget bounds."""
+    assert drains["drain"][2] == drains[lv][2]
+    steps = drains["drain"][0].nsteps - (stp.MAX_HELIX_STEPS - STEP_BUDGET)
+    assert drains["drain"][2] == helix.block_loop_steps(
+        int(steps.max()), stp.MAX_HELIX_STEPS, tstep.SYNC_EVERY)
+
+
+def test_drain_lanes_bit_identical(drains):
+    """The drain's lanes are level 0's, every field, FL_JRET included."""
+    ref, got = drains[0][0], drains["drain"][0]
     for f in dataclasses.fields(ref):
         assert torch.equal(getattr(ref, f.name), getattr(got, f.name)), \
             f.name
@@ -173,7 +200,17 @@ def test_ladder_tallies_match_the_jax_ladder(drains, field, tol):
     assert np.abs(b - a).max() <= tol * scale
 
 
-def test_small_batch_skips_the_ladder():
+@pytest.fixture()
+def one_thread():
+    # the plain step is ~300 small ops a step: one torch thread, as the
+    # drains fixture runs it (many threads a worker crowd the cores)
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_small_batch_skips_the_ladder(one_thread):
     """Windows below the 512-lane floor never form: levels on a 256-lane
     batch run the plain drain, lane for lane."""
     state, tal, grids, sc, ss = _build(batch=256, budget=200)

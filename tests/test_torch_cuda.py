@@ -7,10 +7,11 @@ K1 on lanes that reach its branches, a drain in one launch, K5
 (csrc/helix_step.cu) against the plain step's block (ops/step.py
 _block) on every flag case, on the flagship at float64 and at float32
 with detectors, and its uniforms against rng.lane_uniforms_xla; the XLA
-engine's float64 segment (ops/step.py, one K5 launch a block) against
-the same segment on the CPU, the compaction ladder lane for lane
-against the uncompacted drain, and the oblique step's graphs replayed
-across segments; and the batched emission
+engine's float64 segment (ops/step.py, one K5 drain) against the same
+segment on the CPU, the plain step on the card against the CPU's lane
+by lane over two steps, K5's block loop and its compaction ladder lane
+for lane against the uncompacted loop and the drain, and the oblique
+step's graphs replayed across segments; and the batched emission
 functions (models/emission/device.py) on the card against the per-zone
 NumPy oracles; and the mesh (parallel/): two ranks sharing the card
 under gloo against one process (counts exact, lanes bit for bit), two
@@ -337,14 +338,18 @@ def test_xla_segment_matches_cpu(card):
         tb = step.step_tables(eng.segment_grids(prof),
                               eng.segment_scalars(0, 2, prof.bmag2),
                               eng.step_static(0), dev)
-        before = hist.LAUNCHES, helix.DEPOSIT_STEPS, helix.PLAIN_CALLS
-        taken = step.run_segment(st, tl, tb, max_helix=512)
+        before = (hist.LAUNCHES, helix.DEPOSIT_STEPS, helix.PLAIN_CALLS,
+                  helix.LAUNCHES, helix.HOST_READS)
+        step.run_segment(st, tl, tb, max_helix=512)
         if dev.type == "cuda":
             torch.cuda.synchronize()
-            # every step in K5, its deposits inside it: no K2 launch, no
-            # plain block
+            # one K5 drain, every push's deposits inside it: no K2
+            # launch, no plain block, no host read inside the segment
+            pushes = int(st.nsteps.sum(dtype=torch.int64))
             assert (hist.LAUNCHES, helix.DEPOSIT_STEPS - before[1],
-                    helix.PLAIN_CALLS) == (before[0], taken, before[2])
+                    helix.PLAIN_CALLS, helix.LAUNCHES - before[3],
+                    helix.HOST_READS) == (before[0], pushes, before[2], 1,
+                                          before[4])
         out[dev.type] = (st.to_numpy(), tl.to_numpy())
     (sg, tg), (sc, tc) = out["cuda"], out["cpu"]
     same = np.ones(LANES, bool)
@@ -362,6 +367,77 @@ def test_xla_segment_matches_cpu(card):
         b = np.asarray(tc[name], np.float64)
         assert np.abs(b).max() > 0, name
         assert np.abs(a - b).max() <= 1e-4 * np.abs(b).max(), name
+
+
+# per lane, after each of STEPS_VS_CPU steps: torch on the card divides by
+# a Python scalar through a reciprocal multiply, and its libm (cos, sin,
+# acos, log10, pow) differs from the CPU's, each by a float64 ulp or two
+# (~1e-16 relative); the float32 cosine of the scattering phase differs
+# by up to 3 float32 ulps (2 on the card, 1 on the CPU: 1.8e-7 of
+# cos phi), which moves pb and pperp by up to 1.8e-7 of |p| a step.  So
+# after two steps every float field agrees to CPU_STEP_TOL (3.6e-7 and a
+# margin for the float64 rounding; momenta relative to |p|, a position
+# relative to the larger of |x| and the lane's path, the phase to 2 pi,
+# the rest to their own size), integer fields equal on all but 0.1% of
+# the lanes (a value within that much of a threshold), the float64 flux
+# tallies to CPU_STEP_TOL of their largest entry and the float32 PSD to
+# 1e-4
+STEPS_VS_CPU, CPU_STEP_TOL = 2, 1e-6
+
+
+def test_plain_step_on_the_card_matches_the_cpu_per_lane(card):
+    """The plain step (ops/step.py helix_step, K5's spec, which K5 equals
+    bit for bit on the card: chip_smoke.py phase k5) on the card against
+    the same step on the CPU, lane by lane after each of two steps, on
+    the f64 flagship population with two detectors: the short-horizon
+    link between the CPU's hold on the JAX step (test_torch_step.py,
+    1e-12) and the card (bounds above)."""
+    from montecarloscattering_jl_tpu_torch.ops import step
+
+    cfg = load_config(CFG)
+    cfg.x_spec = [-0.5 * cfg.rg0, 0.5 * cfg.rg0]
+    setup = build_setup(cfg)
+    cpu = torch.device("cpu")
+    runs = {}
+    for dev in (card, cpu):
+        eng = TransportEngine(setup, device=dev)
+        tb = step.step_tables(eng.segment_grids(setup.profile),
+                              eng.segment_scalars(0, 0, setup.profile.bmag2),
+                              eng.step_static(0), dev)
+        st = wl.flagship_population(setup, cfg, dev, lanes=LANES,
+                                    p_dtype=torch.float64)
+        tl = stt.make_tallies(setup.nb, setup.bins.n_mom,
+                              setup.bins.n_theta, dev, n_xspec=2)
+        x0, seen = st.x.clone(), []
+        for _ in range(STEPS_VS_CPU):
+            step.helix_step(st, tl, tb, rng.lane_uniforms_xla(
+                st.key0, st.key1, st.nsteps), 10_000)
+            seen.append(stt.clone(st).to_numpy())
+        runs[dev.type] = (seen, tl.to_numpy(), x0.cpu().numpy())
+    (sg, tg, x0), (sc, tc, _) = runs["cuda"], runs["cpu"]
+    for k in range(STEPS_VS_CPU):
+        g, c = sg[k], sc[k]
+        same = np.ones(LANES, bool)
+        for name in ("status", "reason", "nsteps", "igrid", "tcut",
+                     *(f for f, _ in stt._FLAG_FIELDS)):
+            same &= g[name] == c[name]
+        assert (~same).sum() <= 1e-3 * LANES, k
+        assert int(c["nsteps"].sum()) > 0
+        ptot = np.hypot(c["pb"], c["pperp"])
+        path = np.maximum(np.abs(c["x"]), np.abs(c["x"] - x0))
+        for name in ("pb", "pperp", "phi", "x", "prp_x", "acctime",
+                     "t_step", "ux_prev", "xn_per"):
+            scale = (ptot if name in ("pb", "pperp") else
+                     path if name == "x" else np.full(LANES, 2 * np.pi)
+                     if name == "phi" else np.abs(c[name]))
+            err = np.abs(g[name] - c[name])[same]
+            assert (err <= CPU_STEP_TOL * scale[same]).all(), (k, name,
+                                                              err.max())
+    for name in ("flux_diff", "spectra_sf", "spectra_pf", "psd_diff"):
+        a = np.asarray(tg[name], np.float64)
+        b = np.asarray(tc[name], np.float64)
+        tol = 1e-4 if name == "psd_diff" else CPU_STEP_TOL
+        assert np.abs(a - b).max() <= tol * np.abs(b).max(), name
 
 
 # ---------------------------------------------------------------------------
@@ -436,31 +512,37 @@ def _f64_segment(card, lanes):
 
 
 def test_compaction_on_the_card_is_lane_for_lane(card):
-    """The compaction ladder with K5 on every window (8,192 lanes,
-    windows 8,192 to 1,024) leaves every lane bit-identical to the
-    uncompacted drain, in its own slot; counts exact, the PSDs within
-    1e-4 of their largest entry (float32 atomics in another order); one
-    K5 launch a block, no graph capture, no plain block."""
+    """The compaction ladder of K5's block loop (``blocks=True``, 8,192
+    lanes, windows 8,192 to 1,024) leaves every lane bit-identical to the
+    uncompacted loop, in its own slot, and so does K5's drain (one
+    launch, no host read inside it, the loop's steps); counts exact, the
+    PSDs within 1e-4 of their largest entry (float32 atomics in another
+    order); one K5 launch a block, no graph capture, no plain block."""
     from montecarloscattering_jl_tpu_torch.ops import helix, step
 
     st0, tb, fresh = _f64_segment(card, 8192)
     out = {}
-    for lv in (0, 3):
+    for lv in (0, 3, "drain"):
         st, tl = stt.clone(st0), fresh()
         g = step.GraphCache()
-        before = helix.LAUNCHES, helix.PLAIN_CALLS
-        taken = step.run_segment(st, tl, tb, compact_levels=lv, graphs=g)
+        before = helix.LAUNCHES, helix.PLAIN_CALLS, helix.HOST_READS
+        taken = step.run_segment(st, tl, tb, compact_levels=(
+            5 if lv == "drain" else lv), graphs=g, blocks=lv != "drain")
         torch.cuda.synchronize()
+        launches = 1 if lv == "drain" else taken // step.SYNC_EVERY
         assert (helix.LAUNCHES - before[0], helix.PLAIN_CALLS) == (
-            taken // step.SYNC_EVERY, before[1])
-        out[lv] = (st, stt.finalize_tallies(tl), g)
-    for f in dataclasses.fields(st0):
-        assert torch.equal(getattr(out[0][0], f.name),
-                           getattr(out[3][0], f.name)), f.name
-    assert torch.equal(out[0][1].num_crossings, out[3][1].num_crossings)
-    a, c = out[0][1].psd, out[3][1].psd
-    assert float((a - c).abs().max()) <= 1e-4 * float(a.abs().max())
-    assert out[3][2].captures == out[0][2].captures == 0
+            launches, before[1])
+        assert (helix.HOST_READS == before[2]) == (lv == "drain")
+        out[lv] = (st, stt.finalize_tallies(tl), g, taken)
+    for lv in (3, "drain"):
+        assert out[lv][3] == out[0][3]
+        for f in dataclasses.fields(st0):
+            assert torch.equal(getattr(out[0][0], f.name),
+                               getattr(out[lv][0], f.name)), (lv, f.name)
+        assert torch.equal(out[0][1].num_crossings, out[lv][1].num_crossings)
+        a, c = out[0][1].psd, out[lv][1].psd
+        assert float((a - c).abs().max()) <= 1e-4 * float(a.abs().max())
+        assert out[lv][2].captures == 0
 
 
 def test_graphs_replay_across_segments(card):

@@ -161,6 +161,24 @@ def test_flag_case_words(case):
     assert helix.INSTANCES[p.instance] == (True, helix.CT_RUNTIME)
 
 
+@pytest.mark.parametrize("case", wl.FLAG_CASES, ids=[c[0] for c in
+                                                    wl.FLAG_CASES])
+def test_frg_words_run_the_frg_build(case):
+    """A word with the custom f(r_g) law runs K5's f(r_g) build (its pow
+    linked from csrc/helix_pow.cu, built as torch builds its kernels);
+    every other word the default build, which refuses the law's words."""
+    p = helix.pack(wl.helix_flag_case(case, "cpu", lanes=64)["tb"])
+    assert p.frg == (case[4] is not None) == bool(
+        p.word & helix.FLAG_CUSTOM_FRG)
+    (name, defines, unit), (name_f, defines_f, unit_f) = helix.targets()
+    assert name == name_f == "helix_step" and unit is None
+    assert defines_f == dict(defines or {}, K5_FRG=1)
+    assert unit_f == ("helix_pow", "-fmad=true")
+    text = open(SRC).read()
+    assert "(K5_FRG || (word & FLAG_CUSTOM_FRG) == 0)" in text
+    assert "k.frg_on = K5_FRG && (fl & FLAG_CUSTOM_FRG) != 0;" in text
+
+
 def test_flagship_runs_its_own_instance():
     """The float64 flagship with detectors (chip_smoke.py phase f64's
     config) runs the instance compiled for its word; at float32 the
@@ -243,32 +261,72 @@ def _as_cuda(st):
     return dataclasses.replace(st, weight=_CudaTensor(st.weight))
 
 
+class _Refused:
+    def __init__(self, *a, **k):
+        raise RuntimeError("K5 launch failed: CUDA error 209")
+
+
 @pytest.mark.parametrize("levels", [0, 1])
 def test_cuda_run_segment_never_runs_the_plain_block(monkeypatch, levels):
-    """With the lanes on a CUDA device and K5's launch failing,
-    run_segment raises; it never runs the plain block in K5's place."""
+    """With the lanes on a CUDA device and K5's launch failing (its
+    drain, and its windows under ``blocks=True``), run_segment raises;
+    it never runs the plain block in K5's place."""
     st0, tb, fresh = _segment(lanes=1024)
     plain = []
     monkeypatch.setattr(step, "_block", lambda *a, **k: plain.append(a))
-
-    class Refused:
-        def __init__(self, *a, **k):
-            raise RuntimeError("K5 launch failed: CUDA error 209")
-
-    monkeypatch.setattr(helix, "HelixLaunch", Refused)
-    with pytest.raises(RuntimeError, match="K5 launch failed"):
-        step.run_segment(_as_cuda(st0), fresh(), tb, compact_levels=levels,
-                         graphs=step.GraphCache())
+    monkeypatch.setattr(helix, "HelixDrain", _Refused)
+    monkeypatch.setattr(helix, "HelixLaunch", _Refused)
+    for blocks in (False, True):
+        with pytest.raises(RuntimeError, match="K5 launch failed"):
+            step.run_segment(_as_cuda(st0), fresh(), tb,
+                             compact_levels=levels, graphs=step.GraphCache(),
+                             blocks=blocks)
     assert plain == []
 
 
-def test_cuda_run_segment_launches_k5_every_block(monkeypatch):
-    """On a CUDA device every block of the parallel-field step is one K5
-    launch of SYNC_EVERY steps on the block's window (recorded here in
-    place of the card), with no plain block and no graph capture."""
+@pytest.mark.parametrize("levels", [0, 5])
+def test_cuda_run_segment_is_one_drain(monkeypatch, levels):
+    """On a CUDA device a segment of the parallel-field step is one K5
+    drain (recorded here in place of the card), whatever the compaction
+    depth: no plain block, no K5 window, no graph capture and no host
+    read inside the segment; run_segment returns the drain's steps."""
+    st0, tb, fresh = _segment(lanes=1024)
+    drained, plain = [], []
+    monkeypatch.setattr(step, "_block", lambda *a, **k: plain.append(a))
+    monkeypatch.setattr(helix, "HelixLaunch", _Refused)
+
+    class Recorded:
+        def __init__(self, st, tl, p):
+            assert p.tb is tb
+            assert helix.INSTANCES[p.instance] == (True, helix.FLAG_XSPEC)
+            self.st = st
+
+        def enqueue(self, max_helix, sync_every):
+            drained.append((self.st.status.shape[0], max_helix, sync_every))
+
+        def finish(self):
+            return 3 * step.SYNC_EVERY
+
+    monkeypatch.setattr(helix, "HelixDrain", Recorded)
+    reads = helix.HOST_READS
+    g = step.GraphCache()
+    taken = step.run_segment(_as_cuda(st0), fresh(), tb, max_helix=640,
+                             compact_levels=levels, graphs=g)
+    assert drained == [(1024, 640, step.SYNC_EVERY)]
+    assert taken == 3 * step.SYNC_EVERY
+    assert plain == [] and g.captures == 0 and helix.HOST_READS == reads
+
+
+def test_cuda_block_loop_launches_k5_every_block(monkeypatch):
+    """``run_segment(..., blocks=True)``, the comparisons' block loop: on
+    a CUDA device every block is one K5 launch of SYNC_EVERY steps on
+    the block's window (recorded here in place of the card), with no
+    drain, no plain block and no graph capture, and a host read before
+    each block and after the last."""
     st0, tb, fresh = _segment(lanes=1024)
     launched, plain = [], []
     monkeypatch.setattr(step, "_block", lambda *a, **k: plain.append(a))
+    monkeypatch.setattr(helix, "HelixDrain", _Refused)
 
     class Recorded:
         def __init__(self, st, tl, p):
@@ -281,26 +339,132 @@ def test_cuda_run_segment_launches_k5_every_block(monkeypatch):
             self.st.status.fill_(stt.FINISHED)     # the block ends them
 
     monkeypatch.setattr(helix, "HelixLaunch", Recorded)
+    reads = helix.HOST_READS
     g = step.GraphCache()
     taken = step.run_segment(_as_cuda(st0), fresh(), tb, max_helix=640,
-                             graphs=g)
+                             graphs=g, blocks=True)
     assert launched == [(1024, step.SYNC_EVERY, 640)]
     assert taken == step.SYNC_EVERY
     assert plain == [] and g.captures == 0
+    assert helix.HOST_READS == reads + 2
 
 
-def test_wrappers_refuse_cpu_launches_and_bad_tensors():
+@pytest.mark.parametrize("max_steps,cap,want", [
+    (0, 10_000, 0), (1, 10_000, 64), (64, 10_000, 64), (65, 10_000, 128),
+    (384, 10_000, 384), (299, 10_000, 320), (10_000, 10_000, 10_048),
+    (10_001, 10_000, 10_048), (1, 0, 64), (500, 100, 192)])
+def test_block_loop_steps(max_steps, cap, want):
+    """The block loop's steps from its longest lane's: whole blocks, at
+    most max_helix // sync_every + 2 of them (ops/step.py run_segment's
+    loop), as csrc/helix_step.cu's drain computes them (held on the card
+    by tests/test_torch_cuda.py and chip_smoke.py's hold_drain)."""
+    assert helix.block_loop_steps(max_steps, cap, 64) == want
+
+
+def _same_lanes(a, b) -> None:
+    for f in dataclasses.fields(a):
+        assert torch.equal(getattr(a, f.name), getattr(b, f.name)), f.name
+
+
+def _same_tallies(a, b) -> None:
+    for f in dataclasses.fields(a):
+        v = getattr(a, f.name)
+        if isinstance(v, torch.Tensor):
+            assert torch.equal(v, getattr(b, f.name)), f.name
+
+
+@pytest.mark.parametrize("pdt", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_cpu_drain_is_the_block_loop(pdt):
+    """K5's drain on the CPU (its plain version, helix.drain_plain: only
+    the ACTIVE lanes step, one step at a time, then the FL_JRET rule)
+    leaves every lane and tally as run_segment's block loop does and
+    returns the loop's steps; K5 is not launched."""
+    st0, tb, fresh = _segment(pdt=pdt)
+    cap = 192
+    before = (helix.LAUNCHES, helix.DEPOSIT_STEPS, helix.PLAIN_CALLS)
+    a, ta = stt.clone(st0), fresh()
+    taken = helix.drain(a, ta, tb, cap, step.SYNC_EVERY)
+    b, tbl = stt.clone(st0), fresh()
+    want = step.run_segment(b, tbl, tb, max_helix=cap)
+    assert taken == want > 0
+    assert (helix.LAUNCHES, helix.DEPOSIT_STEPS, helix.PLAIN_CALLS) == before
+    _same_lanes(a, b)
+    _same_tallies(ta, tbl)
+
+
+@pytest.fixture(scope="module")
+def jret_case():
+    """The flagship population (256 lanes, float64) and the steps at
+    which lanes return from their PRP (FL_JRET set on a lane still
+    ACTIVE), stepping every lane without a cap for 400 steps."""
+    st0, tb, fresh = _segment()
+    assert int(st0.nsteps.max()) == int(st0.nsteps.min()) == 0
+    st, tl = stt.clone(st0), fresh()
+    events = {}
+    for s in range(400):
+        step.helix_step(st, tl, tb, rng.lane_uniforms_xla(
+            st.key0, st.key1, st.nsteps), 10 ** 6)
+        back = (st.flags & stt.FL_JRET != 0) & (st.status == stt.ACTIVE)
+        if bool(back.any()):
+            events[s + 1] = back
+    return st0, tb, fresh, events
+
+
+@pytest.mark.parametrize("aligned", [True, False],
+                         ids=["longest-on-64", "longest-off-64"])
+def test_drain_jret_rule(jret_case, aligned):
+    """The block loop clears FL_JRET on a lane that is not ACTIVE at every
+    step it runs, so a lane keeps the bit only if it stepped to the
+    loop's last step.  With the helix cap at a step where lanes return
+    from their PRP, those lanes end capped with the bit set, and the
+    segment's longest lane ends there: on a multiple of 64 the block loop
+    keeps their bit, off it the loop runs on to the block's end and
+    clears it.  Lanes that were not ACTIVE with the bit set lose it.
+    K5's drain (its plain version) gives the loop's lanes and steps."""
+    st0, tb, fresh, events = jret_case
+    at = [s for s in sorted(events) if (s % step.SYNC_EVERY == 0) == aligned]
+    assert at, events
+    cap = at[-1]
+    back = events[cap]
+    st0 = stt.clone(st0)
+    skipped = torch.tensor([i for i in range(0, 256, 37) if not back[i]])
+    st0.status[skipped] = stt.FINISHED
+    st0.flags[skipped] |= stt.FL_JRET
+    a, ta = stt.clone(st0), fresh()
+    taken = helix.drain(a, ta, tb, cap, step.SYNC_EVERY)
+    b, tbl = stt.clone(st0), fresh()
+    want = step.run_segment(b, tbl, tb, max_helix=cap)
+    assert taken == want == -(-cap // step.SYNC_EVERY) * step.SYNC_EVERY
+    _same_lanes(a, b)
+    _same_tallies(ta, tbl)
+    jret = (b.flags & stt.FL_JRET) != 0
+    capped = (b.nsteps == cap) & (b.status == stt.FINISHED)
+    assert bool(capped[back].all())
+    assert not bool(jret[skipped].any())
+    assert torch.equal(jret, back if aligned else torch.zeros_like(back))
+
+
+def _refuses(kernel) -> None:
     st0, tb, fresh = _segment(lanes=64)
     p = helix.pack(tb)
     with pytest.raises(ValueError, match="no helix kernel"):
-        helix.HelixLaunch(st0, fresh(), p)
+        kernel(st0, fresh(), p)
     bad = dataclasses.replace(st0, pb=st0.pb.float())
     with pytest.raises(ValueError, match="state.pb"):
-        helix.HelixLaunch(bad, fresh(), p)
+        kernel(bad, fresh(), p)
     tl = fresh()
     tl.psd_diff = tl.psd_diff.double()
     with pytest.raises(ValueError, match="psd_diff"):
-        helix.HelixLaunch(st0, tl, p)
+        kernel(st0, tl, p)
+
+
+def test_wrappers_refuse_cpu_launches_and_bad_tensors():
+    _refuses(helix.HelixLaunch)
+
+
+def test_drain_refuses_cpu_launches_and_bad_tensors():
+    _refuses(helix.HelixDrain)
 
 
 @pytest.mark.parametrize("ctr", [0, 1, 63, 2 ** 31 - 1])

@@ -173,7 +173,10 @@ def test_cli_devices_2_on_the_cpu(tmp_path, monkeypatch, capsys):
 
 
 def test_pod_scale_at_world_2_on_the_cpu():
-    env = dict(os.environ, MCS_MAX_HELIX_STEPS=str(mc.CAP))
+    # one torch thread a rank: the ranks' plain step is ~300 small ops a
+    # step, and the test's workers share the cores
+    env = dict(os.environ, MCS_MAX_HELIX_STEPS=str(mc.CAP),
+               OMP_NUM_THREADS="1")
     r = subprocess.run(
         [sys.executable, "-m",
          "montecarloscattering_jl_tpu_torch.scripts.pod_scale",

@@ -196,11 +196,22 @@ def low_caps(monkeypatch):
     monkeypatch.setattr(mega, "MAX_HELIX_STEPS", 128)
 
 
+@pytest.fixture()
+def one_thread():
+    # the CLI runs the plain step, ~300 small ops a step, in this
+    # process: one torch thread, as the module fixture runs it (many
+    # threads a worker crowd the cores)
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("args,engine,xspec", [
     ([], "xla", False), (["--f32"], "k1", False), (["--f32"], "xla", True),
     ([], "xla", True)])
-def test_cli_engine_selection(tmp_path, capsys, low_caps, args, engine,
-                              xspec):
+def test_cli_engine_selection(tmp_path, capsys, low_caps, one_thread, args,
+                              engine, xspec):
     rg0 = load_config(CFG).rg0
     extra = f"\nXSPEC = [{-0.5 * rg0!r}, {0.5 * rg0!r}]\n" if xspec else ""
     cfg_path = _tiny_toml(tmp_path, extra)
