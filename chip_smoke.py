@@ -72,7 +72,13 @@ Run from the root of a checkout:  python3 chip_smoke.py
    nonlinear config with float32 momenta (65,536 particles per pcut,
    smoothing on, 2 iterations); checks that every transport launch went
    through K1 and none through the twin, that the output files are
-   written, and the test-particle power-law slope of iteration 1.
+   written, and the test-particle power-law slope of iteration 1.  Its
+   fused ladders run under torch's sync debug mode
+   (``counted_ladders``, here and in phases science and f64): a species'
+   ladder may wait on the host once a sync point (drive_ladder_async's
+   read of the chain, every MCS_HYBRID_SYNC_EVERY segments) plus
+   LADDER_WAITS_EXTRA, and not between two sync points; the waits, sync
+   points and the lines that waited are printed.
 6. ``science``: the gamma0 = 5 baseline's science variant on K1 (f32):
    configs/baseline.toml with scattering, DSA and smoothing on, 4 pcuts
    per decade, the helix cap at 200,000 steps and 4x the particle
@@ -126,7 +132,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
 12. ``shipped``: configs/baseline.toml as shipped (no-scatter, no-DSA)
     at float64 on the XLA engine, 1 iteration: every segment a K5
     drain, the coupled CSVs written, pushes and trajectories
-    printed.
+    printed; both chains die at their first segment, and the run again
+    at MCS_HYBRID_SYNC_EVERY=1 (no dead segment queued) gives every
+    species' new lanes, pushes, exits and escape tallies in the same
+    bits (``dead_tail``).
 13. ``nonlinear``: the nonlinear flagship (scripts/flagship_nonlinear.py
     of the port) at 65,536 a pcut, 10 iterations on K1, an iteration
     checkpoint each; uninterrupted, killed by the stop hook at its first
@@ -188,8 +197,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
     montecarloscattering_jl_tpu_torch CONFIG -o DIR``, one process a
     config, on configs/baseline.toml and examples/01-04 as shipped (no
     cut: each fits CLI_TIMEOUT), at the CLI's default float64 (K5's
-    drain): exit code 0, the completion line with the config's
-    iterations and nonzero pushes, and the file set; each wall time.
+    drain) and with ``--f32`` (K1): exit code 0, the completion line
+    with the config's iterations and nonzero pushes, and the file set;
+    each wall time.
 
 The float64 phases' segments (f64, resume, shipped, electrons, compact,
 mesh part 3) are K5 drains, one launch a segment with no host read
@@ -199,6 +209,7 @@ exits non-zero without a CUDA device.  The line before the last is a
 JSON summary of the kernels, the last line the device record.
 """
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -327,6 +338,12 @@ K5_OPS_PER_PUSH = 230
 K5_STATE_BYTES = {8: 208, 4: 156}
 # phase f64's pushes on the plain step (PERF.md §5, PR 8)
 F64_PLAIN_PUSHES = 536_113_343
+# the host waits a species' fused ladder (engine/run.py _ladder_async)
+# may make besides one a sync point, counted by torch's sync debug mode:
+# the one copy of the species' segment tables to the card before its
+# first segment (ops/state.py upload), and drive_ladder_async's read of
+# the segments' counts after its last
+LADDER_WAITS_EXTRA = 2
 
 
 def fail(msg: str) -> None:
@@ -1022,6 +1039,57 @@ def read_counts() -> dict:
                 plain_blocks=helix.PLAIN_CALLS)
 
 
+@contextlib.contextmanager
+def counted_ladders(tag: str):
+    """Within the block, every species' fused ladder (engine/run.py
+    TransportEngine._ladder_async) runs under torch's sync debug mode,
+    its warnings recorded: yields the list of its species, each with its
+    host waits, its sync points and the lines that waited.  On leaving,
+    prints them and fails where a ladder waited more often than its sync
+    points plus LADDER_WAITS_EXTRA."""
+    import collections
+    import warnings
+
+    import torch
+
+    from montecarloscattering_jl_tpu_torch.engine.run import TransportEngine
+
+    base = TransportEngine._ladder_async
+    rows = []
+
+    def counted(self, i_iter, i_ion, *a, **kw):
+        syncs = self.sync_points
+        with warnings.catch_warnings(record=True) as said:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = base(self, i_iter, i_ion, *a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        waits = [w for w in said
+                 if "synchronizing CUDA operation" in str(w.message)]
+        rows.append(dict(
+            iteration=i_iter, species=i_ion, segments=len(out[3]),
+            waits=len(waits), sync_points=self.sync_points - syncs,
+            where=dict(collections.Counter(
+                f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
+                for w in waits))))
+        return out
+
+    TransportEngine._ladder_async = counted
+    try:
+        yield rows
+    finally:
+        TransportEngine._ladder_async = base
+    print(f"{tag}: host waits of the fused ladders {json.dumps(rows)}")
+    if not rows:
+        fail(f"{tag}: no fused ladder ran")
+    for r in rows:
+        if r["waits"] > r["sync_points"] + LADDER_WAITS_EXTRA:
+            fail(f"{tag}: a fused ladder waited {r['waits']} times at "
+                 f"{r['sync_points']} sync points: {r}")
+
+
 def check_engine(tag, counts, p_dtype) -> None:
     """Every drain of a float32 run launched K1 (none the twin or the XLA
     engine, and no drain waits on the host once a launch); every segment
@@ -1173,7 +1241,8 @@ def main_path(dev, p_dtype, n_itrs: int, x_spec: bool) -> dict:
 
     cfg = flagship_config(p_dtype, n_itrs, x_spec)
     tag = f"{str(p_dtype).replace('torch.', '')} path"
-    res, counts, wall, _ = drive(cfg, dev, p_dtype, tag)
+    with counted_ladders(tag) as ladders:
+        res, counts, wall, _ = drive(cfg, dev, p_dtype, tag)
     slope, expect = slope_of(res)
     print(f"{tag}: iteration 1 downstream slope {slope:.4f} (expected "
           f"{expect:.4f} +- 0.45)")
@@ -1192,7 +1261,7 @@ def main_path(dev, p_dtype, n_itrs: int, x_spec: bool) -> dict:
         if not all(a > 0 and b > 0 and math.isfinite(a + b)
                    for a, b in tot):
             fail(f"{tag}: detector spectra {tot}")
-    return dict(counts, wall=wall, result=res)
+    return dict(counts, wall=wall, result=res, ladders=ladders)
 
 
 def science_path(dev) -> dict:
@@ -1207,8 +1276,9 @@ def science_path(dev) -> dict:
     print(f"science: {len(cfg.pcuts)} pcuts, {cfg.n_pts_inj} / "
           f"{cfg.n_pts_pcut} / {cfg.n_pts_pcut_hi} particles, helix cap "
           f"{wl.SCIENCE_CAP}")
-    res, counts, wall, written = drive(cfg, dev, torch.float32, "science",
-                                       cap=wl.SCIENCE_CAP)
+    with counted_ladders("science") as ladders:
+        res, counts, wall, written = drive(cfg, dev, torch.float32,
+                                           "science", cap=wl.SCIENCE_CAP)
     print(f"science: coupled CSV lines: weights "
           f"{written['mc_coupled_weights.csv']}, spectra "
           f"{written['mc_coupled_spectra.csv']}")
@@ -1224,7 +1294,8 @@ def science_path(dev) -> dict:
     # phase and the electrons phase show it at representable energies)
     print(f"science: ion pool {p['pool_erg']!r} erg (float32 momenta)")
     return dict(counts=counts, wall=wall, pushes=res.n_pushes,
-                trajectories=res.n_trajectories, species=rows)
+                trajectories=res.n_trajectories, species=rows,
+                ladders=ladders)
 
 
 def emission_report(tag, res) -> dict:
@@ -1362,8 +1433,49 @@ def shipped_path(dev) -> dict:
           f"CSV lines: weights {written['mc_coupled_weights.csv']}, "
           f"spectra {written['mc_coupled_spectra.csv']}")
     species_report("shipped", res)
+    dead_tail(cfg, dev, res)
     return dict(counts=counts, wall=wall, pushes=res.n_pushes,
                 trajectories=res.n_trajectories)
+
+
+def dead_tail(cfg, dev, res) -> None:
+    """Both species' chains of the shipped baseline die at their first
+    segment, so at MCS_HYBRID_SYNC_EVERY=8 the fused ladder queues dead
+    segments after each until it sees the chain dead (at most 7): the
+    run again at 1 (no dead segment) must give
+    every species' new lanes, pushes, trajectories, exits and escape
+    tallies in the same bits (K5's lanes and finish_particles' sums are
+    deterministic; the float64 atomics of K5's tallies are not held)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from montecarloscattering_jl_tpu_torch.engine.driver import run
+
+    old = os.environ.get("MCS_HYBRID_SYNC_EVERY")
+    os.environ["MCS_HYBRID_SYNC_EVERY"] = "1"
+    try:
+        ref = run(cfg, device=dev, p_dtype=torch.float64)
+    finally:
+        if old is None:
+            del os.environ["MCS_HYBRID_SYNC_EVERY"]
+        else:
+            os.environ["MCS_HYBRID_SYNC_EVERY"] = old
+    for i, (a, b) in enumerate(zip(res.iterations[0].ion_finals,
+                                   ref.iterations[0].ion_finals)):
+        same = [a.n_new == b.n_new, a.n_pushes == b.n_pushes,
+                a.n_trajectories == b.n_trajectories,
+                np.array_equal(a.reason_counts, b.reason_counts)]
+        same += [np.array_equal(np.asarray(getattr(a.esc, f.name)),
+                                np.asarray(getattr(b.esc, f.name)))
+                 for f in dataclasses.fields(a.esc)]
+        if not all(same):
+            fail(f"shipped species {i}: the dead segments changed the "
+                 f"result: {same}")
+    new = [f.n_new for f in res.iterations[0].ion_finals]
+    print(f"shipped: new lanes a segment {new} and every escape tally the "
+          f"same bits at MCS_HYBRID_SYNC_EVERY 8 and 1")
 
 
 def hold_to_f64(tag, ref, res, against: str = "phase f64",
@@ -1992,45 +2104,49 @@ def cli_phase(dev) -> dict:
     """Phase cli: the port's CLI as a user runs it, ``python -m
     montecarloscattering_jl_tpu_torch CONFIG -o DIR``, in a process of
     its own on each of CLI_CONFIGS as shipped, at its default (float64
-    momenta on the XLA engine: K5's drain): exit code 0, its completion
-    line ("finished: N iterations, ...", the JAX CLI's; neither CLI
-    prints "Done") with the config's iterations and nonzero pushes,
-    "outputs written to", and the file set of expected_files.  Each
-    run's wall time, the process's start included."""
+    momenta on the XLA engine: K5's drain) and with ``--f32`` (K1 where
+    its gate admits the config): exit code 0, its completion line
+    ("finished: N iterations, ...", the JAX CLI's; neither CLI prints
+    "Done") with the config's iterations and nonzero pushes, "outputs
+    written to", and the file set of expected_files.  Each run's wall
+    time, the process's start included."""
     import re
     import subprocess
 
     from montecarloscattering_jl_tpu_torch.utils import load_config
 
     out = {}
-    for rel in CLI_CONFIGS:
-        path = os.path.join(ROOT, rel)
-        cfg = load_config(path)
-        with tempfile.TemporaryDirectory() as d:
-            t0 = time.perf_counter()
-            r = subprocess.run(
-                [sys.executable, "-m", "montecarloscattering_jl_tpu_torch",
-                 path, "-o", d], cwd=ROOT, capture_output=True, text=True,
-                timeout=CLI_TIMEOUT)
-            wall = time.perf_counter() - t0
-            written = sorted(os.listdir(d))
-        if r.returncode != 0:
-            fail(f"cli {rel}: exit {r.returncode}: {r.stderr[-2000:]}")
-        m = re.search(r"finished: (\d+) iterations, (\d+) trajectories, "
-                      r"(\d+) pushes in ([\d.]+)s", r.stdout)
-        if (m is None or int(m.group(1)) != cfg.n_itrs
-                or int(m.group(3)) <= 0
-                or "outputs written to" not in r.stdout):
-            fail(f"cli {rel}: {r.stdout[-2000:]}")
-        missing = [f for f in expected_files(cfg) if f not in written]
-        if missing:
-            fail(f"cli {rel}: output files missing: {missing} (got "
-                 f"{written})")
-        out[rel] = dict(wall=wall, run_s=float(m.group(4)),
-                        iterations=cfg.n_itrs,
-                        trajectories=int(m.group(2)),
-                        pushes=int(m.group(3)), files=len(written))
-        print(f"cli {rel}: {json.dumps(out[rel])}")
+    for flags in ((), ("--f32",)):
+        for rel in CLI_CONFIGS:
+            path = os.path.join(ROOT, rel)
+            cfg = load_config(path)
+            tag = " ".join((rel,) + flags)
+            with tempfile.TemporaryDirectory() as d:
+                t0 = time.perf_counter()
+                r = subprocess.run(
+                    [sys.executable, "-m",
+                     "montecarloscattering_jl_tpu_torch", path, "-o", d,
+                     *flags], cwd=ROOT, capture_output=True, text=True,
+                    timeout=CLI_TIMEOUT)
+                wall = time.perf_counter() - t0
+                written = sorted(os.listdir(d))
+            if r.returncode != 0:
+                fail(f"cli {tag}: exit {r.returncode}: {r.stderr[-2000:]}")
+            m = re.search(r"finished: (\d+) iterations, (\d+) trajectories, "
+                          r"(\d+) pushes in ([\d.]+)s", r.stdout)
+            if (m is None or int(m.group(1)) != cfg.n_itrs
+                    or int(m.group(3)) <= 0
+                    or "outputs written to" not in r.stdout):
+                fail(f"cli {tag}: {r.stdout[-2000:]}")
+            missing = [f for f in expected_files(cfg) if f not in written]
+            if missing:
+                fail(f"cli {tag}: output files missing: {missing} (got "
+                     f"{written})")
+            out[tag] = dict(wall=wall, run_s=float(m.group(4)),
+                            iterations=cfg.n_itrs,
+                            trajectories=int(m.group(2)),
+                            pushes=int(m.group(3)), files=len(written))
+            print(f"cli {tag}: {json.dumps(out[tag])}")
     return out
 
 

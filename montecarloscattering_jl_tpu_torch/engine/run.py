@@ -2,12 +2,18 @@
 
 Counterpart of the JAX package's engine/run.py on one device:
 ``TransportEngine.run_ion`` transports one species through the pcut
-ladder as a host loop of [drain -> finish -> split] per pcut, breaking
-when a segment saves nothing (pcut_finalize, cuts.jl:115-119).  The
-split runs on the device (ops/split.py), or with ``fused=False`` on the
-host (ops/cuts.py pcut_split, the JAX package's host-split loop,
-run.py:640-700), which rebuilds the next segment's state from the
-saved lanes with the same keys.  Two
+ladder of [drain -> finish -> split] segments, ending when a segment
+saves nothing (pcut_finalize, cuts.jl:115-119).  The split runs on the
+device (ops/split.py) in the fused ladder, which queues every segment
+without a host wait on ops/mega.py ``drive_ladder_async`` (the JAX
+package's scheduler, pallas_step.py:2057-2127): the host reads the
+chain every MCS_HYBRID_SYNC_EVERY segments (default 8, 0 never), after a
+segment where a mid checkpoint is due, and at the end, and a segment
+queued after the chain died is a no-op that counts nothing.  With
+``fused=False`` the split runs on the host (ops/cuts.py pcut_split, the
+JAX package's host-split loop, run.py:640-700), which rebuilds the next
+segment's state from the saved lanes with the same keys, a host loop
+that reads every segment.  Two
 engines drain a segment, chosen as the JAX package chooses them
 (megakernel_supported's static gate, pallas_step.py:1237-1239):
 
@@ -39,9 +45,9 @@ fills the electrons' heating target ``eps_target``, the ions' pool
 accumulates into ``it.energy_pool``, and a later species (the electrons)
 reads its prefix sum from the segment grids.
 
-Every segment boundary is visible to the host, so a segment-boundary
-checkpoint (parallel/checkpoint.py) can be taken after any split and
-resumed bit for bit where the device's sums are ordered (the CPU).
+A segment-boundary checkpoint (parallel/checkpoint.py) can be taken
+after any split (a due one makes its segment a sync point) and resumed
+bit for bit where the device's sums are ordered (the CPU).
 
 With a ``mesh`` of more than one rank (parallel/shard.py; run.py:92-182,
 358-456) every rank builds the whole population and keeps its shard of
@@ -199,6 +205,9 @@ class TransportEngine:
         self.n_tcut_slots = max(len(cfg.tcuts), 1)
         self.subtimers = defaultdict(float)    # MCS_SUBTIMERS=1
         self.launches = defaultdict(int)       # launch_counts() of the ladders
+        # the fused ladders' sync points (their reads of the chain) over
+        # the engine's life
+        self.sync_points = 0
         if self.compact_levels < 0:
             self.compact_levels = auto_compact_levels(
                 self.batch_size // self.world)
@@ -311,7 +320,8 @@ class TransportEngine:
 
         ``ckpt`` (parallel/checkpoint.MidCheckpointer) saves a
         segment-boundary checkpoint every ``ckpt.every`` pcut segments,
-        right after the split: the saved population is exactly what the
+        right after the split (in the fused ladder such a segment is a
+        sync point): the saved population is exactly what the
         next segment consumes, and a segment's keys depend only on (seed,
         iteration, species, pcut), so a resume continues on the same
         lanes.  ``resume_mid`` is a payload of load_mid_checkpoint for
@@ -424,76 +434,17 @@ class TransportEngine:
             self.subtimers["pop_setup"] += time.perf_counter() - t0
             t0 = time.perf_counter()
 
-        p_pcut_hi = pcut_hi_momentum(cfg.energy_pcut_hi, s.mass)
         launched = launch_counts()
-        for i_pcut in range(start, len(cfg.pcuts)):
-            sc = self.segment_scalars(i_ion, i_pcut, prof.bmag2)
-            if k1:
-                mega.drain(state, mega.mega_tables(grids, sc, ss, dev), tal)
-                # K1 derives the zone from position; restore it for the
-                # exit bookkeeping
-                ig = torch.searchsorted(grids.x_grid, state.x,
-                                        right=True) - 1
-                state.igrid = ig.clamp(0, nb - 2).to(torch.int32)
-            else:
-                xla_step.run_segment(
-                    state, tal, self._fixed_tables(
-                        xla_step.step_tables(grids, sc, ss, dev)),
-                    compact_levels=self.compact_levels, graphs=self.graphs)
-            finish_particles(state, esc, grids, sc, ss)
-            # exits of this segment by reason (the split leaves only
-            # ACTIVE lanes and reason-0 padding)
-            reasons += torch.bincount(
-                torch.where(state.status == stt.FINISHED, state.reason,
-                            0).long(), minlength=5)[:5]
-            n_target = (cfg.n_pts_pcut if cfg.pcuts[i_pcut] < p_pcut_hi
-                        else cfg.n_pts_pcut_hi)
-            seg_key = rng.fold_in(ion_key, i_pcut + 1)
-            if host:
-                # every rank splits the whole batch alike and keeps its
-                # shard; the next segment's population stays whole for a
-                # checkpoint
-                full = (shard.gather_state(state, mesh) if world > 1
-                        else state)
-                pushes += int(full.nsteps.sum(dtype=torch.int64))
-                full, n_new = self._host_split(full, n_target, seg_key)
-                state = (multihost.global_state(full, mesh) if world > 1
-                         else full)
-            elif hybrid:
-                saved = state.status == stt.SAVED
-                row = dict(n_saved=int(saved.sum()),
-                           target=shard.shard_target(n_target, world,
-                                                     mesh.rank),
-                           nsteps=int(state.nsteps.sum(dtype=torch.int64)),
-                           w_saved=float(state.weight[saved].sum(
-                               dtype=torch.float64)))
-                state, row["n_new"] = split_on_device(
-                    state, row["target"], seg_key,
-                    lane_offset=mesh.rank * state.weight.shape[0])
-                row["w_new"] = float(state.weight.sum(dtype=torch.float64))
-                rec = shard.split_record(mesh, **row)
-                splits.append(dict(rec, n_target=n_target))
-                n_new = int(rec["n_new"].sum())
-                pushes += int(rec["nsteps"].sum())
-            else:
-                pushes += int(state.nsteps.sum(dtype=torch.int64))
-                state, n_new = split_on_device(state, n_target, seg_key)
-            seg_new.append(n_new)
-            trajectories += n_new
-            if n_new == 0:
-                log.info("iter %d ion %d: pcut chain ended at %d",
-                         i_iter, i_ion, i_pcut)
-                break
-            if not k1:
-                state = self._fixed(state)
-            if ckpt is not None:
-                ckpt.maybe(i_pcut + 1, lambda: dict(
-                    mode=mode, p_dtype=str(self.p_dtype), batch_size=b,
-                    i_iter=i_iter, i_ion=i_ion, next_seg=i_pcut + 1,
-                    state=full if host else state,
-                    **self._summed(tal=tal, esc=esc, reasons=reasons),
-                    pushes=pushes, trajectories=trajectories,
-                    n_new=list(seg_new), it=it))
+        if host or hybrid:
+            state, pushes, trajectories = self._ladder_per_segment(
+                i_iter, i_ion, prof, grids, ss, k1, hybrid, ion_key, state,
+                tal, esc, reasons, start, pushes, trajectories, seg_new,
+                splits, ckpt, mode, it)
+        else:
+            state, pushes, trajectories, seg_new = self._ladder_async(
+                i_iter, i_ion, prof, grids, ss, k1, ion_key, state, tal,
+                esc, reasons, start, (pushes, trajectories, seg_new), ckpt,
+                mode, it)
         for k, v in launch_counts().items():
             self.launches[k] += v - launched[k]
         if world > 1:
@@ -532,6 +483,230 @@ class TransportEngine:
         if subt:
             self.subtimers["tally_fetch"] += time.perf_counter() - t0
         return out
+
+    def _ladder_per_segment(self, i_iter, i_ion, prof, grids, ss, k1,
+                            hybrid, ion_key, state, tal, esc, reasons,
+                            start, pushes, trajectories, seg_new, splits,
+                            ckpt, mode, it):
+        """The host-split ladder and the mesh hybrid ladder: a host loop of
+        [drain -> finish -> split] a pcut that reads each segment's split
+        before it queues the next (the host split is a host algorithm;
+        the mesh hybrid gathers every rank's split a segment).  Returns
+        (state, pushes, trajectories); `seg_new` and `splits` grow in
+        place."""
+        cfg, nb, b, dev = self.setup.cfg, self.setup.nb, self.batch_size, \
+            self.device
+        mesh, world = self.mesh, self.world
+        p_pcut_hi = pcut_hi_momentum(cfg.energy_pcut_hi,
+                                     cfg.species[i_ion].mass)
+        for i_pcut in range(start, len(cfg.pcuts)):
+            sc = self.segment_scalars(i_ion, i_pcut, prof.bmag2)
+            if k1:
+                mega.drain(state, mega.mega_tables(grids, sc, ss, dev), tal)
+                # K1 derives the zone from position; restore it for the
+                # exit bookkeeping
+                ig = torch.searchsorted(grids.x_grid, state.x,
+                                        right=True) - 1
+                state.igrid = ig.clamp(0, nb - 2).to(torch.int32)
+            else:
+                xla_step.run_segment(
+                    state, tal, self._fixed_tables(
+                        xla_step.step_tables(grids, sc, ss, dev)),
+                    compact_levels=self.compact_levels, graphs=self.graphs)
+            finish_particles(state, esc, grids, sc, ss)
+            _count_exits(reasons, state)
+            n_target = (cfg.n_pts_pcut if cfg.pcuts[i_pcut] < p_pcut_hi
+                        else cfg.n_pts_pcut_hi)
+            seg_key = rng.fold_in(ion_key, i_pcut + 1)
+            full = None
+            if not hybrid:
+                # every rank splits the whole batch alike and keeps its
+                # shard; the next segment's population stays whole for a
+                # checkpoint
+                full = (shard.gather_state(state, mesh) if world > 1
+                        else state)
+                pushes += int(full.nsteps.sum(dtype=torch.int64))
+                full, n_new = self._host_split(full, n_target, seg_key)
+                state = (multihost.global_state(full, mesh) if world > 1
+                         else full)
+            else:
+                saved = state.status == stt.SAVED
+                row = dict(n_saved=int(saved.sum()),
+                           target=shard.shard_target(n_target, world,
+                                                     mesh.rank),
+                           nsteps=int(state.nsteps.sum(dtype=torch.int64)),
+                           w_saved=float(state.weight[saved].sum(
+                               dtype=torch.float64)))
+                state, n_new = split_on_device(
+                    state, row["target"], seg_key,
+                    lane_offset=mesh.rank * state.weight.shape[0])
+                row["n_new"] = int(n_new)
+                row["w_new"] = float(state.weight.sum(dtype=torch.float64))
+                rec = shard.split_record(mesh, **row)
+                splits.append(dict(rec, n_target=n_target))
+                n_new = int(rec["n_new"].sum())
+                pushes += int(rec["nsteps"].sum())
+            seg_new.append(n_new)
+            trajectories += n_new
+            if n_new == 0:
+                log.info("iter %d ion %d: pcut chain ended at %d",
+                         i_iter, i_ion, i_pcut)
+                break
+            if not k1:
+                state = self._fixed(state)
+            if ckpt is not None:
+                ckpt.maybe(i_pcut + 1, lambda: dict(
+                    mode=mode, p_dtype=str(self.p_dtype), batch_size=b,
+                    i_iter=i_iter, i_ion=i_ion, next_seg=i_pcut + 1,
+                    state=full,
+                    **self._summed(tal=tal, esc=esc, reasons=reasons),
+                    pushes=pushes, trajectories=trajectories,
+                    n_new=list(seg_new), it=it))
+        return state, pushes, trajectories
+
+    def _ladder_async(self, i_iter, i_ion, prof, grids, ss, k1, ion_key,
+                      state, tal, esc, reasons, start, before, ckpt, mode,
+                      it):
+        """The fused ladder of one process, K1's (run_ion_mega_hybrid,
+        pallas_step.py:2232) or the XLA engine's (run_ion_xla_hybrid,
+        fused_ion.py:216), on mega.drive_ladder_async: every segment's
+        [drain -> finish -> split] is queued without a host wait, and the
+        host reads the chain's state only at the sync points (every
+        MCS_HYBRID_SYNC_EVERY segments, and after a segment where the
+        mid checkpointer `ckpt` is due) and at the end.  On a card the
+        host also stops queueing once a finished split it can see without
+        waiting made no lane, which spares most dead segments (each ~5 ms
+        of host work); on the CPU every dead segment up to the next sync
+        point runs, as in the reference.
+
+        Every segment's tables go to the device in one copy before the
+        first (mega.ladder_tables, ops/step.ladder_tables).  The exits by
+        reason, pushes, new lanes and K5's drain headers accumulate on
+        the device; a segment dispatched after the chain died adds to no
+        counter (its exits are gated by the previous split's "made
+        lanes", its pushes and new lanes are zero).  K5's headers are
+        copied to pinned host memory behind each drain and read at the
+        sync points, where the read of n_new has waited for them
+        (helix.DEPOSIT_STEPS).  `before` holds (pushes, trajectories,
+        new lanes a segment) of the segments before `start`.  Returns
+        (state, pushes, trajectories, new lanes a segment), as the
+        per-segment loop did: the list stops at the first zero."""
+        cfg, nb, b, dev = self.setup.cfg, self.setup.nb, self.batch_size, \
+            self.device
+        pushes0, trajectories0, seg_new0 = before
+        n_seg = len(cfg.pcuts)
+        scs = [self.segment_scalars(i_ion, i, prof.bmag2)
+               for i in range(n_seg)]
+        p_pcut_hi = pcut_hi_momentum(cfg.energy_pcut_hi,
+                                     cfg.species[i_ion].mass)
+        targets = [cfg.n_pts_pcut if pc < p_pcut_hi else cfg.n_pts_pcut_hi
+                   for pc in cfg.pcuts]
+        k5 = not k1 and dev.type == "cuda" and ss.parallel
+        if k1:
+            dw = tuple(float(torch.tensor(a[nb - 2], dtype=self.p_dtype))
+                       for a in (prof.btot, prof.gamma_sf, prof.gamma_ef,
+                                 prof.ux_sk))
+            table = mega.ladder_tables(grids, scs, ss, dev, dw)
+        else:
+            table = xla_step.ladder_tables(grids, scs, ss, dev, packed=k5)
+        cuda = dev.type == "cuda"
+        heads = (torch.zeros((n_seg, helix.WS_HEADER), dtype=torch.int32,
+                             pin_memory=True) if k5 else None)
+        read = start        # the drains whose pushes DEPOSIT_STEPS holds
+        # on a card each split's n_new also lands in pinned memory behind
+        # it, an event after it: the host stops queueing once it sees a
+        # finished split that made no lane (``died``), without a wait
+        news = (torch.zeros(n_seg, dtype=torch.int64, pin_memory=True)
+                if cuda else None)
+        done, seen = [], start
+        alive = torch.ones((), dtype=torch.int64, device=dev)
+
+        def dispatch(i):
+            nonlocal state, alive
+            if k1:
+                mt = table(i)
+                mass = mt.sf[mega.SF_M]
+                mega.drain(state, mt, tal)
+                # K1 derives the zone from position; restore it for the
+                # exit bookkeeping
+                ig = torch.searchsorted(grids.x_grid, state.x,
+                                        right=True) - 1
+                state.igrid = ig.clamp(0, nb - 2).to(torch.int32)
+            else:
+                tb, packed = table(i)
+                mass = tb.k["m"]
+                if k5:
+                    head = xla_step.run_segment(
+                        state, tal, tb, graphs=self.graphs, packed=packed,
+                        wait=False)
+                    if torch.is_tensor(head):
+                        # (K5's block loop, run for comparisons, returns
+                        # its steps and has counted its deposits)
+                        heads[i].copy_(head, non_blocking=True)
+                else:
+                    xla_step.run_segment(
+                        state, tal, self._fixed_tables(tb),
+                        compact_levels=self.compact_levels,
+                        graphs=self.graphs)
+            finish_particles(state, esc, grids, scs[i], ss, m=mass,
+                             live=alive)
+            _count_exits(reasons, state, alive)
+            nsteps = state.nsteps.sum(dtype=torch.int64)
+            state, n_new = split_on_device(state, targets[i],
+                                           rng.fold_in(ion_key, i + 1))
+            alive = (n_new > 0).to(torch.int64)
+            if cuda:
+                news[i].copy_(n_new, non_blocking=True)
+                done.append(torch.cuda.Event())
+                done[-1].record()
+            if not k1:
+                state = self._fixed(state)
+            return n_new, nsteps
+
+        def died(i):
+            nonlocal seen
+            while seen <= i and done[seen - start].query():
+                if int(news[seen]) == 0:
+                    return True
+                seen += 1
+            return False
+
+        def check(i):
+            nonlocal read
+            self.sync_points += 1
+            if k5:
+                helix.DEPOSIT_STEPS += int(
+                    helix.header_pushes(heads[read:i + 1]).sum())
+                read = i + 1
+
+        def capture(i, n_new, nsteps):
+            if n_new[-1] == 0:
+                return      # the chain has died: nothing to resume
+            ckpt.maybe(i + 1, lambda: dict(
+                mode=mode, p_dtype=str(self.p_dtype), batch_size=b,
+                i_iter=i_iter, i_ion=i_ion, next_seg=i + 1, state=state,
+                **self._summed(tal=tal, esc=esc, reasons=reasons),
+                pushes=pushes0 + int(nsteps.sum()),
+                trajectories=trajectories0 + int(n_new.sum()),
+                n_new=seg_new0 + [int(v) for v in n_new], it=it))
+
+        n_new, nsteps = mega.drive_ladder_async(
+            dispatch, n_seg, check=check,
+            capture=None if ckpt is None else capture, start=start,
+            sync_at=None if ckpt is None else lambda i: ckpt.due(i + 1),
+            stop=died if cuda else None)
+        if k5:
+            # the final read of n_new waited for every drain
+            helix.DEPOSIT_STEPS += int(helix.header_pushes(heads[read:]).sum())
+        ran = n_new[start:]
+        dead = np.flatnonzero(ran == 0)
+        if dead.size:
+            ran = ran[:dead[0] + 1]
+            log.info("iter %d ion %d: pcut chain ended at %d", i_iter, i_ion,
+                     start + int(dead[0]))
+        return (state, pushes0 + int(nsteps.sum()),
+                trajectories0 + int(ran.sum()),
+                seg_new0 + [int(v) for v in ran])
 
     def _summed(self, **acc) -> dict:
         """The accumulators `acc` summed over the ranks, as copies (for a
@@ -580,6 +755,18 @@ class TransportEngine:
             spectra_coupled=np.zeros((n_mom + 1, self.n_tcut_slots,
                                       cfg.n_ions)),
             energy_pool=np.zeros(nb), eps_target=eps)
+
+
+def _count_exits(reasons: torch.Tensor, state: stt.ParticleState,
+                 gate: torch.Tensor | None = None) -> None:
+    """Add a segment's FINISHED lanes to `reasons` by exit reason and
+    every other lane (SAVED, and the split's FINISHED reason-0 padding)
+    to index 0, on the device with no host read; each lane counts `gate`
+    (a 0-dim int64 tensor on the device) where given, else 1."""
+    idx = torch.where(state.status == stt.FINISHED, state.reason, 0).long()
+    one = torch.ones((), dtype=torch.int64, device=idx.device)
+    reasons.index_add_(0, idx, (one if gate is None else gate).expand(
+        idx.shape[0]))
 
 
 def _check_resume(r: dict, i_iter: int, i_ion: int, mode: str,

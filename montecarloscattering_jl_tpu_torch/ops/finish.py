@@ -51,11 +51,22 @@ class EscapeTallies:
 
 def finish_particles(state: ParticleState, acc: EscapeTallies,
                      grids: SegmentGrids, sc: SegmentScalars,
-                     ss: StepStatic) -> EscapeTallies:
+                     ss: StepStatic, m: torch.Tensor | None = None,
+                     live: torch.Tensor | None = None) -> EscapeTallies:
     """Accumulate exit tallies for all FINISHED lanes of a segment into
-    `acc` (in place; returned for chaining)."""
+    `acc` (in place; returned for chaining).  `m`: the species' mass as
+    a 0-dim tensor of the momentum dtype on the state's device, where
+    the caller has it there already (else made from ``sc.m``, a
+    host-to-device copy).  `live`: a 0-dim tensor on the device, 0 for a
+    segment the pcut ladder queued after its chain died, whose lanes all
+    have zero weight (engine/run.py): they add zeros, and their cells
+    are spread over the histogram, because the accumulating
+    ``index_put_`` on a CUDA device walks a run of one cell one entry
+    at a time (a live segment's cells, and so its sums, stay as they
+    are)."""
     c = C_CGS
-    m = torch.tensor(sc.m, dtype=state.pb.dtype, device=state.device)
+    if m is None:
+        m = torch.tensor(sc.m, dtype=state.pb.dtype, device=state.device)
     e0 = m * c * c
 
     fin = (state.status == FINISHED) & (state.weight > 0.0)
@@ -74,6 +85,11 @@ def finish_particles(state: ParticleState, acc: EscapeTallies,
     jt = psd_bin_angle(sk.px_sk, sk.ptot_sk, ss.cos_fine, ss.dcos,
                        ss.theta_min, ss.bins_per_dec_theta,
                        ss.n_theta).long()
+    if live is not None:
+        lane = torch.arange(ip.shape[0], device=ip.device)
+        ip = torch.where(live > 0, ip, lane % (ss.n_mom + 1))
+        jt = torch.where(live > 0, jt,
+                         lane // (ss.n_mom + 1) % (ss.n_theta + 1))
 
     # 1/|v_x| weighting with the spike clamp (particle_finish.jl:74-78)
     spike = sk.ptot_sk > (PF_SPIKE_AWAY * sk.px_sk).abs()

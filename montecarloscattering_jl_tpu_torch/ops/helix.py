@@ -57,12 +57,13 @@ import math
 import re
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from ..utils.constants import RAD_LOSS_FAC
 from ..utils.params import E_REL_PT, MAX_HELIX_STEPS
 from . import build, rng
-from .state import ACTIVE, FL_JRET
+from .state import ACTIVE, FL_JRET, upload
 
 LAUNCHES = 0
 DRAINS = 0
@@ -125,22 +126,25 @@ INSTANCES = ((True, CT_RUNTIME), (False, CT_RUNTIME), (True, FLAG_XSPEC))
 _MOMENTUM_DTYPES = (torch.float64, torch.float32)
 
 
-def flag_word(tb) -> int:
-    """The flag word of a StepTables: its StepStatic switches, the custom
-    f(r_g) law, the shock's reflection, the age cut, the downstream FEB
-    and the x_spec detectors."""
-    ss = tb.ss
+def flag_word_of(ss, reflect: bool, age_cut: bool, feb_dw_on: bool) -> int:
+    """The flag word of a step configuration: its StepStatic switches,
+    the custom f(r_g) law, the shock's reflection, the age cut, the
+    downstream FEB and the x_spec detectors."""
     word = 0
     for name, bit in _SS_FLAGS:
         if getattr(ss, name):
             word |= bit
     for on, bit in ((ss.frg_rg0_cm > 0.0, FLAG_CUSTOM_FRG),
-                    (tb.reflect, FLAG_REFLECT), (tb.age_cut, FLAG_AGE_CUT),
-                    (tb.feb_dw_on, FLAG_FEB_DW),
-                    (ss.n_xspec > 0, FLAG_XSPEC)):
+                    (reflect, FLAG_REFLECT), (age_cut, FLAG_AGE_CUT),
+                    (feb_dw_on, FLAG_FEB_DW), (ss.n_xspec > 0, FLAG_XSPEC)):
         if on:
             word |= bit
     return word
+
+
+def flag_word(tb) -> int:
+    """The flag word of a StepTables (``flag_word_of``)."""
+    return flag_word_of(tb.ss, tb.reflect, tb.age_cut, tb.feb_dw_on)
 
 
 def instance_of(f64: bool, word: int) -> int:
@@ -181,10 +185,35 @@ class Packed:
         return bool(self.word & FLAG_CUSTOM_FRG)
 
 
+def pack_statics(ss, pdt: torch.dtype, n_slots: int,
+                 word: int) -> tuple:
+    """The host half of a packing: the S_NAMES values (float64) and the
+    int vector (KI_NAMES, int32) of a step configuration."""
+    scal = python_scalars(ss, pdt)
+    ints = dict(nb=ss.nb, i_grid_feb=ss.i_grid_feb, i_shock=ss.i_shock,
+                n_mom=ss.n_mom, n_theta=ss.n_theta,
+                bpd_mom=ss.bins_per_dec_mom,
+                bpd_theta=ss.bins_per_dec_theta, n_xspec=ss.n_xspec,
+                nx=max(ss.n_xspec, 1), n_slots=n_slots, flags=word)
+    return (np.array([scal[n] for n in S_NAMES], np.float64),
+            np.array([ints[n] for n in KI_NAMES], np.int32))
+
+
+def kv_rows(k: dict, s: torch.Tensor, n: int) -> torch.Tensor:
+    """The [n, len(KV_NAMES)] float64 scalar vectors of n segments: each
+    K_NAMES entry of `k` (a 0-dim tensor, or an [n] one that differs by
+    segment) in float64, then the S_NAMES values `s` (on the device)."""
+    f64 = torch.float64
+    return torch.cat([
+        torch.stack([k[name].to(f64).expand(n) for name in K_NAMES], 1),
+        s.to(f64).expand(n, -1)], 1).contiguous()
+
+
 def pack(tb) -> Packed:
     """`tb`'s scalars and statics in the order the kernel reads them, on
-    the tables' device (the 0-dim ``k`` tensors are stacked there: no
-    host wait).  Raises NotImplementedError for the oblique step."""
+    the tables' device (the 0-dim ``k`` tensors are stacked there; the
+    statics take one host-to-device copy).  Raises NotImplementedError
+    for the oblique step."""
     ss = tb.ss
     if not ss.parallel:
         raise NotImplementedError(
@@ -193,23 +222,12 @@ def pack(tb) -> Packed:
     pdt = tb.ux.dtype
     if pdt not in _MOMENTUM_DTYPES:
         raise ValueError(f"momenta in {pdt}: K5 takes float64 or float32")
-    dev = tb.x_grid.device
-    f64 = torch.float64
-    scal = python_scalars(ss, pdt)
-    kv = torch.cat([
-        torch.stack([tb.k[n].to(f64).reshape(()) for n in K_NAMES]),
-        torch.tensor([scal[n] for n in S_NAMES], dtype=f64, device=dev)])
     word = flag_word(tb)
-    ints = dict(nb=ss.nb, i_grid_feb=ss.i_grid_feb, i_shock=ss.i_shock,
-                n_mom=ss.n_mom, n_theta=ss.n_theta,
-                bpd_mom=ss.bins_per_dec_mom,
-                bpd_theta=ss.bins_per_dec_theta, n_xspec=ss.n_xspec,
-                nx=max(ss.n_xspec, 1), n_slots=tb.tcuts.shape[0], flags=word)
-    ki = torch.tensor([ints[n] for n in KI_NAMES], dtype=torch.int32,
-                      device=dev)
-    f64_momenta = pdt == torch.float64
-    return Packed(tb=tb, kv=kv, ki=ki, word=word,
-                  instance=instance_of(f64_momenta, word), p_dtype=pdt)
+    s, ki = upload(pack_statics(ss, pdt, tb.tcuts.shape[0], word),
+                   tb.x_grid.device)
+    return Packed(tb=tb, kv=kv_rows(tb.k, s, 1)[0], ki=ki, word=word,
+                  instance=instance_of(pdt == torch.float64, word),
+                  p_dtype=pdt)
 
 
 # ---------------------------------------------------------------------------
@@ -447,13 +465,27 @@ class HelixDrain:
         LAUNCHES += 1
         DRAINS += 1
 
+    def header(self) -> torch.Tensor:
+        """The last enqueued drain's header, a copy on the device (int32
+        words: WS_TAKEN its block loop's steps, ``header_pushes`` its
+        pushes), without waiting: the caller reads it later and adds the
+        pushes to DEPOSIT_STEPS itself."""
+        return self._ws[:WS_HEADER].clone()
+
     def finish(self) -> int:
         """The block loop's steps of the last enqueued drain (waits for
         it); adds its pushes to DEPOSIT_STEPS."""
         global DEPOSIT_STEPS
         head = self._ws[:WS_HEADER].cpu()
-        DEPOSIT_STEPS += int(head[WS_PUSHES:WS_PUSHES + 2].view(torch.int64))
+        DEPOSIT_STEPS += int(header_pushes(head))
         return int(head[WS_TAKEN])
+
+
+def header_pushes(head: torch.Tensor) -> torch.Tensor:
+    """The pushes of drain headers [..., WS_HEADER] (int32 words), int64
+    [...]: the uint64 at WS_PUSHES."""
+    return head[..., WS_PUSHES:WS_PUSHES + 2].contiguous().view(
+        torch.int64)[..., 0]
 
 
 def _lanes(st, idx: torch.Tensor):

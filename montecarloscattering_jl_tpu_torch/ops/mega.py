@@ -20,6 +20,12 @@ module holds:
   cap as its step count: the kernel's threads claim lanes from a device
   cursor until every lane has ended, so the host waits for nothing
   (where launches begin and end cannot change a lane's trajectory).
+* ``mega_tables`` / ``ladder_tables``: a segment's tables, or those of
+  every segment of a species in one host-to-device copy.
+* ``drive_ladder_async``: the pcut ladder's scheduler (the JAX
+  package's, pallas_step.py:2057-2127), which engine/run.py's fused
+  ladders run on: segments queued without a host wait, the chain read
+  every MCS_HYBRID_SYNC_EVERY segments.
 * ``check_supported``: the static-flag gate of this kernel.
 * ``instance_of``: K1 is compiled once per flag word of ``INSTANCES``
   (the flags as compile-time constants) and once with the flags read at
@@ -51,6 +57,7 @@ tensor is a 0-dim tensor on the state's device, because torch turns
 from __future__ import annotations
 
 import ctypes
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -66,7 +73,7 @@ from .state import (ACTIVE, C_RAD, C_RECV, C_RETRO, FINISHED, FL_DW, FL_INJ,
                     FL_JRET, FL_RETRO, N_COUNTS, R_AGE, R_DOWNSTREAM,
                     R_RADIATED, R_UPSTREAM_PMAX, SAVED,
                     ParticleState, SegmentGrids, SegmentScalars,
-                    StepStatic, Tallies)
+                    StepStatic, Tallies, upload)
 
 STEPS = 256            # helix steps per launch (pallas_step.py:91)
 ZMAX = 128             # zone-table capacity: nb + 1 <= ZMAX
@@ -185,19 +192,16 @@ class MegaTables:
         return bool(self.flags & flag)
 
 
-def mega_tables(grids: SegmentGrids, sc: SegmentScalars, ss: StepStatic,
-                device) -> MegaTables:
-    """Pack the segment's grids and scalars the way the megakernel's
-    _mega_scf/_scvec/_mega_prep do (pallas_step.py:1300-1369): derived
-    scalars are computed in float32 from float32 operands.  The tcut
-    times and the received-energy prefix stay float64, as the XLA
-    engine keeps them; eps_target is float32."""
-    dev = torch.device(device)
+def _scalar_rows(sc: SegmentScalars, ss: StepStatic,
+                 dw: tuple) -> tuple[np.ndarray, np.ndarray]:
+    """One segment's `sf` (float32) and `sd` (float64) vectors, packed the
+    way the megakernel's _mega_scf/_scvec do (pallas_step.py:1300-1369):
+    derived scalars are computed in float32 from float32 operands.  `dw`:
+    btot, gamma_sf, gamma_ef and ux of the downstream-most zone."""
     f = np.float32
     m = f(sc.m)
     c = f(C_CGS)
     eta = f(ss.eta_mfp)
-    nb = ss.nb
     sf = np.zeros(N_SF, np.float32)
     sf[SF_M] = m
     sf[SF_MC] = m * c
@@ -238,11 +242,7 @@ def mega_tables(grids: SegmentGrids, sc: SegmentScalars, ss: StepStatic,
     sf[SF_B_CMBZ] = sc.b_cmbz
     sf[SF_EWF] = ss.electron_weight_fac
     sf[SF_RAD] = RAD_LOSS_FAC
-    host = lambda a: float(a[nb - 2])
-    sf[SF_B_DW] = host(grids.btot)
-    sf[SF_GSF_DW] = host(grids.gamma_sf)
-    sf[SF_GEF_DW] = host(grids.gamma_ef)
-    sf[SF_UX_DW] = host(grids.ux)
+    sf[SF_B_DW], sf[SF_GSF_DW], sf[SF_GEF_DW], sf[SF_UX_DW] = dw
     sf[SF_TEN] = 10.0
     sf[SF_FRG_RG0] = ss.frg_rg0_cm
     sf[SF_FRG_AM1] = ss.frg_alpha - 1.0
@@ -250,31 +250,75 @@ def mega_tables(grids: SegmentGrids, sc: SegmentScalars, ss: StepStatic,
     sf[SF_TWELVE_PI] = 12.0 * np.pi
     sd = np.array([sc.feb_up, sc.feb_dw, sc.x_grid_stop,
                    sc.age_max if sc.age_max > 0 else 3.0e38], np.float64)
+    return sf, sd
+
+
+def _flags(ss: StepStatic) -> int:
     flags = 0
     for name, bit in _FLAG_NAMES:
         if getattr(ss, name):
             flags |= bit
     if ss.frg_rg0_cm > 0.0:
         flags |= FLAG_CUSTOM_FRG
-    tc = grids.tcuts.to(dev, torch.float64).contiguous()
-    si = np.array([nb, ss.i_grid_feb, ss.n_mom, ss.n_theta,
-                   ss.bins_per_dec_mom, ss.bins_per_dec_theta,
-                   int(ss.is_electron), ss.i_shock, tc.shape[0], flags],
-                  np.int32)
+    return flags
+
+
+def _int_vector(ss: StepStatic, n_tc: int) -> np.ndarray:
+    return np.array([ss.nb, ss.i_grid_feb, ss.n_mom, ss.n_theta,
+                     ss.bins_per_dec_mom, ss.bins_per_dec_theta,
+                     int(ss.is_electron), ss.i_shock, n_tc, _flags(ss)],
+                    np.int32)
+
+
+def _zone_tables(grids: SegmentGrids, ss: StepStatic, dev) -> dict:
+    """The tables a species' segments share, MegaTables' fields but the
+    scalar vectors."""
+    nb = ss.nb
     zf = torch.stack([grids.ux[:nb], grids.gamma_sf[:nb],
                       grids.gamma_ef[:nb], grids.btot[:nb]]).to(
                           dev, torch.float32).contiguous()
-    return MegaTables(
+    return dict(
         xg=grids.x_grid[:nb].to(dev, torch.float64).contiguous(), zf=zf,
-        sf=torch.from_numpy(sf).to(dev), sd=torch.from_numpy(sd).to(dev),
-        si=torch.from_numpy(si).to(dev), tc=tc,
+        tc=grids.tcuts.to(dev, torch.float64).contiguous(),
         et=grids.eps_target[:nb].to(dev, torch.float32).contiguous(),
         rp=grids.recv_prefix[:nb + 1].to(dev, torch.float64).contiguous(),
         nb=nb, i_grid_feb=ss.i_grid_feb,
         n_mom=ss.n_mom, n_theta=ss.n_theta,
         bins_per_dec_mom=ss.bins_per_dec_mom,
         bins_per_dec_theta=ss.bins_per_dec_theta,
-        is_electron=bool(ss.is_electron), i_shock=ss.i_shock, flags=flags)
+        is_electron=bool(ss.is_electron), i_shock=ss.i_shock,
+        flags=_flags(ss))
+
+
+def mega_tables(grids: SegmentGrids, sc: SegmentScalars, ss: StepStatic,
+                device) -> MegaTables:
+    """Pack the segment's grids and scalars the way the megakernel's
+    _mega_scf/_scvec/_mega_prep do (pallas_step.py:1300-1369): derived
+    scalars are computed in float32 from float32 operands.  The tcut
+    times and the received-energy prefix stay float64, as the XLA
+    engine keeps them; eps_target is float32."""
+    nb = ss.nb
+    dw = tuple(float(a[nb - 2]) for a in (grids.btot, grids.gamma_sf,
+                                          grids.gamma_ef, grids.ux))
+    return ladder_tables(grids, [sc], ss, device, dw)(0)
+
+
+def ladder_tables(grids: SegmentGrids, scs: list, ss: StepStatic, device,
+                  dw: tuple):
+    """``mega_tables`` of every segment of a species' ladder (`scs`, one
+    SegmentScalars a segment), with one host-to-device copy for all of
+    them: each segment's `sf` and `sd` are a row of one [n_seg, N] table.
+    `dw` is the downstream-most zone's btot, gamma_sf, gamma_ef and ux
+    (host values: the grids' are on the device).  Returns ``table(i)``,
+    segment i's MegaTables, made when asked (a chain that dies early
+    uses few of them)."""
+    dev = torch.device(device)
+    rows = [_scalar_rows(sc, ss, dw) for sc in scs]
+    sf, sd, si = upload([np.stack([r[0] for r in rows]),
+                         np.stack([r[1] for r in rows]),
+                         _int_vector(ss, grids.tcuts.shape[0])], dev)
+    shared = _zone_tables(grids, ss, dev)
+    return lambda i: MegaTables(sf=sf[i], sd=sd[i], si=si, **shared)
 
 
 def floor_mod(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -986,3 +1030,79 @@ def drain(st: ParticleState, tb: MegaTables, tl: Tallies,
     while n_act > 0 and k < max_launches:
         n_act = launch(st, tb, tl, n_steps, max_helix)
         k += 1
+
+
+# ---------------------------------------------------------------------------
+# The pcut ladder's scheduler
+# ---------------------------------------------------------------------------
+
+
+def _fetch(n_new_d: list, nsteps_d: list) -> tuple[np.ndarray, np.ndarray]:
+    """The per-segment device scalars on the host, in one read."""
+    both = torch.stack([torch.stack(n_new_d).to(torch.int64),
+                        torch.stack(nsteps_d).to(torch.int64)]).cpu().numpy()
+    return both[0], both[1].astype(np.uint64)
+
+
+def drive_ladder_async(dispatch, n_seg: int, check=None, capture=None,
+                       start: int = 0, sync_at=None, stop=None):
+    """Host loop over pcut segments without a host wait a segment: the
+    counterpart of the JAX package's drive_ladder_async
+    (pallas_step.py:2057-2127).  A blocking read drains the dispatch
+    pipeline, so a read a segment keeps the host from queueing segment
+    i + 1 while segment i runs.  The reference's pcut_finalize early
+    break (cuts.jl:115-119) is checked every MCS_HYBRID_SYNC_EVERY
+    segments (default 8; 0 = never): a segment dispatched after the
+    chain died is a no-op (the split left every lane FINISHED with zero
+    weight, so the drain steps none and finish_particles adds nothing),
+    and a few dead segments cost less than a wait on every live one.
+
+    ``dispatch(i)`` runs segment i and returns (n_new, nsteps) as 0-dim
+    device tensors (any integer or float dtype), without waiting.  At a
+    sync point, ``(i + 1) % MCS_HYBRID_SYNC_EVERY == 0`` or
+    ``sync_at(i)`` true, the host reads n_new; then ``check(i)`` runs,
+    then ``capture(i, n_new[start:i+1], nsteps[start:i+1])`` with the
+    host's copies of the segments run so far, and the loop breaks if
+    the chain is dead.  ``start`` begins the ladder at a later segment
+    (a resume): segments below it are reported as zeros for the caller
+    to fill in.  ``sync_at`` and ``stop`` are the port's own: the engine
+    forces a sync where a mid checkpoint is due, and ``stop(i)`` true
+    means the host knows, without waiting, that the chain died at or
+    before segment i (the card has finished that split): no further
+    segment is queued.  Neither changes the result.
+
+    Returns (n_new[n_seg] int64, nsteps[n_seg] uint64), the segments
+    past the first die-out reported as the zeros they were."""
+    sync_every = int(os.environ.get("MCS_HYBRID_SYNC_EVERY", "8"))
+    n_new_d: list = []
+    nsteps_d: list = []
+    n_done = start
+    for i in range(start, n_seg):
+        if stop is not None and i > start and stop(i - 1):
+            break
+        n_new, nsteps = dispatch(i)
+        n_new_d.append(n_new)
+        nsteps_d.append(nsteps)
+        n_done = i + 1
+        if ((sync_every and n_done % sync_every == 0)
+                or (sync_at is not None and sync_at(i))):
+            dead = int(n_new) == 0
+            if check is not None:
+                check(i)
+            if capture is not None:
+                capture(i, *_fetch(n_new_d, nsteps_d))
+            if dead:
+                break
+
+    n_new_out = np.zeros(n_seg, np.int64)
+    nsteps_out = np.zeros(n_seg, np.uint64)
+    if n_new_d:
+        n_new_out[start:n_done], nsteps_out[start:n_done] = _fetch(
+            n_new_d, nsteps_d)
+    # segments past the first die-out ran as no-ops and stay zero (scan
+    # only the segments this call ran: [0, start) are the caller's)
+    dead = np.flatnonzero(n_new_out[start:n_done] == 0)
+    if dead.size:
+        n_new_out[start + dead[0] + 1:] = 0
+        nsteps_out[start + dead[0] + 1:] = 0
+    return n_new_out, nsteps_out

@@ -5,7 +5,10 @@ Counterpart of the JAX package's ``split_on_device``
 population replays saved lane ``j // i_mult`` with weight / i_mult, the
 SAVED lanes taken in their original order (a stable partition), and
 gets the key ``fold_in(seg_key, lane_offset + j)``.  The result is
-exact: the same lanes, weights and keys as the JAX function.
+exact: the same lanes, weights and keys as the JAX function.  Nothing is
+read back to the host: the multiplicity is computed on the device, as
+the JAX function computes it (fused_ion.py:48-51), so the pcut ladder
+can queue the next segment behind the split.
 """
 
 from __future__ import annotations
@@ -18,15 +21,18 @@ from .state import ACTIVE, FINISHED, FL_DW, FL_INJ, SAVED, ParticleState
 
 def split_on_device(state: ParticleState, n_target: int,
                     seg_key: tuple[int, int],
-                    lane_offset: int = 0) -> tuple[ParticleState, int]:
-    """Returns (new state, n_new) with n_new = n_saved * i_mult; with
-    nothing saved every lane comes out FINISHED with zero weight."""
+                    lane_offset: int = 0
+                    ) -> tuple[ParticleState, torch.Tensor]:
+    """Returns (new state, n_new) with n_new = n_saved * i_mult, a 0-dim
+    int64 tensor on the state's device; with nothing saved every lane
+    comes out FINISHED with zero weight."""
     b = state.weight.shape[0]
     dev = state.device
     saved = state.status == SAVED
-    n_saved = int(saved.sum())
+    n_saved = saved.sum()
     order = torch.argsort((~saved).to(torch.int8), stable=True)
-    i_mult = max(int(n_target) // max(n_saved, 1), 1)
+    i_mult = torch.clamp(int(n_target) // torch.clamp(n_saved, min=1),
+                         min=1)
     j = torch.arange(b, device=dev)
     src = order[torch.clamp(j // i_mult, max=b - 1)]
     valid = j < n_saved * i_mult
@@ -37,7 +43,7 @@ def split_on_device(state: ParticleState, n_target: int,
     zeros_i = torch.zeros(b, dtype=torch.int32, device=dev)
     # a device tensor divisor: torch turns division by a Python number
     # into a reciprocal multiply on CUDA, which would not be exact
-    div = torch.tensor(float(i_mult), dtype=p_dtype, device=dev)
+    div = i_mult.to(p_dtype)
     new = ParticleState(
         weight=torch.where(valid, g(state.weight) / div, 0.0).to(p_dtype),
         pb=g(state.pb), pperp=g(state.pperp), phi=g(state.phi),

@@ -143,6 +143,26 @@ def copy_into(dst, src):
     return dst
 
 
+def upload(arrays: list, device) -> list:
+    """Host arrays on `device` through one host-to-device copy, where a
+    copy each would make the host wait once each: the arrays are laid
+    out in one byte buffer (each at an 8-byte boundary), copied, and
+    handed back as views of their dtypes and shapes."""
+    arrays = [np.asarray(a, order="C") for a in arrays]
+    offsets, end = [], 0
+    for a in arrays:
+        end = -(-end // 8) * 8
+        offsets.append(end)
+        end += a.nbytes
+    buf = np.zeros(-(-end // 8) * 8, np.uint8)
+    for a, o in zip(arrays, offsets):
+        buf[o:o + a.nbytes] = a.reshape(-1).view(np.uint8)
+    dev_buf = torch.from_numpy(buf).to(device)
+    dtype = lambda a: torch.from_numpy(np.zeros(0, a.dtype)).dtype
+    return [dev_buf[o:o + a.nbytes].view(dtype(a)).view(a.shape)
+            for a, o in zip(arrays, offsets)]
+
+
 def init_state(weight, ptot_pf, pb_pf, x_cm, igrid, ux_of_igrid,
                xn_per_fine: float, prp_x0, seg_key: tuple[int, int],
                device, phi=None, downstream=None, inj=None,

@@ -59,6 +59,7 @@ import math
 import time
 from dataclasses import dataclass, fields
 
+import numpy as np
 import torch
 
 from ..models.psd_bins import psd_bin_angle, psd_bin_momentum
@@ -70,7 +71,8 @@ from .scattering import gyro_period, radiation_loss, scattering
 from .state import (ACTIVE, C_RAD, C_RECV, C_RETRO, FINISHED, FL_DW, FL_INJ,
                     FL_JRET, FL_RETRO, R_AGE, R_DOWNSTREAM, R_RADIATED,
                     R_UPSTREAM_PMAX, SAVED, X_DTYPE, ParticleState,
-                    SegmentGrids, SegmentScalars, StepStatic, Tallies)
+                    SegmentGrids, SegmentScalars, StepStatic, Tallies,
+                    upload)
 from .transforms import (hyp, transform_p_ps, transform_p_ps_parallel,
                          transform_p_psp, transform_p_psp_parallel)
 
@@ -142,52 +144,104 @@ class StepTables:
         return self
 
 
+# the scalars of StepTables.k that come from the host, in the momentum
+# dtype (_P_NAMES) and in float64 (_D_NAMES): their float64 values are
+# copied to the device and rounded there, as torch.tensor rounds them
+_P_NAMES = ("m", "abs_charge", "bmag2", "pcut", "pcut_prev", "pmax", "u2",
+            "g0u0", "pe_crit", "gamma_e_crit", "inj_frac", "b_cmbz", "one",
+            "three", "ten", "c", "two_pi", "spike", "tiny", "tiny30",
+            "cmax_coarse", "cmax_fine", "xn_coarse", "xn_fine", "eta",
+            "twelve_pi", "frg_rg0", "frg_am1")
+_D_NAMES = ("feb_up", "feb_dw", "x_stop", "age_max")
+
+
+def _host_scalars(sc: SegmentScalars, ss: StepStatic) -> list:
+    """The _P_NAMES then _D_NAMES values of one segment, as floats."""
+    p = dict(
+        m=sc.m, abs_charge=sc.abs_charge, bmag2=sc.bmag2, pcut=sc.pcut,
+        pcut_prev=sc.pcut_prev, pmax=sc.pmax_cutoff, u2=sc.u2,
+        g0u0=sc.gamma0_u0, pe_crit=sc.pe_crit,
+        gamma_e_crit=sc.gamma_e_crit, inj_frac=sc.inj_frac,
+        b_cmbz=sc.b_cmbz, one=1.0, three=3.0, ten=_XN_RETRO, c=C_CGS,
+        two_pi=2.0 * math.pi, spike=ALL_FLUX_SPIKE_AWAY, tiny=1.0e-300,
+        tiny30=1.0e-30,
+        cmax_coarse=math.cos(math.sqrt(
+            12.0 * math.pi / (ss.xn_per_coarse * ss.eta_mfp))),
+        cmax_fine=math.cos(math.sqrt(
+            12.0 * math.pi / (ss.xn_per_fine * ss.eta_mfp))),
+        xn_coarse=ss.xn_per_coarse, xn_fine=ss.xn_per_fine,
+        eta=ss.eta_mfp, twelve_pi=12.0 * math.pi, frg_rg0=ss.frg_rg0_cm,
+        frg_am1=ss.frg_alpha - 1.0)
+    d = dict(feb_up=sc.feb_up, feb_dw=sc.feb_dw, x_stop=sc.x_grid_stop,
+             age_max=sc.age_max)
+    return [float(p[n]) for n in _P_NAMES] + [float(d[n]) for n in _D_NAMES]
+
+
 def step_tables(grids: SegmentGrids, sc: SegmentScalars, ss: StepStatic,
                 device) -> StepTables:
     """The segment's grids on `device` and its scalars as 0-dim tensors
     in the grids' momentum dtype (positions and times in float64)."""
+    return ladder_tables(grids, [sc], ss, device)(0)[0]
+
+
+def ladder_tables(grids: SegmentGrids, scs: list, ss: StepStatic, device,
+                  packed: bool = False):
+    """``step_tables`` of every segment of a species' ladder (`scs`, one
+    SegmentScalars a segment) with one host-to-device copy for all of
+    them: each scalar of a segment is an element of one [n_seg] vector.
+    Returns ``table(i)``: segment i's StepTables and, with `packed`, its
+    K5 packing (helix.Packed, its scalar vector a row of one [n_seg,
+    len(helix.KV_NAMES)] table, whose statics ride the same copy), else
+    None; each made when asked (a chain that dies early uses few)."""
     dev = torch.device(device)
     pdt = grids.ux.dtype
-    p = lambda v: torch.tensor(v, dtype=pdt, device=dev)
-    d = lambda v: torch.tensor(v, dtype=X_DTYPE, device=dev)
-    m = p(sc.m)
-    mc = m * C_CGS
     nb = ss.nb
     f = lambda a: a[:nb].to(dev, pdt).contiguous()
     ux, gsf, gef, btot = (f(grids.ux), f(grids.gamma_sf),
                           f(grids.gamma_ef), f(grids.btot))
     bcos, bsin = f(grids.b_cos), f(grids.b_sin)
-    k = dict(
-        m=m, mc=mc, e0=mc * C_CGS, two_m=2.0 * m, abs_charge=p(sc.abs_charge),
-        qb2=p(sc.abs_charge) * p(sc.bmag2), pcut=p(sc.pcut),
-        pcut_prev=p(sc.pcut_prev), pmax=p(sc.pmax_cutoff), u2=p(sc.u2),
-        g0u0=p(sc.gamma0_u0), pe_crit=p(sc.pe_crit),
-        gamma_e_crit=p(sc.gamma_e_crit), inj_frac=p(sc.inj_frac),
-        b_cmbz=p(sc.b_cmbz), one=p(1.0), three=p(3.0), ten=p(_XN_RETRO),
-        c=p(C_CGS), two_pi=p(2.0 * math.pi),
-        spike=p(ALL_FLUX_SPIKE_AWAY), tiny=p(1.0e-300), tiny30=p(1.0e-30),
-        cmax_coarse=p(math.cos(math.sqrt(
-            12.0 * math.pi / (ss.xn_per_coarse * ss.eta_mfp)))),
-        cmax_fine=p(math.cos(math.sqrt(
-            12.0 * math.pi / (ss.xn_per_fine * ss.eta_mfp)))),
-        xn_coarse=p(ss.xn_per_coarse), xn_fine=p(ss.xn_per_fine),
-        eta=p(ss.eta_mfp), twelve_pi=p(12.0 * math.pi),
-        frg_rg0=p(ss.frg_rg0_cm), frg_am1=p(ss.frg_alpha - 1.0),
-        feb_up=d(sc.feb_up), feb_dw=d(sc.feb_dw), x_stop=d(sc.x_grid_stop),
-        age_max=d(sc.age_max),
-        # the downstream-most zone, where the retro walk runs
-        ux_dw=ux[nb - 2], gsf_dw=gsf[nb - 2], gef_dw=gef[nb - 2],
-        b_dw=btot[nb - 2], bcos_dw=bcos[nb - 2], bsin_dw=bsin[nb - 2])
-    return StepTables(
+    tabs = dict(
         x_grid=grids.x_grid[:nb].to(dev, X_DTYPE).contiguous(),
         ux=ux, gamma_sf=gsf, gamma_ef=gef, btot=btot, uz=f(grids.uz),
         utot=f(grids.utot), b_cos=bcos, b_sin=bsin,
         x_spec=grids.x_spec[:ss.n_xspec].to(dev, X_DTYPE).contiguous(),
         tcuts=grids.tcuts.to(dev, X_DTYPE).contiguous(),
         eps_target=f(grids.eps_target),
-        recv_prefix=grids.recv_prefix[:nb + 1].to(dev, X_DTYPE).contiguous(),
-        k=k, ss=ss, reflect=sc.inj_frac < 1.0 or ss.dont_dsa,
-        age_cut=sc.age_max > 0, feb_dw_on=sc.feb_dw > 0.0)
+        recv_prefix=grids.recv_prefix[:nb + 1].to(
+            dev, X_DTYPE).contiguous())
+    sc0 = scs[0]
+    flags = dict(reflect=sc0.inj_frac < 1.0 or ss.dont_dsa,
+                 age_cut=sc0.age_max > 0, feb_dw_on=sc0.feb_dw > 0.0)
+    host = [np.array([_host_scalars(sc, ss) for sc in scs])]
+    if packed:
+        word = helix.flag_word_of(ss, **flags)
+        host += list(helix.pack_statics(ss, pdt, tabs["tcuts"].shape[0],
+                                        word))
+    up = upload(host, dev)
+    raw = up[0]
+    n_p = len(_P_NAMES)
+    v = {n: raw[:, j].to(pdt) for j, n in enumerate(_P_NAMES)}
+    v.update({n: raw[:, n_p + j] for j, n in enumerate(_D_NAMES)})
+    v["mc"] = v["m"] * C_CGS
+    v["e0"] = v["mc"] * C_CGS
+    v["two_m"] = 2.0 * v["m"]
+    v["qb2"] = v["abs_charge"] * v.pop("bmag2")
+    # the downstream-most zone, where the retro walk runs
+    zone = dict(ux_dw=ux[nb - 2], gsf_dw=gsf[nb - 2], gef_dw=gef[nb - 2],
+                b_dw=btot[nb - 2], bcos_dw=bcos[nb - 2],
+                bsin_dw=bsin[nb - 2])
+    kv = helix.kv_rows({**v, **zone}, up[1], len(scs)) if packed else None
+
+    def table(i):
+        tb = StepTables(k={**{n: a[i] for n, a in v.items()}, **zone},
+                        ss=ss, **tabs, **flags)
+        if not packed:
+            return tb, None
+        return tb, helix.Packed(
+            tb=tb, kv=kv[i], ki=up[2], word=word,
+            instance=helix.instance_of(pdt == torch.float64, word),
+            p_dtype=pdt)
+    return table
 
 
 def _zone(x_grid: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -858,13 +912,22 @@ class GraphCache:
         ev[1].record()
         self._events.append((size, n, ev[0], ev[1]))
 
-    def drain(self, d, size: int, max_helix: int, sync_every: int) -> int:
+    def drain(self, d, size: int, max_helix: int, sync_every: int,
+              wait: bool = True):
         """One K5 drain `d` (helix.HelixDrain) of a segment of `size`
-        lanes, between two CUDA events when timing; returns its steps."""
+        lanes, between two CUDA events when timing; returns its steps,
+        or with `wait` False its header on the device, unread (the
+        timing reads its steps with the events)."""
         ev = self._events_pair() if self.timing else None
         d.enqueue(max_helix, sync_every)
         if ev is not None:
             ev[1].record()
+        if not wait:
+            head = d.header()
+            if ev is not None:
+                self._segments.append((size, head[helix.WS_TAKEN],
+                                       [tuple(ev)]))
+            return head
         taken = d.finish()
         if ev is not None:
             self._segments.append((size, taken, [tuple(ev)]))
@@ -894,7 +957,7 @@ class GraphCache:
         """Each timed segment: its lanes, its steps, its device ms (a
         drain's launch, or the sum of the block loop's timed blocks) and
         the launches or blocks timed (a first eager block is not)."""
-        return [dict(lanes=size, steps=steps, blocks=len(evs),
+        return [dict(lanes=size, steps=int(steps), blocks=len(evs),
                      ms=sum(a.elapsed_time(b) for a, b in evs))
                 for size, steps, evs in self._segments]
 
@@ -916,7 +979,7 @@ def run_segment(st: ParticleState, tl: Tallies, tb: StepTables,
                 sync_every: int = SYNC_EVERY,
                 max_helix: int | None = None, compact_levels: int = 0,
                 graphs: GraphCache | None = None, plain: bool = False,
-                blocks: bool = False) -> int:
+                blocks: bool = False, packed=None, wait: bool = True):
     """Step every lane until none is ACTIVE (one pcut segment), in place;
     returns the number of helix steps the block loop takes:
     `sync_every` times the blocks it runs.
@@ -943,6 +1006,11 @@ def run_segment(st: ParticleState, tl: Tallies, tb: StepTables,
     there; the lanes and the returned steps are the block loop's at
     `compact_levels=0` (helix.drain_plain states the rule).  A drain
     that does not build or launch raises: there is no fallback.
+    `packed` is the drain's helix.Packed when the caller made it (the
+    ladder packs a species' segments at once), and `wait` False leaves
+    the drain unread: run_segment then returns its header (int32 words,
+    helix.WS_*) on the device, and the caller reads its steps and
+    pushes (``helix.header_pushes``) when it next waits.
     `blocks` asks for the block loop of K5 windows instead (one K5
     launch a block, a host read each: helix.HOST_READS), for
     comparisons.  The oblique branches are not in K5: the oblique step's
@@ -962,10 +1030,11 @@ def run_segment(st: ParticleState, tl: Tallies, tb: StepTables,
     if cuda and graphs is None:
         graphs = GraphCache()
     b = st.weight.shape[0]
+    if k5 and packed is None:
+        packed = helix.pack(tb)
     if k5 and not blocks:
-        return graphs.drain(helix.HelixDrain(st, tl, helix.pack(tb)), b,
-                            max_helix, sync_every)
-    packed = helix.pack(tb) if k5 else None
+        return graphs.drain(helix.HelixDrain(st, tl, packed), b,
+                            max_helix, sync_every, wait=wait)
     launches = {}           # window size -> K5 on that window
     sizes = window_sizes(b, compact_levels)
     level, win = 0, st

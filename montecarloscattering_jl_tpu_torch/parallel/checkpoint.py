@@ -243,13 +243,17 @@ class MidCheckpointer:
         ``seg_done`` segments already complete)."""
         self._bucket = seg_done // self.every
 
+    def due(self, seg_done: int) -> bool:
+        """``maybe(seg_done, ...)`` would save (the engine's fused ladder
+        makes such a segment a sync point)."""
+        return seg_done // self.every > self._bucket
+
     def maybe(self, seg_done: int, payload_fn) -> None:
         """Save when ``seg_done`` first reaches or passes a cadence
         multiple (bucket advance, so unaligned capture points fire)."""
-        bucket = seg_done // self.every
-        if bucket <= self._bucket:
+        if not self.due(seg_done):
             return
-        self._bucket = bucket
+        self._bucket = seg_done // self.every
         t0 = time.perf_counter()
         payload = dict(payload_fn())
         if self.context_fn is not None:
