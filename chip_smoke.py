@@ -178,13 +178,20 @@ Run from the root of a checkout:  python3 chip_smoke.py
     ``fused=False``, against the same run in this process: pushes,
     trajectories and exit reasons exactly, fluxes within RESUME_FLUX_TOL
     and the PSDs within HIST_TOL of their largest entry.  (2) The mesh
-    hybrid ladder (K1, fused, each rank splitting its own lanes): phase
-    f32's run again on the mesh, held to phase f32's run statistically
-    (the slope gate; pushes and trajectories of iteration 1 within
-    MESH_HYBRID_TOL) and every segment's split to its contract
-    (``split_faults``: each rank's share of the target, its new lanes,
-    and its new lanes' weight within MESH_SPLIT_WEIGHT_TOL of its saved
-    lanes').  (3) The XLA engine: phase compact's segment (the
+    hybrid ladder (K1, fused, each rank splitting its own lanes, on
+    ``drive_ladder_async``: every rank's splits gathered once a sync
+    point and once at the end): phase f32's run again on the mesh, held
+    to phase f32's run statistically (the slope gate; pushes and
+    trajectories of iteration 1 within MESH_HYBRID_TOL) and every
+    segment's split to its contract (``split_faults``: each rank's share
+    of the target, its new lanes, and its new lanes' weight within
+    MESH_SPLIT_WEIGHT_TOL of its saved lanes'); each rank's ladders
+    under ``counted_ladders`` (host waits at most a sync point's plus
+    LADDER_WAITS_EXTRA a species, printed with the sync points), and its
+    collectives exactly a gather a sync point and one at the end, the
+    17 reductions a species and MESH_BARRIERS.  (2b) The same at
+    MCS_HYBRID_SYNC_EVERY=1: every rank's pushes, new lanes and splits'
+    integers those of (2).  (3) The XLA engine: phase compact's segment (the
     flagship's 69,632 injected lanes, pcut 0, f64) with each rank
     draining its shard at the per-shard auto compaction depth; the
     gathered lanes bit-identical in every field to phase compact's.
@@ -199,7 +206,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
     cut: each fits CLI_TIMEOUT), at the CLI's default float64 (K5's
     drain) and with ``--f32`` (K1): exit code 0, the completion line
     with the config's iterations and nonzero pushes, and the file set;
-    each wall time.
+    each wall time; then scripts/pod_scale.py as shipped (every visible
+    card, one here: world 1, float64 on K5) and with ``--f32`` (K1):
+    exit code 0, its two result lines, pushes, its wall.
 
 The float64 phases' segments (f64, resume, shipped, electrons, compact,
 mesh part 3) are K5 drains, one launch a segment with no host read
@@ -280,6 +289,19 @@ ENDURANCE_TRAJECTORIES = 3.5e6
 MESH_RANKS = 2
 MESH_HYBRID_TOL = 0.10
 MESH_SPLIT_WEIGHT_TOL = 2.0 ** -23
+# phase mesh's parts, in order: "hybrid@1" is the mesh hybrid again at
+# MCS_HYBRID_SYNC_EVERY=1
+MESH_PARTS = ("host", "hybrid", "hybrid@1", "xla")
+# the collectives of a mesh hybrid part on a rank: a species' ladder
+# gathers its splits once a sync point and once at its end
+# (engine/run.py _ladder_async), then sums its accumulators in 17
+# all_reduces (parallel/shard.py reduce_ion_accumulators: 9 tally, 7
+# escape and 1 exit-reason fields); the part adds 2 barriers, one before
+# it (mesh_rank) and one after its files are written (engine/driver.py)
+MESH_REDUCTIONS, MESH_BARRIERS = 17, 2
+# the integer fields of a mesh hybrid split (parallel/shard.py
+# SPLIT_FIELDS), held equal at MCS_HYBRID_SYNC_EVERY 8 and 1
+SPLIT_INTS = ("n_saved", "target", "n_new", "nsteps")
 # JAX CPU run of the shipped baseline (1 iteration, --f32, XLA engine),
 # for comparison with the port's counts
 SHIPPED_JAX_PUSHES, SHIPPED_JAX_TRAJECTORIES = 980_000, 196
@@ -348,6 +370,20 @@ LADDER_WAITS_EXTRA = 2
 
 def fail(msg: str) -> None:
     raise RuntimeError(msg)
+
+
+@contextlib.contextmanager
+def sync_every(value: str):
+    """MCS_HYBRID_SYNC_EVERY set to `value` within the block."""
+    old = os.environ.get("MCS_HYBRID_SYNC_EVERY")
+    os.environ["MCS_HYBRID_SYNC_EVERY"] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["MCS_HYBRID_SYNC_EVERY"]
+        else:
+            os.environ["MCS_HYBRID_SYNC_EVERY"] = old
 
 
 def bound(n_bytes: float, n_ops: float,
@@ -1453,15 +1489,8 @@ def dead_tail(cfg, dev, res) -> None:
 
     from montecarloscattering_jl_tpu_torch.engine.driver import run
 
-    old = os.environ.get("MCS_HYBRID_SYNC_EVERY")
-    os.environ["MCS_HYBRID_SYNC_EVERY"] = "1"
-    try:
+    with sync_every("1"):
         ref = run(cfg, device=dev, p_dtype=torch.float64)
-    finally:
-        if old is None:
-            del os.environ["MCS_HYBRID_SYNC_EVERY"]
-        else:
-            os.environ["MCS_HYBRID_SYNC_EVERY"] = old
     for i, (a, b) in enumerate(zip(res.iterations[0].ion_finals,
                                    ref.iterations[0].ion_finals)):
         same = [a.n_new == b.n_new, a.n_pushes == b.n_pushes,
@@ -1806,10 +1835,15 @@ def endurance_path(dev) -> dict:
 
 def mesh_rank(mesh, parts) -> dict:
     """One rank of phase mesh (started by parallel/multihost.spawn): the
-    `parts` of ("host", "hybrid", "xla") in order, each with every
-    kernel's launch count set to 0 before it and read after it, checked
-    on this rank.  Rank 0 returns the driven runs' results (without their
-    graph caches) and the gathered lanes of "xla"."""
+    `parts` of MESH_PARTS in order, each with every kernel's launch count
+    set to 0 before it and read after it, checked on this rank.  The
+    hybrid parts' fused ladders run under ``counted_ladders`` (their host
+    waits and sync points a species), and the part's collectives are
+    held to a gather a sync point and one at the end a species, its
+    reductions and MESH_BARRIERS; each rank returns its chain (pushes,
+    new lanes and the splits' integers a species).  Rank 0 returns the
+    driven runs' results (without their graph caches) and the gathered
+    lanes of "xla"."""
     import torch
 
     from montecarloscattering_jl_tpu_torch.engine.driver import run
@@ -1826,19 +1860,38 @@ def mesh_rank(mesh, parts) -> dict:
         shard.barrier(mesh)
         zero_counts()
         t0 = time.perf_counter()
-        if part in ("host", "hybrid"):
-            cfg = flagship_config(torch.float32, 1 if part == "host" else 2,
-                                  False)
-            with tempfile.TemporaryDirectory() as d:
+        extra = {}
+        if part != "xla":
+            hybrid = part != "host"
+            cfg = flagship_config(torch.float32, 2 if hybrid else 1, False)
+            tag = f"mesh {part} rank {mesh.rank}"
+            with contextlib.ExitStack() as stack:
+                if part == "hybrid@1":
+                    stack.enter_context(sync_every("1"))
+                ladders = (stack.enter_context(counted_ladders(tag))
+                           if hybrid else [])
+                d = stack.enter_context(tempfile.TemporaryDirectory())
                 res = run(cfg, device=dev, out_dir=d, p_dtype=torch.float32,
-                          fused=part == "hybrid", mesh=mesh)
+                          fused=hybrid, mesh=mesh)
                 torch.cuda.synchronize()
                 written = sorted(os.listdir(d))
             pushes = res.n_pushes
             want = expected_files(cfg) if mesh.rank == 0 else []
             if sorted(set(written) & set(want)) != sorted(want) or (
                     mesh.rank and written):
-                fail(f"mesh {part} rank {mesh.rank}: wrote {written}")
+                fail(f"{tag}: wrote {written}")
+            if hybrid:
+                coll = MESH_BARRIERS + sum(r["sync_points"] + 1
+                                           + MESH_REDUCTIONS for r in ladders)
+                if mesh.collectives - c0 != coll:
+                    fail(f"{tag}: {mesh.collectives - c0} collectives, "
+                         f"{coll} expected at the ladders' sync points "
+                         f"{[r['sync_points'] for r in ladders]}")
+                extra = dict(ladders=ladders, chain=[
+                    dict(pushes=f.n_pushes, n_new=f.n_new,
+                         splits=[{k: sp[k].tolist() for k in SPLIT_INTS}
+                                 for sp in f.splits])
+                    for itr in res.iterations for f in itr.ion_finals])
             res.graphs = None
         else:
             cfg = flagship_config(torch.float64, 1, True)
@@ -1868,7 +1921,7 @@ def mesh_rank(mesh, parts) -> dict:
         out[part] = dict(
             result=res if mesh.rank == 0 else None, counts=counts,
             wall=wall, pushes=pushes, collectives=mesh.collectives - c0,
-            collective_s=mesh.collective_s - s0)
+            collective_s=mesh.collective_s - s0, **extra)
     return dict(rank=mesh.rank, device=str(dev), backend=mesh.backend,
                 shared=shard.shared_cards(mesh), parts=out)
 
@@ -1937,15 +1990,14 @@ def mesh_path(dev, f32, compact) -> dict:
     ref, _, wall1, _ = drive(flagship_config(torch.float32, 1, False), dev,
                              torch.float32, "mesh world 1", fused=False)
     t0 = time.perf_counter()
-    ranks = multihost.spawn(mesh_rank, MESH_RANKS,
-                            args=(("host", "hybrid", "xla"),),
+    ranks = multihost.spawn(mesh_rank, MESH_RANKS, args=(MESH_PARTS,),
                             backend="gloo", device="cuda", timeout=900)
     spawn_wall = time.perf_counter() - t0
     sharing = (f"{MESH_RANKS} processes sharing one card (gloo)"
                if all(r["shared"] for r in ranks) else
                f"{MESH_RANKS} ranks (gloo)")
     out = {}
-    for part in ("host", "hybrid", "xla"):
+    for part in MESH_PARTS:
         rows = [r["parts"][part] for r in ranks]
         res = rows[0]["result"]
         wall = max(r["wall"] for r in rows)
@@ -1962,7 +2014,7 @@ def mesh_path(dev, f32, compact) -> dict:
             worst = hold_to_f64("mesh host", ref, res, against="world 1",
                                 spectra=False)
             line["worst"] = worst
-        elif part == "hybrid":
+        elif part.startswith("hybrid"):
             slope, expect = slope_of(res)
             rel = hybrid_against(res, f32["result"])
             faults, n_seg, worst = split_faults(res, MESH_RANKS)
@@ -1973,15 +2025,30 @@ def mesh_path(dev, f32, compact) -> dict:
                         n_saved=[[sp["n_saved"].tolist() for sp in f.splits]
                                  for itr in res.iterations
                                  for f in itr.ion_finals],
-                        splits_checked=n_seg, split_weight_rel_max=worst)
+                        splits_checked=n_seg, split_weight_rel_max=worst,
+                        ladders=[[{k: lad[k] for k in (
+                            "iteration", "species", "segments", "waits",
+                            "sync_points")} for lad in r["ladders"]]
+                                 for r in rows])
             if not math.isfinite(slope) or abs(slope - expect) > 0.45:
-                fail(f"mesh hybrid: slope {slope} vs {expect}")
+                fail(f"mesh {part}: slope {slope} vs {expect}")
             if any(v > MESH_HYBRID_TOL for v in rel["iteration 1"].values()):
-                fail(f"mesh hybrid, iteration 1: {rel['iteration 1']} "
+                fail(f"mesh {part}, iteration 1: {rel['iteration 1']} "
                      f"against phase f32's run (bound {MESH_HYBRID_TOL})")
             if faults or n_seg == 0:
-                fail(f"mesh hybrid: {n_seg} splits checked, faults "
+                fail(f"mesh {part}: {n_seg} splits checked, faults "
                      f"{faults}")
+            # every rank sees the same gathered splits; at one segment a
+            # sync the ranks read what they read at the default cadence
+            chains = [r["chain"] for r in rows]
+            if any(c != chains[0] for c in chains):
+                fail(f"mesh {part}: the ranks' chains differ: {chains}")
+            if part == "hybrid@1":
+                ref_chains = [r["parts"]["hybrid"]["chain"] for r in ranks]
+                if chains != ref_chains:
+                    fail(f"mesh hybrid@1: pushes, new lanes or splits differ "
+                         f"from the default cadence's: {chains} against "
+                         f"{ref_chains}")
         else:
             lanes, want = res["lanes"], compact["lanes"]
             diff = [k for k in want if not np.array_equal(lanes[k], want[k])]
@@ -2108,10 +2175,16 @@ def cli_phase(dev) -> dict:
     its gate admits the config): exit code 0, its completion line
     ("finished: N iterations, ...", the JAX CLI's; neither CLI prints
     "Done") with the config's iterations and nonzero pushes, "outputs
-    written to", and the file set of expected_files.  Each run's wall
-    time, the process's start included."""
+    written to", and the file set of expected_files.  Then
+    scripts/pod_scale.py as shipped (``python -m
+    montecarloscattering_jl_tpu_torch.scripts.pod_scale``: every visible
+    card, float64 on K5) and with ``--f32`` (K1): exit code 0, its
+    device line, its two result lines and nonzero pushes.  Each run's
+    wall time, the process's start included."""
     import re
     import subprocess
+
+    import torch
 
     from montecarloscattering_jl_tpu_torch.utils import load_config
 
@@ -2147,6 +2220,30 @@ def cli_phase(dev) -> dict:
                             trajectories=int(m.group(2)),
                             pushes=int(m.group(3)), files=len(written))
             print(f"cli {tag}: {json.dumps(out[tag])}")
+    n_cards = torch.cuda.device_count()
+    for flags in ((), ("--f32",)):
+        tag = " ".join(("scripts/pod_scale.py",) + flags)
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m",
+             "montecarloscattering_jl_tpu_torch.scripts.pod_scale", *flags],
+            cwd=ROOT, capture_output=True, text=True, timeout=CLI_TIMEOUT)
+        wall = time.perf_counter() - t0
+        if r.returncode != 0:
+            fail(f"cli {tag}: exit {r.returncode}: {r.stderr[-2000:]}")
+        # its device line and its two result lines
+        lines = r.stdout.splitlines() + ["", "", ""]
+        m = re.match(r"(\d+) trajectories, (\d+) pushes in ([\d.]+)s -> ",
+                     lines[1])
+        if (not lines[0].startswith(f"devices: {n_cards} x cuda")
+                or m is None or int(m.group(2)) <= 0
+                or not lines[2].startswith(
+                    "escaping / far-upstream energy flux: ")):
+            fail(f"cli {tag}: {r.stdout[-2000:]}")
+        out[tag] = dict(wall=wall, run_s=float(m.group(3)),
+                        ranks=n_cards, trajectories=int(m.group(1)),
+                        pushes=int(m.group(2)))
+        print(f"cli {tag}: {json.dumps(out[tag])}")
     return out
 
 

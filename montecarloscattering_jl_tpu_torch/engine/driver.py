@@ -97,7 +97,10 @@ class RunResult:
     # launch_counts)
     launches: dict | None = None
     # this rank's mesh (parallel/shard.Mesh.summary): world size, rank,
-    # device, backend, collectives and their seconds; None on one device
+    # device, backend, collectives (a species' gathers of the splits, a
+    # sync point's and the end's on the mesh hybrid, a segment's on the
+    # host split, and its reductions; barriers) and their seconds; None
+    # on one device
     mesh: dict | None = None
 
     @property

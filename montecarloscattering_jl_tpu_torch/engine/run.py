@@ -51,10 +51,13 @@ bit for bit where the device's sums are ordered (the CPU).
 
 With a ``mesh`` of more than one rank (parallel/shard.py; run.py:92-182,
 358-456) every rank builds the whole population and keeps its shard of
-the lanes.  K1 with ``fused`` runs the mesh hybrid ladder: each rank
+the lanes.  K1 with ``fused`` runs the mesh hybrid ladder on the same
+scheduler (run_ion_mega_hybrid_sharded, shard.py:256-307): each rank
 drains, finishes and splits its own lanes to its share of the target,
-its keys offset by its first lane, and only the segment's small
-counters cross ranks (every rank's split, ``IonResult.splits``).
+its keys offset by its first lane, and writes the split's small
+counters into a row on its device; the rows of every rank cross ranks
+in one gather a sync point and one at the end (every rank's split,
+``IonResult.splits``), from which the chain's new lanes are summed.
 Otherwise (``fused=False``, and the XLA engine whatever ``fused`` says,
 run.py:376) the host-split ladder: each rank drains its shard, the
 lanes of every rank are gathered, and every rank runs the same split on
@@ -132,7 +135,7 @@ class IonResult:
     # new lanes of each segment run, over every rank
     n_new: list = None
     # the mesh hybrid ladder: each segment's split, every rank's
-    # (parallel/shard.split_record, with the segment's n_target)
+    # (parallel/shard.gather_splits, with the segment's n_target)
     splits: list = None
     # the port's own counters: FINISHED lanes by exit reason (index 1-4,
     # stt.R_*), entries into the retro walk, energy [erg, weighted] the
@@ -426,7 +429,7 @@ class TransportEngine:
                         a.zero_()
         if world > 1:
             state = multihost.global_state(state, mesh)
-        splits = [] if hybrid else None
+        splits = None
         if not k1:
             state, tal = self._fixed(state), self._fixed(tal)
         if subt:
@@ -435,13 +438,13 @@ class TransportEngine:
             t0 = time.perf_counter()
 
         launched = launch_counts()
-        if host or hybrid:
+        if host:
             state, pushes, trajectories = self._ladder_per_segment(
-                i_iter, i_ion, prof, grids, ss, k1, hybrid, ion_key, state,
-                tal, esc, reasons, start, pushes, trajectories, seg_new,
-                splits, ckpt, mode, it)
+                i_iter, i_ion, prof, grids, ss, k1, ion_key, state, tal,
+                esc, reasons, start, pushes, trajectories, seg_new, ckpt,
+                mode, it)
         else:
-            state, pushes, trajectories, seg_new = self._ladder_async(
+            state, pushes, trajectories, seg_new, splits = self._ladder_async(
                 i_iter, i_ion, prof, grids, ss, k1, ion_key, state, tal,
                 esc, reasons, start, (pushes, trajectories, seg_new), ckpt,
                 mode, it)
@@ -485,14 +488,12 @@ class TransportEngine:
         return out
 
     def _ladder_per_segment(self, i_iter, i_ion, prof, grids, ss, k1,
-                            hybrid, ion_key, state, tal, esc, reasons,
-                            start, pushes, trajectories, seg_new, splits,
-                            ckpt, mode, it):
-        """The host-split ladder and the mesh hybrid ladder: a host loop of
-        [drain -> finish -> split] a pcut that reads each segment's split
-        before it queues the next (the host split is a host algorithm;
-        the mesh hybrid gathers every rank's split a segment).  Returns
-        (state, pushes, trajectories); `seg_new` and `splits` grow in
+                            ion_key, state, tal, esc, reasons, start,
+                            pushes, trajectories, seg_new, ckpt, mode, it):
+        """The host-split ladder: a host loop of [drain -> finish -> split]
+        a pcut that splits each segment's lanes on the host (ops/cuts.py)
+        before it queues the next, on every rank the whole batch.
+        Returns (state, pushes, trajectories); `seg_new` grows in
         place."""
         cfg, nb, b, dev = self.setup.cfg, self.setup.nb, self.batch_size, \
             self.device
@@ -517,35 +518,15 @@ class TransportEngine:
             _count_exits(reasons, state)
             n_target = (cfg.n_pts_pcut if cfg.pcuts[i_pcut] < p_pcut_hi
                         else cfg.n_pts_pcut_hi)
-            seg_key = rng.fold_in(ion_key, i_pcut + 1)
-            full = None
-            if not hybrid:
-                # every rank splits the whole batch alike and keeps its
-                # shard; the next segment's population stays whole for a
-                # checkpoint
-                full = (shard.gather_state(state, mesh) if world > 1
-                        else state)
-                pushes += int(full.nsteps.sum(dtype=torch.int64))
-                full, n_new = self._host_split(full, n_target, seg_key)
-                state = (multihost.global_state(full, mesh) if world > 1
-                         else full)
-            else:
-                saved = state.status == stt.SAVED
-                row = dict(n_saved=int(saved.sum()),
-                           target=shard.shard_target(n_target, world,
-                                                     mesh.rank),
-                           nsteps=int(state.nsteps.sum(dtype=torch.int64)),
-                           w_saved=float(state.weight[saved].sum(
-                               dtype=torch.float64)))
-                state, n_new = split_on_device(
-                    state, row["target"], seg_key,
-                    lane_offset=mesh.rank * state.weight.shape[0])
-                row["n_new"] = int(n_new)
-                row["w_new"] = float(state.weight.sum(dtype=torch.float64))
-                rec = shard.split_record(mesh, **row)
-                splits.append(dict(rec, n_target=n_target))
-                n_new = int(rec["n_new"].sum())
-                pushes += int(rec["nsteps"].sum())
+            # every rank splits the whole batch alike and keeps its
+            # shard; the next segment's population stays whole for a
+            # checkpoint
+            full = shard.gather_state(state, mesh) if world > 1 else state
+            pushes += int(full.nsteps.sum(dtype=torch.int64))
+            full, n_new = self._host_split(full, n_target,
+                                           rng.fold_in(ion_key, i_pcut + 1))
+            state = (multihost.global_state(full, mesh) if world > 1
+                     else full)
             seg_new.append(n_new)
             trajectories += n_new
             if n_new == 0:
@@ -567,30 +548,46 @@ class TransportEngine:
     def _ladder_async(self, i_iter, i_ion, prof, grids, ss, k1, ion_key,
                       state, tal, esc, reasons, start, before, ckpt, mode,
                       it):
-        """The fused ladder of one process, K1's (run_ion_mega_hybrid,
+        """The fused ladder, K1's (run_ion_mega_hybrid,
         pallas_step.py:2232) or the XLA engine's (run_ion_xla_hybrid,
-        fused_ion.py:216), on mega.drive_ladder_async: every segment's
-        [drain -> finish -> split] is queued without a host wait, and the
-        host reads the chain's state only at the sync points (every
+        fused_ion.py:216) on one process, and K1's mesh hybrid ladder
+        (run_ion_mega_hybrid_sharded, shard.py:307) on every rank of a
+        mesh, on mega.drive_ladder_async: every segment's [drain ->
+        finish -> split] is queued without a host wait, and the host
+        reads the chain's state only at the sync points (every
         MCS_HYBRID_SYNC_EVERY segments, and after a segment where the
-        mid checkpointer `ckpt` is due) and at the end.  On a card the
-        host also stops queueing once a finished split it can see without
-        waiting made no lane, which spares most dead segments (each ~5 ms
-        of host work); on the CPU every dead segment up to the next sync
-        point runs, as in the reference.
+        mid checkpointer `ckpt` is due) and at the end.  On one process
+        on a card the host also stops queueing once a finished split it
+        can see without waiting made no lane, which spares most dead
+        segments (each ~5 ms of host work); on the CPU, and on every
+        rank of a mesh, every dead segment up to the next sync point
+        runs, as in the reference.
+
+        Under a mesh each rank splits its own lanes to its share of the
+        target and writes the split's counters (shard.SPLIT_FIELDS) into
+        a row of a [segments, 6] float64 tensor on its device, with no
+        host read; the rows since the last read at a sync point, and
+        every row at the end, cross ranks in one gather
+        (shard.gather_splits), and the chain's new lanes and pushes a
+        segment are their sums over the ranks.  Every rank sees the same sums, so every rank stops
+        at the same sync point and makes the same collectives; a rank's
+        own dead split does not say that the chain died, so a mesh has
+        no ``stop``.
 
         Every segment's tables go to the device in one copy before the
         first (mega.ladder_tables, ops/step.ladder_tables).  The exits by
         reason, pushes, new lanes and K5's drain headers accumulate on
-        the device; a segment dispatched after the chain died adds to no
-        counter (its exits are gated by the previous split's "made
-        lanes", its pushes and new lanes are zero).  K5's headers are
-        copied to pinned host memory behind each drain and read at the
-        sync points, where the read of n_new has waited for them
-        (helix.DEPOSIT_STEPS).  `before` holds (pushes, trajectories,
-        new lanes a segment) of the segments before `start`.  Returns
-        (state, pushes, trajectories, new lanes a segment), as the
-        per-segment loop did: the list stops at the first zero."""
+        the device; a segment dispatched after the chain died, or after
+        this rank's own split made no lane, adds to no counter (its
+        exits are gated by the previous split's "made lanes", its pushes
+        and new lanes are zero).  K5's headers are copied to pinned host
+        memory behind each drain and read at the sync points, where the
+        read of n_new has waited for them (helix.DEPOSIT_STEPS).
+        `before` holds (pushes, trajectories, new lanes a segment) of the
+        segments before `start`.  Returns (state, pushes, trajectories,
+        new lanes a segment, splits), as the per-segment loop did: the
+        list stops at the first zero; splits (every rank's split a
+        segment, as long as that list) under a mesh, else None."""
         cfg, nb, b, dev = self.setup.cfg, self.setup.nb, self.batch_size, \
             self.device
         pushes0, trajectories0, seg_new0 = before
@@ -601,6 +598,16 @@ class TransportEngine:
                                      cfg.species[i_ion].mass)
         targets = [cfg.n_pts_pcut if pc < p_pcut_hi else cfg.n_pts_pcut_hi
                    for pc in cfg.pcuts]
+        mesh = self.mesh if self.world > 1 else None
+        if mesh is not None:
+            # this rank's share of each target, its keys offset by its
+            # first lane; the rows of its splits and their gathers
+            shares = [shard.shard_target(t, mesh.size, mesh.rank)
+                      for t in targets]
+            offset = mesh.rank * state.weight.shape[0]
+            rows = torch.zeros((n_seg, len(shard.SPLIT_FIELDS)),
+                               dtype=torch.float64, device=dev)
+            gathered = {}
         k5 = not k1 and dev.type == "cuda" and ss.parallel
         if k1:
             dw = tuple(float(torch.tensor(a[nb - 2], dtype=self.p_dtype))
@@ -609,15 +616,16 @@ class TransportEngine:
             table = mega.ladder_tables(grids, scs, ss, dev, dw)
         else:
             table = xla_step.ladder_tables(grids, scs, ss, dev, packed=k5)
-        cuda = dev.type == "cuda"
         heads = (torch.zeros((n_seg, helix.WS_HEADER), dtype=torch.int32,
                              pin_memory=True) if k5 else None)
         read = start        # the drains whose pushes DEPOSIT_STEPS holds
-        # on a card each split's n_new also lands in pinned memory behind
-        # it, an event after it: the host stops queueing once it sees a
-        # finished split that made no lane (``died``), without a wait
+        # on one process on a card each split's n_new also lands in
+        # pinned memory behind it, an event after it: the host stops
+        # queueing once it sees a finished split that made no lane
+        # (``died``), without a wait
+        watch = dev.type == "cuda" and mesh is None
         news = (torch.zeros(n_seg, dtype=torch.int64, pin_memory=True)
-                if cuda else None)
+                if watch else None)
         done, seen = [], start
         alive = torch.ones((), dtype=torch.int64, device=dev)
 
@@ -652,16 +660,38 @@ class TransportEngine:
                              live=alive)
             _count_exits(reasons, state, alive)
             nsteps = state.nsteps.sum(dtype=torch.int64)
-            state, n_new = split_on_device(state, targets[i],
-                                           rng.fold_in(ion_key, i + 1))
+            key = rng.fold_in(ion_key, i + 1)
+            if mesh is None:
+                state, n_new = split_on_device(state, targets[i], key)
+            else:
+                saved = state.status == stt.SAVED
+                n_saved = saved.sum()
+                # a masked sum: weight[saved] would wait on a nonzero
+                w_saved = torch.where(saved, state.weight, 0.0).sum(
+                    dtype=torch.float64)
+                state, n_new = split_on_device(state, shares[i], key,
+                                               lane_offset=offset)
+                target = torch.full((), shares[i], dtype=torch.float64,
+                                    device=dev)
+                # shard.SPLIT_FIELDS
+                rows[i] = torch.stack([v.to(torch.float64) for v in (
+                    n_saved, target, n_new, nsteps, w_saved,
+                    state.weight.sum(dtype=torch.float64))])
             alive = (n_new > 0).to(torch.int64)
-            if cuda:
+            if watch:
                 news[i].copy_(n_new, non_blocking=True)
                 done.append(torch.cuda.Event())
                 done[-1].record()
             if not k1:
                 state = self._fixed(state)
             return n_new, nsteps
+
+        def gather(i0, i1):
+            got = shard.gather_splits(mesh, rows[i0:i1])
+            for k, v in got.items():
+                gathered.setdefault(k, np.zeros((n_seg, mesh.size),
+                                                v.dtype))[i0:i1] = v
+            return got["n_new"].sum(axis=1), got["nsteps"].sum(axis=1)
 
         def died(i):
             nonlocal seen
@@ -694,7 +724,8 @@ class TransportEngine:
             dispatch, n_seg, check=check,
             capture=None if ckpt is None else capture, start=start,
             sync_at=None if ckpt is None else lambda i: ckpt.due(i + 1),
-            stop=died if cuda else None)
+            stop=died if watch else None,
+            read=None if mesh is None else gather)
         if k5:
             # the final read of n_new waited for every drain
             helix.DEPOSIT_STEPS += int(helix.header_pushes(heads[read:]).sum())
@@ -704,9 +735,14 @@ class TransportEngine:
             ran = ran[:dead[0] + 1]
             log.info("iter %d ion %d: pcut chain ended at %d", i_iter, i_ion,
                      start + int(dead[0]))
+        splits = None
+        if mesh is not None:
+            splits = [dict({k: v[i] for k, v in gathered.items()},
+                           n_target=targets[i])
+                      for i in range(start, start + len(ran))]
         return (state, pushes0 + int(nsteps.sum()),
                 trajectories0 + int(ran.sum()),
-                seg_new0 + [int(v) for v in ran])
+                seg_new0 + [int(v) for v in ran], splits)
 
     def _summed(self, **acc) -> dict:
         """The accumulators `acc` summed over the ranks, as copies (for a
@@ -762,7 +798,15 @@ def _count_exits(reasons: torch.Tensor, state: stt.ParticleState,
     """Add a segment's FINISHED lanes to `reasons` by exit reason and
     every other lane (SAVED, and the split's FINISHED reason-0 padding)
     to index 0, on the device with no host read; each lane counts `gate`
-    (a 0-dim int64 tensor on the device) where given, else 1."""
+    (a 0-dim int64 tensor on the device) where given, else 1.
+
+    The fused ladders gate on whether the split before the segment made
+    lanes on this process, or under a mesh on this rank: so index 0
+    counts the lanes of the segments that follow a split of this rank
+    that made lanes (and of the first), and a rank whose own split made
+    none, or a segment queued after the chain died, adds nothing to any
+    index (their lanes are all padding).  Indices 1-4 are the same with
+    and without the gate."""
     idx = torch.where(state.status == stt.FINISHED, state.reason, 0).long()
     one = torch.ones((), dtype=torch.int64, device=idx.device)
     reasons.index_add_(0, idx, (one if gate is None else gate).expand(

@@ -1045,7 +1045,7 @@ def _fetch(n_new_d: list, nsteps_d: list) -> tuple[np.ndarray, np.ndarray]:
 
 
 def drive_ladder_async(dispatch, n_seg: int, check=None, capture=None,
-                       start: int = 0, sync_at=None, stop=None):
+                       start: int = 0, sync_at=None, stop=None, read=None):
     """Host loop over pcut segments without a host wait a segment: the
     counterpart of the JAX package's drive_ladder_async
     (pallas_step.py:2057-2127).  A blocking read drains the dispatch
@@ -1065,18 +1065,32 @@ def drive_ladder_async(dispatch, n_seg: int, check=None, capture=None,
     host's copies of the segments run so far, and the loop breaks if
     the chain is dead.  ``start`` begins the ladder at a later segment
     (a resume): segments below it are reported as zeros for the caller
-    to fill in.  ``sync_at`` and ``stop`` are the port's own: the engine
-    forces a sync where a mid checkpoint is due, and ``stop(i)`` true
-    means the host knows, without waiting, that the chain died at or
-    before segment i (the card has finished that split): no further
-    segment is queued.  Neither changes the result.
+    to fill in.  ``sync_at``, ``stop`` and ``read`` are the port's own:
+    the engine forces a sync where a mid checkpoint is due, and
+    ``stop(i)`` true means the host knows, without waiting, that the
+    chain died at or before segment i (the card has finished that
+    split): no further segment is queued.  ``read(i0, i1)`` (a mesh,
+    where what dispatch returns is one rank's share of the chain) gives
+    the chain's (n_new, nsteps) of segments [i0, i1) summed over the
+    ranks, as host arrays; the scheduler then reads nothing that
+    dispatch returned and calls it at each sync point for the segments
+    since the last read, and once at the end for every segment it ran,
+    so that every rank makes the same calls.  None of the three changes
+    the result.
 
     Returns (n_new[n_seg] int64, nsteps[n_seg] uint64), the segments
     past the first die-out reported as the zeros they were."""
     sync_every = int(os.environ.get("MCS_HYBRID_SYNC_EVERY", "8"))
     n_new_d: list = []
     nsteps_d: list = []
+    # with ``read``: the host's copies of segments [start, start + len)
+    held = (np.zeros(0, np.int64), np.zeros(0, np.uint64))
     n_done = start
+
+    def summed(i0, i1):
+        a, s = read(i0, i1)
+        return np.asarray(a, np.int64), np.asarray(s).astype(np.uint64)
+
     for i in range(start, n_seg):
         if stop is not None and i > start and stop(i - 1):
             break
@@ -1086,19 +1100,26 @@ def drive_ladder_async(dispatch, n_seg: int, check=None, capture=None,
         n_done = i + 1
         if ((sync_every and n_done % sync_every == 0)
                 or (sync_at is not None and sync_at(i))):
-            dead = int(n_new) == 0
+            if read is None:
+                dead = int(n_new) == 0
+            else:
+                held = tuple(map(np.concatenate, zip(
+                    held, summed(start + len(held[0]), n_done))))
+                dead = held[0][-1] == 0
             if check is not None:
                 check(i)
             if capture is not None:
-                capture(i, *_fetch(n_new_d, nsteps_d))
+                capture(i, *(held if read is not None
+                             else _fetch(n_new_d, nsteps_d)))
             if dead:
                 break
 
     n_new_out = np.zeros(n_seg, np.int64)
     nsteps_out = np.zeros(n_seg, np.uint64)
-    if n_new_d:
-        n_new_out[start:n_done], nsteps_out[start:n_done] = _fetch(
-            n_new_d, nsteps_d)
+    if n_done > start:
+        n_new_out[start:n_done], nsteps_out[start:n_done] = (
+            _fetch(n_new_d, nsteps_d) if read is None
+            else summed(start, n_done))
     # segments past the first die-out ran as no-ops and stay zero (scan
     # only the segments this call ran: [0, start) are the caller's)
     dead = np.flatnonzero(n_new_out[start:n_done] == 0)

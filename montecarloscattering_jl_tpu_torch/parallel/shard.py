@@ -15,10 +15,12 @@ package's mesh programs psum:
   to the host of every rank after a segment, and every rank runs the
   same split on the whole batch;
 * on the mesh hybrid ladder, each rank splits its own lanes to its share
-  of the target (``shard_target``) and only the segment's small counters
-  cross ranks: ``split_record`` gathers every rank's saved and new
-  lanes, helix steps and saved and new weight, from which the segment's
-  global new lanes and steps are summed.
+  of the target (``shard_target``) and writes the split's small
+  counters into a row on its device; only at the ladder's sync points
+  and at its end do the rows cross ranks: ``gather_splits`` gathers
+  every rank's saved and new lanes, helix steps and saved and new
+  weight of several segments in one all_gather, from which each
+  segment's global new lanes and steps are summed.
 
 Lane keys come from GLOBAL lane indices (every rank builds the full
 population and keeps its shard, parallel/multihost.global_state; the
@@ -187,22 +189,21 @@ SPLIT_FIELDS = ("n_saved", "target", "n_new", "nsteps", "w_saved",
                 "w_new")
 
 
-def split_record(mesh: Mesh, **row) -> dict:
-    """A mesh hybrid segment's split, every rank's: this rank's
-    SPLIT_FIELDS (saved lanes, its share of the target, new lanes, helix
-    steps, and the saved and new lanes' weight) gathered over the ranks
-    in one all_gather of float64 words (the counts exact below 2^53);
-    {field: array of a value a rank}."""
-    t = torch.tensor([float(row[k]) for k in SPLIT_FIELDS],
-                     dtype=torch.float64, device=mesh.device)
-    x = _wire(mesh, t)
+def gather_splits(mesh: Mesh, rows: torch.Tensor) -> dict:
+    """The mesh hybrid's splits of k segments, every rank's: this rank's
+    rows ``rows`` ([k, len(SPLIT_FIELDS)] float64 on its device: saved
+    lanes, its share of the target, new lanes, helix steps, and the
+    saved and new lanes' weight, the counts exact below 2^53) gathered
+    over the ranks in one all_gather; {field: [k, world] array}, the
+    counts as int64."""
+    x = _wire(mesh, rows.contiguous())
     parts = [x]
     if mesh.size > 1:
         parts = [torch.empty_like(x) for _ in range(mesh.size)]
         _timed(mesh, lambda: dist.all_gather(parts, x), x)
-    rows = torch.stack([p.cpu() for p in parts]).numpy()
-    return {k: (rows[:, i] if k.startswith("w_")
-                else rows[:, i].astype(np.int64))
+    got = torch.stack(parts, dim=1).cpu().numpy()
+    return {k: (got[:, :, i] if k.startswith("w_")
+                else got[:, :, i].astype(np.int64))
             for i, k in enumerate(SPLIT_FIELDS)}
 
 

@@ -6,9 +6,11 @@ particle batch of tests/data/dsa_nonrel.toml (smoothing on,
 ``--per-pcut`` particles, a global count, ``--iters`` iterations) is
 sharded over ``--devices`` ranks, one process a card.  At float32 (the
 default) every rank runs the mesh hybrid ladder on K1: it drains,
-finishes and splits its own lanes, and only the segment's new lanes and
-steps and, once a species, the tallies cross ranks
-(parallel/shard.py).  ``--f64`` runs the XLA engine with the host split.
+finishes and splits its own lanes, and only its splits' counters (new
+lanes, steps and weights: one gather a sync point and one at the end of
+a species' ladder) and, once a species, the tallies cross ranks
+(parallel/shard.py).  ``--f64`` runs the XLA engine with the host split,
+which gathers the lanes a segment.
 
     python -m montecarloscattering_jl_tpu_torch.scripts.flagship_mesh \\
         [--devices N] [--per-pcut 65536] [--iters 10] [--f64] \\
@@ -85,8 +87,13 @@ def main(argv=None) -> None:
           f"({out['pushes'] / dt / 1e6 / n:.1f} M/chip)")
     print("timers:", {k: round(v, 1) for k, v in out["timers"].items()})
     if out["mesh"] is not None:
+        # a species: the hybrid's gather a sync point and one at the end,
+        # or the host split's gather a segment, then 17 reductions
+        per = ("a segment" if args.f64
+               else "a sync point and one at the ladder's end")
         print("collectives:", out["mesh"]["collectives"],
-              f"in {out['mesh']['collective_s']:.3f} s (rank 0)")
+              f"in {out['mesh']['collective_s']:.3f} s (rank 0; a gather "
+              f"{per} and 17 reductions a species, barriers)")
 
 
 if __name__ == "__main__":

@@ -39,6 +39,15 @@
   crosses target / 2, so runs that are statistically the same differ in
   their counts (PERF.md, PR 9: why the mesh phase of chip_smoke.py
   holds the hybrid's counts to a bound in iteration 1 only).
+* ``--mesh-hybrid N``: chip_smoke.py phase mesh part hybrid (the f32
+  flagship of phase f32 on the mesh hybrid ladder of two ranks sharing
+  the card, gloo, rank 0 writing the output files) after a warm-up
+  run, N timed runs and one counted run: each rank's wall (ending in a
+  synchronize), transport phase, pushes, K1 launches, collectives and
+  their seconds; in the counted run, the host waits of each species'
+  ladder under torch's sync debug mode (``TransportEngine
+  ._ladder_async``, and in a checkout whose hybrid ran a loop of its
+  own, ``_ladder_per_segment``) and its sync points.
 * ``--cold``: the science variant and then the SED flagship once each,
   the process's first runs, as a CLI run is (the reductions' pinned
   host buffers are allocated anew): wall and phases.  With ``--root``
@@ -50,7 +59,7 @@ Prints the card's name and power limit first.  Run by path, so that
 
     python montecarloscattering_jl_tpu_torch/scripts/probe_driver.py \\
         [--root DIR] [--spread 3] [--overlap] [--cold] [--compact 0,2,-1]
-        [--mesh-spread 6]
+        [--mesh-spread 6] [--mesh-hybrid 3]
 """
 
 from __future__ import annotations
@@ -206,6 +215,87 @@ def mesh_spread(n_seeds: int) -> dict:
     return out
 
 
+def counted_ladder_waits(engine_cls, rows: list):
+    """Each fused or per-segment ladder method of `engine_cls` wrapped to
+    run under torch's sync debug mode and append to `rows` its host waits
+    and the engine's sync points it made; returns a function that
+    restores them."""
+    import functools
+    import warnings
+
+    import torch
+
+    saved = {}
+    for name in ("_ladder_async", "_ladder_per_segment"):
+        base = getattr(engine_cls, name, None)
+        if base is None:
+            continue
+        saved[name] = base
+
+        @functools.wraps(base)
+        def counted(self, *a, _base=base, _name=name, **kw):
+            syncs = getattr(self, "sync_points", 0)
+            with warnings.catch_warnings(record=True) as said:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    return _base(self, *a, **kw)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                    rows.append(dict(
+                        ladder=_name,
+                        waits=sum("synchronizing CUDA operation"
+                                  in str(w.message) for w in said),
+                        sync_points=getattr(self, "sync_points", 0)
+                        - syncs))
+
+        setattr(engine_cls, name, counted)
+    return lambda: [setattr(engine_cls, k, v) for k, v in saved.items()]
+
+
+def mesh_hybrid_rank(mesh, n_runs: int) -> list:
+    """One rank of --mesh-hybrid: a warm-up run, `n_runs` timed runs and
+    one counted run of the f32 flagship on the mesh hybrid ladder."""
+    import torch
+
+    from montecarloscattering_jl_tpu_torch.engine.driver import run
+    from montecarloscattering_jl_tpu_torch.engine.run import TransportEngine
+
+    out = []
+    for kind in ["warm-up"] + ["timed"] * n_runs + ["counted"]:
+        ladders = []
+        restore = (counted_ladder_waits(TransportEngine, ladders)
+                   if kind == "counted" else lambda: None)
+        c0, s0 = mesh.collectives, mesh.collective_s
+        try:
+            with tempfile.TemporaryDirectory() as d:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = run(f32_flagship(), mesh.device, out_dir=d,
+                          p_dtype=torch.float32, mesh=mesh)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            restore()
+        out.append(dict(
+            kind=kind, rank=mesh.rank, wall=wall,
+            transport=res.timers.totals["transport"], pushes=res.n_pushes,
+            k1=(getattr(res, "launches", None) or {}).get("k1"),
+            collectives=mesh.collectives - c0,
+            collective_s=mesh.collective_s - s0, ladders=ladders))
+    return out
+
+
+def mesh_hybrid(n_runs: int) -> None:
+    from montecarloscattering_jl_tpu_torch.parallel import multihost
+
+    ranks = multihost.spawn(mesh_hybrid_rank, 2, args=(n_runs,),
+                            backend="gloo", device="cuda", timeout=1800)
+    for runs in zip(*ranks):
+        for r in runs:
+            print(f"mesh-hybrid {json.dumps(r)}", flush=True)
+
+
 def overlap() -> None:
     import torch
 
@@ -325,6 +415,9 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh-spread", type=int, default=0,
                     help="seeds of the f32 flagship, one process against "
                          "the mesh hybrid (>= 2)")
+    ap.add_argument("--mesh-hybrid", type=int, default=0,
+                    help="timed runs of the f32 flagship on the mesh "
+                         "hybrid ladder of two ranks")
     ap.add_argument("--compact", default="",
                     help="comma-separated compaction depths of the f64 "
                          "flagship (-1 auto)")
@@ -358,6 +451,8 @@ def main(argv=None) -> int:
         compact([int(v) for v in args.compact.split(",")])
     if args.mesh_spread >= 2:
         mesh_spread(args.mesh_spread)
+    if args.mesh_hybrid:
+        mesh_hybrid(args.mesh_hybrid)
     return 0
 
 

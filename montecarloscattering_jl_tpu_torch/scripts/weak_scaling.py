@@ -6,9 +6,11 @@ size of ``--sizes`` a fresh set of ranks (one process a card) runs
 tests/data/dsa_nonrel.toml with smoothing on and ``--per-shard`` lanes
 a rank (the global batch grows with the mesh), and the push rate a rank
 is reported against the size.  Flat is perfect: lanes are independent
-between tallies, and the ranks meet only in the segment counters, the
-host split's gather (float64) and one tally reduction a species
-(parallel/shard.py).
+between tallies, and the ranks meet only in the mesh hybrid's split
+counters (K1, the default: one gather a sync point and one at the end of
+a species' ladder), the host split's gather a segment (float64) and one
+tally reduction a species (parallel/shard.py): a row's ``collectives``
+counts them all on rank 0, with the barriers.
 
 On fewer cards than ranks (gloo), ranks share the cards, and a rank's
 rate is that of processes sharing a card: the output says so in every

@@ -704,6 +704,40 @@ def test_two_ranks_share_one_card_with_gloo(card):
                 np.testing.assert_array_equal(b[k][:n], a[k], err_msg=k)
 
 
+def test_mesh_hybrid_on_one_card_at_every_cadence(card):
+    """Two ranks sharing cuda:0 (gloo) on the mesh hybrid ladder, K1 on
+    each, with a chain that dies off a sync point: at
+    MCS_HYBRID_SYNC_EVERY 8, 1 and 0 every rank's new lanes, pushes,
+    trajectories, splits' integers and exit reasons are the same, the
+    lanes each split made up to the death bit for bit, the ranks agree,
+    and each makes a gather a sync point and one at the end besides the
+    17 reductions."""
+    import torch_mesh_cases as mc
+    from montecarloscattering_jl_tpu_torch.parallel import multihost
+
+    cases = [("k1-f32-tail", False, s) for s in (None, "1", "0")]
+    ranks = multihost.spawn(mc.engine_cases, 2, args=(cases,),
+                            backend="gloo", device="cuda", timeout=600)
+    ref = ranks[0][0]
+    assert ref["n_new"][0] > 0 and ref["n_new"][-1] == 0
+    for rank in ranks:
+        for got in rank:
+            assert got["mesh"]["device"] == "cuda:0"
+            assert (got["pushes"], got["trajectories"], got["n_new"]) == (
+                ref["pushes"], ref["trajectories"], ref["n_new"])
+            np.testing.assert_array_equal(got["reasons"], ref["reasons"])
+            for sa, sb in zip(ref["splits"], got["splits"]):
+                for k in ("n_saved", "target", "n_new", "nsteps"):
+                    np.testing.assert_array_equal(sb[k], sa[k], err_msg=k)
+            assert got["collectives"] == got["sync_points"] + 1 + 17
+            assert got["split_lanes"]      # K1's drains split on the card
+        for got in rank[1:]:
+            for a, b in zip(rank[0]["split_lanes"][:len(ref["n_new"])],
+                            got["split_lanes"]):
+                for k in a:
+                    np.testing.assert_array_equal(b[k], a[k], err_msg=k)
+
+
 def test_two_cards_with_nccl(card):
     """A rank a card under NCCL: the same counts as one process."""
     import torch_mesh_cases as mc

@@ -8,7 +8,10 @@
   the chain dying on a sync point, off one, or never: the returned
   arrays are equal, and so are the calls of dispatch, check and capture
   with their arguments; the port's ``sync_at`` and ``stop`` keywords
-  change no array.
+  change no array, and with ``read`` (a mesh's: the chain's counts
+  summed over the ranks, where dispatch returns a rank's that made no
+  lane) the arrays and calls are the JAX one's, with a read a sync
+  point and one at the end.
 * ``split_on_device`` with nothing saved: a 0-dim int64 n_new of 0.
 * ``TransportEngine.run_ion`` on shrunk tests/data/dsa_nonrel.toml (K1's
   twin at float32 and the XLA engine at float64; the chain dies at
@@ -25,6 +28,7 @@ One torch thread; the helix cap is 128 (ops/step.py and ops/mega.py).
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -94,6 +98,41 @@ def test_drive_ladder_async_matches_jax(monkeypatch, sync_every, start,
     assert got_n.dtype == np.int64 and got_s.dtype == np.uint64
     np.testing.assert_array_equal(got_n, np.asarray(ref_n))
     np.testing.assert_array_equal(got_s, np.asarray(ref_s))
+
+
+@pytest.mark.parametrize("die_at", [None, 3, 5, 7])
+@pytest.mark.parametrize("start", [0, 2])
+@pytest.mark.parametrize("sync_every", ["0", "1", "2", "3", "8"])
+def test_drive_ladder_async_read_matches_jax(monkeypatch, sync_every,
+                                             start, die_at):
+    """``read`` in place of what dispatch returns: dispatch gives a
+    rank's own new lanes, 0 (its split made none while the chain lives),
+    and ``read`` the chain's summed over the ranks.  The scheduler reads
+    the segments since the last read at each sync point and every
+    segment it ran at the end, and gives the JAX scheduler's arrays and
+    calls."""
+    monkeypatch.setenv("MCS_HYBRID_SYNC_EVERY", sync_every)
+    (ref_n, ref_s), ref_calls = _drive(
+        ps.drive_ladder_async, lambda v: jnp.asarray(v, jnp.int32),
+        die_at, start)
+    n_new, nsteps = _sequence(die_at)
+    reads = []
+
+    def read(i0, i1):
+        reads.append((i0, i1))
+        return np.array(n_new[i0:i1]), np.array(nsteps[i0:i1], np.float64)
+
+    (got_n, got_s), got_calls = _drive(
+        functools.partial(mega.drive_ladder_async, read=read),
+        lambda v: torch.tensor(0), die_at, start)
+    assert got_calls == ref_calls
+    assert got_n.dtype == np.int64 and got_s.dtype == np.uint64
+    np.testing.assert_array_equal(got_n, np.asarray(ref_n))
+    np.testing.assert_array_equal(got_s, np.asarray(ref_s))
+    syncs = [c[1] + 1 for c in ref_calls if c[0] == "check"]
+    ran = max([c[1] for c in ref_calls if c[0] == "dispatch"]) + 1
+    assert reads == ([(lo, hi) for lo, hi in zip([start] + syncs, syncs)]
+                     + [(start, ran)])
 
 
 def test_drive_ladder_async_sync_at(monkeypatch):

@@ -27,6 +27,16 @@ at a helix cap of 128 in every engine:
   float32 rounding of its saved lane's over the multiplicity, 2^-24),
   and, with 192 injected lanes so that both ranks hold some, no two
   lanes of the ranks' new populations share a key;
+* the mesh hybrid ladder on ops/mega.py ``drive_ladder_async``, each of
+  its cases (and k1-f32-tail, whose chain dies at its third of 5
+  segments, off a sync point at 8, so that dead segments are
+  dispatched) at MCS_HYBRID_SYNC_EVERY 8, 1 and 0: every rank's lanes
+  after each split, new lanes, pushes, trajectories, the splits'
+  integer fields, exit reasons and tallies bit for bit the same at the
+  three cadences, the weights within 1e-12; one gather a sync point and
+  one at the end besides the species' reductions; and the JAX package's
+  scheduler, replaying the chain's summed new lanes and pushes,
+  dispatches what each rank dispatched and returns the same arrays;
 * the world-2 XLA engine against the JAX package's
   ``TransportEngine(setup, mesh=make_mesh(2))`` on the suite's 8-device
   CPU mesh: pushes and trajectories exactly, the float64 tallies within
@@ -39,6 +49,7 @@ import numpy as np
 import pytest
 
 import jax  # noqa: F401  (the suite's CPU mesh, tests/conftest.py)
+import jax.numpy as jnp
 
 from montecarloscattering_jl_tpu.engine.run import TransportEngine as JEngine
 from montecarloscattering_jl_tpu.engine.setup import build_setup as jsetup
@@ -57,21 +68,32 @@ TIMEOUT = 300
 REDUCTIONS = 17
 TALLIES = ("psd", "therm_psd", "num_crossings", "pxx_flux",
            "pxz_flux", "energy_flux")
+# the mesh hybrid's runs, (case, dead), each at the default
+# MCS_HYBRID_SYNC_EVERY (8) and at every cadence of CADENCES; a run at a
+# cadence is keyed "<case>@<cadence>"
+HYBRID_RUNS = [("k1-f32", False), ("k1-f32-wide", False),
+               ("k1-f32", True), ("k1-f32-tail", False)]
+CADENCES = ("1", "0")
+
+
+def _key(case, dead, sync_every=None):
+    return (case + ("-dead" if dead else "")
+            + (f"@{sync_every}" if sync_every else ""))
 
 
 @pytest.fixture(scope="module")
 def worlds():
     """{world: [per rank: {case: result}]} of the spawned runs."""
-    cases = {2: [("xla-f64", False), ("k1-f32-host", False),
-                 ("k1-f32", True), ("k1-f32", False),
-                 ("k1-f32-wide", False)],
-             3: [("xla-f64", False)]}
+    cases = {2: [("xla-f64", False, None), ("k1-f32-host", False, None)]
+             + [(c, d, s) for c, d in HYBRID_RUNS
+                for s in (None,) + CADENCES],
+             3: [("xla-f64", False, None)]}
     out = {}
     for world, cs in cases.items():
         ranks = multihost.spawn(mc.engine_cases, world, args=(cs,),
                                 device="cpu", timeout=TIMEOUT)
-        out[world] = [{(c if not d else c + "-dead"): r
-                       for (c, d), r in zip(cs, rank)} for rank in ranks]
+        out[world] = [{_key(*c): r for c, r in zip(cs, rank)}
+                      for rank in ranks]
     return out
 
 
@@ -137,7 +159,8 @@ def test_mesh_hybrid_dead_ladder(worlds, single):
         assert got["pushes"] == ref["pushes"] == 48 * 24
         assert got["trajectories"] == ref["trajectories"] == 48
         assert got["n_new"] == ref["n_new"] == [0]
-        # one segment: its counters, then the species' reductions
+        # no sync point in 3 segments: the gather at the end, then the
+        # species' reductions
         assert got["collectives"] == 1 + REDUCTIONS
     got = worlds[2][0]["k1-f32-dead"]
     checked = 0
@@ -159,10 +182,11 @@ def test_mesh_hybrid_ranks_agree(worlds):
         assert a[k] == b[k], k
     assert a["trajectories"] == 48 + sum(a["n_new"]) > 48
     np.testing.assert_array_equal(a["reasons"][1:], b["reasons"][1:])
-    assert a["collectives"] == len(a["n_new"]) + REDUCTIONS
+    # a gather a sync point and one at the end, then the reductions
+    assert a["collectives"] == (a["sync_points"] + 1) + REDUCTIONS
 
 
-HYBRID_CASES = ["k1-f32", "k1-f32-wide"]
+HYBRID_CASES = ["k1-f32", "k1-f32-wide", "k1-f32-tail"]
 
 
 def _real_splits(rank, case):
@@ -229,6 +253,117 @@ def test_mesh_hybrid_dead_ladder_splits(worlds):
         (sp,) = rank["k1-f32-dead"]["splits"]
         assert sp["n_saved"].tolist() == sp["n_new"].tolist() == [0, 0]
         assert sp["w_saved"].tolist() == sp["w_new"].tolist() == [0.0, 0.0]
+
+
+HYBRID_KEYS = [_key(c, d) for c, d in HYBRID_RUNS]
+SPLIT_INTS = ("n_saved", "target", "n_new", "nsteps")
+
+
+def _same_lanes(a, b, err):
+    """Two populations of a split: every field bit for bit, the weights
+    within 1e-12."""
+    for k in a:
+        if k == "weight":
+            np.testing.assert_allclose(b[k], a[k], rtol=1e-12, atol=0,
+                                       err_msg=err)
+        else:
+            np.testing.assert_array_equal(b[k], a[k], err_msg=f"{err} {k}")
+
+
+@pytest.mark.parametrize("sync_every", CADENCES)
+@pytest.mark.parametrize("key", HYBRID_KEYS)
+def test_mesh_hybrid_same_bits_at_every_cadence(worlds, key, sync_every):
+    """Every rank at MCS_HYBRID_SYNC_EVERY 1 and 0 against the default 8:
+    the lanes each split made up to the chain's death, the counts, the
+    splits, the exit reasons and the tallies."""
+    for r, rank in enumerate(worlds[2]):
+        ref, got = rank[key], rank[f"{key}@{sync_every}"]
+        for k in ("pushes", "trajectories", "n_new"):
+            assert got[k] == ref[k], (r, k)
+        np.testing.assert_array_equal(got["reasons"], ref["reasons"])
+        assert len(got["splits"]) == len(ref["splits"]) == len(ref["n_new"])
+        for sa, sb in zip(ref["splits"], got["splits"]):
+            assert sa["n_target"] == sb["n_target"]
+            for k in SPLIT_INTS:
+                np.testing.assert_array_equal(sb[k], sa[k], err_msg=k)
+            for k in ("w_saved", "w_new"):
+                np.testing.assert_allclose(sb[k], sa[k], rtol=1e-12,
+                                           atol=0, err_msg=k)
+        n = len(ref["n_new"])
+        for i in range(n):
+            _same_lanes(ref["split_lanes"][i], got["split_lanes"][i],
+                        f"rank {r} segment {i}")
+        for name in TALLIES:
+            np.testing.assert_array_equal(got[name], ref[name],
+                                          err_msg=name)
+        for name, v in ref["esc"].items():
+            np.testing.assert_array_equal(got["esc"][name], v,
+                                          err_msg=name)
+
+
+@pytest.mark.parametrize("key", ["k1-f32-tail", "k1-f32-dead"])
+def test_mesh_hybrid_dead_segments_are_no_ops(worlds, key):
+    """A chain that dies off a sync point: at 8 and 0 a sync every rank
+    dispatches the segments after the death (their splits make nothing),
+    at 1 none, and the counts are cadence 1's (the test above)."""
+    for rank in worlds[2]:
+        n = len(rank[key]["n_new"])
+        assert rank[key]["n_new"][-1] == 0 and n < rank[key]["n_seg"]
+        assert len(rank[f"{key}@1"]["split_lanes"]) == n
+        for k in (key, f"{key}@0"):
+            lanes = rank[k]["split_lanes"]
+            assert len(lanes) == rank[k]["n_seg"] > n
+            for pop in lanes[n - 1:]:
+                assert (pop["status"] == 2).all() and not pop["weight"].any()
+    assert worlds[2][0]["k1-f32-tail"]["n_new"][0] > 0
+
+
+@pytest.mark.parametrize("sync_every", (None,) + CADENCES)
+@pytest.mark.parametrize("key", HYBRID_KEYS)
+def test_mesh_hybrid_collectives_at_the_sync_points(worlds, key,
+                                                    sync_every):
+    """A gather a sync point and one at the end, then the species'
+    reductions; the ranks make the same ones."""
+    runs = [rank[_key(key, False, sync_every)] for rank in worlds[2]]
+    every = int(sync_every or 8)
+    for got in runs:
+        dispatched = len(got["split_lanes"])
+        want = dispatched // every if every else 0
+        assert got["sync_points"] == want
+        assert got["collectives"] == (got["sync_points"] + 1) + REDUCTIONS
+    assert runs[0]["collectives"] == runs[1]["collectives"]
+
+
+@pytest.mark.parametrize("sync_every", ("8",) + CADENCES)
+@pytest.mark.parametrize("key", HYBRID_KEYS)
+def test_mesh_hybrid_dispatches_as_the_jax_scheduler(worlds, monkeypatch,
+                                                     key, sync_every):
+    """The chain's new lanes and pushes a segment, summed over the ranks,
+    replayed through the JAX package's drive_ladder_async
+    (ops/pallas_step.py): it dispatches as many segments as each rank
+    did, and its arrays are the run's."""
+    monkeypatch.setenv("MCS_HYBRID_SYNC_EVERY", sync_every)
+    k = key if sync_every == "8" else f"{key}@{sync_every}"
+    got = worlds[2][0][k]
+    n_seg = got["n_seg"]
+    n_new = np.zeros(n_seg, np.int64)
+    nsteps = np.zeros(n_seg, np.int64)
+    n_new[:len(got["n_new"])] = got["n_new"]
+    for i, sp in enumerate(got["splits"]):
+        nsteps[i] = sp["nsteps"].sum()
+    ran = []
+
+    def dispatch(i):
+        ran.append(i)
+        return (jnp.asarray(n_new[i], jnp.int32),
+                jnp.asarray(nsteps[i], jnp.float64))
+
+    ref_n, ref_s = ps.drive_ladder_async(dispatch, n_seg)
+    for rank in worlds[2]:
+        assert len(rank[k]["split_lanes"]) == len(ran)
+    np.testing.assert_array_equal(np.asarray(ref_n), n_new)
+    np.testing.assert_array_equal(np.asarray(ref_s), nsteps)
+    assert int(np.asarray(ref_s).sum()) == got["pushes"]
 
 
 def test_ranks_import_no_jax(worlds):

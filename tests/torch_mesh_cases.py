@@ -26,11 +26,17 @@ CASES = {
     "k1-f32-host": ("float32", False),
     "k1-f32": ("float32", True),
     "k1-f32-wide": ("float32", True),
+    "k1-f32-tail": ("float32", True),
 }
 # the config's own fields a case changes: 192 injected lanes, so that a
 # world-2 mesh's ranks both hold injected lanes (48 lie in rank 0's
 # shard)
-CASE_FIELDS = {"k1-f32-wide": dict(n_pts_inj=192)}
+CASE_FIELDS = {"k1-f32-wide": dict(n_pts_inj=192),
+               "k1-f32-tail": dict(n_pts_inj=192)}
+# pcuts above pmax a case appends to the config's (_dead_tail): its
+# chain dies inside the ladder, off a sync point at 8 segments a sync,
+# and the segments after the death are dispatched as no-ops
+TAIL = {"k1-f32-tail": 2}
 
 
 def small_cfg(**fields):
@@ -54,14 +60,27 @@ def _dead_ladder(cfg):
     cfg.pcuts = [top, 3 * top, 9 * top]
 
 
-def engine_case(mesh, case: str, dead: bool = False, device="cpu"):
+def _dead_tail(cfg, n: int):
+    """`n` pcuts above the highest momentum any lane can reach appended
+    to the config's."""
+    from montecarloscattering_jl_tpu_torch.engine.run import pmax_cutoff
+
+    top = pmax_cutoff(cfg, cfg.species[0].mass) * 1e3
+    cfg.pcuts = list(cfg.pcuts) + [top * 3 ** k for k in range(n)]
+
+
+def engine_case(mesh, case: str, dead: bool = False, device="cpu",
+                sync_every: str | None = None):
     """One species of the small config through ``TransportEngine.run_ion``
     (`case` of CASES; `dead`: pcuts above pmax, the helix cap 24), on
-    the mesh's device or, without one, on `device`.  With every
-    population the host split was handed (the whole batch after each
-    segment's drain) on rank 0, and on every rank the keys of the lanes
-    each on-device split made (``split_keys``) and the mesh hybrid's
-    record of every rank's split (``splits``)."""
+    the mesh's device or, without one, on `device`, at
+    MCS_HYBRID_SYNC_EVERY `sync_every` where given (else its default).
+    With every population the host split was handed (the whole batch
+    after each segment's drain) on rank 0, and on every rank the keys of
+    the lanes each on-device split made (``split_keys``), every lane of
+    each population it made (``split_lanes``: its output, one entry a
+    dispatched segment), the mesh hybrid's record of every rank's split
+    (``splits``) and the fused ladder's sync points."""
     import importlib
 
     import torch
@@ -79,11 +98,13 @@ def engine_case(mesh, case: str, dead: bool = False, device="cpu"):
     if dead:
         _dead_ladder(cfg)
         cap = 24
+    if case in TAIL:
+        _dead_tail(cfg, TAIL[case])
     setup = build_setup(cfg)
     dev = device if mesh is None else mesh.device
     eng = run_mod.TransportEngine(setup, dev, p_dtype=getattr(torch, pd),
                                   fused=fused, mesh=mesh)
-    split_inputs, split_keys = [], []
+    split_inputs, split_keys, split_lanes = [], [], []
     real_split, real_device_split = run_mod.pcut_split, run_mod.split_on_device
 
     def recording_split(state, *a, **kw):
@@ -95,8 +116,11 @@ def engine_case(mesh, case: str, dead: bool = False, device="cpu"):
     def recording_device_split(state, *a, **kw):
         # the keys of the lanes the split made, as one uint64 a lane
         new, n_new = real_device_split(state, *a, **kw)
+        split_lanes.append({k: v.copy() for k, v in
+                            new.to_numpy().items()})
         live = new.status == stt.ACTIVE
-        word = lambda k: k[live].numpy().view(np.uint32).astype(np.uint64)
+        word = lambda k: (k[live].cpu().numpy().view(np.uint32)
+                          .astype(np.uint64))
         split_keys.append((word(new.key0) << np.uint64(32))
                           | word(new.key1))
         return new, n_new
@@ -104,6 +128,9 @@ def engine_case(mesh, case: str, dead: bool = False, device="cpu"):
     run_mod.pcut_split = recording_split
     run_mod.split_on_device = recording_device_split
     c0 = 0 if mesh is None else mesh.collectives
+    env = os.environ.get("MCS_HYBRID_SYNC_EVERY")
+    if sync_every is not None:
+        os.environ["MCS_HYBRID_SYNC_EVERY"] = sync_every
     try:
         with wl.helix_cap(cap):
             it = eng.new_iteration_tallies(setup.profile)
@@ -111,11 +138,17 @@ def engine_case(mesh, case: str, dead: bool = False, device="cpu"):
     finally:
         run_mod.pcut_split = real_split
         run_mod.split_on_device = real_device_split
+        if env is None:
+            os.environ.pop("MCS_HYBRID_SYNC_EVERY", None)
+        else:
+            os.environ["MCS_HYBRID_SYNC_EVERY"] = env
     rank = 0 if mesh is None else mesh.rank
     return dict(
         rank=rank, batch=eng.batch_size, levels=eng.compact_levels,
         pushes=res.n_pushes, trajectories=res.n_trajectories,
         n_new=list(res.n_new), splits=res.splits, split_keys=split_keys,
+        split_lanes=split_lanes, sync_points=eng.sync_points,
+        n_seg=len(cfg.pcuts),
         reasons=res.reason_counts,
         psd=res.psd.cpu().numpy(), therm_psd=res.therm_psd.cpu().numpy(),
         num_crossings=res.num_crossings, spectra_sf=res.spectra_sf,
@@ -128,9 +161,10 @@ def engine_case(mesh, case: str, dead: bool = False, device="cpu"):
 
 
 def engine_cases(mesh, cases):
-    """engine_case for each (case, dead) of `cases`, in one rank
-    process."""
-    return [engine_case(mesh, c, d) for c, d in cases]
+    """engine_case for each (case, dead) or (case, dead, sync_every) of
+    `cases`, in one rank process."""
+    return [engine_case(mesh, c, d, sync_every=(s[0] if s else None))
+            for c, d, *s in cases]
 
 
 def mid_kill_case(mesh, out_root: str):
