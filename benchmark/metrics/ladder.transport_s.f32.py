@@ -1,0 +1,7 @@
+"""ladder.transport_s.f32: ladder.transport_s (metrics/ladder.transport_s.py) in the float32 cells, whose runs spread
+wider than the float64 cells' (their host phases weigh more), so that
+the end-to-end metric it feeds carries a bound of its own."""
+
+from harness import manifest
+
+read = manifest.reader("ladder.transport_s").read

@@ -1,0 +1,7 @@
+"""pushes_per_s.f32: pushes_per_s (metrics/pushes_per_s.py) in the float32 cells, whose runs spread
+wider than the float64 cells' (their host phases weigh more), so that
+the end-to-end metric it feeds carries a bound of its own."""
+
+from harness import manifest
+
+read = manifest.reader("pushes_per_s").read
