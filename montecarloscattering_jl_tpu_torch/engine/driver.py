@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from ..utils.config import RunConfig, load_config
-from ..utils.tracing import PhaseTimers
+from ..utils.tracing import PhaseTimers, span
 from ..models.emission import photon_calcs
 from ..models.rankine_hugoniot import q_esc_calcs
 from ..models.smoothing import (
@@ -248,210 +248,213 @@ def run(cfg: RunConfig | str, device="cuda", out_dir: str | None = None,
     push and trajectory totals are global, and only rank 0 writes
     `out_dir`, checkpoints and calls `emission_hook`, the others
     waiting for it."""
-    timers = PhaseTimers()
-    t_start = time.time()
-    if isinstance(cfg, str):
-        cfg = load_config(cfg)
-    with timers.phase("setup"):
-        setup = build_setup(cfg)
-    if mesh is not None and mesh.size == 1:
-        mesh = None
-    writer = mesh is None or mesh.rank == 0
-    engine = TransportEngine(setup, device=device if mesh is None
-                             else mesh.device, p_dtype=p_dtype,
-                             fused=fused, compact_levels=compact_levels,
-                             mesh=mesh)
-    prof = setup.profile
-    nb = setup.nb
-    if cfg.do_old_prof:
-        from .old_profile import read_old_profile
-        prof = read_old_profile(
-            "mc_grid_old.dat", cfg, setup.x_grid_cm, cfg.n_old_skip,
-            cfg.n_old_profs, cfg.n_old_per_prof)
-        log.info("restarted profile from mc_grid_old.dat")
+    with span("run"):
+        timers = PhaseTimers()
+        t_start = time.time()
+        if isinstance(cfg, str):
+            cfg = load_config(cfg)
+        with timers.phase("setup"):
+            setup = build_setup(cfg)
+        if mesh is not None and mesh.size == 1:
+            mesh = None
+        writer = mesh is None or mesh.rank == 0
+        engine = TransportEngine(setup, device=device if mesh is None
+                                 else mesh.device, p_dtype=p_dtype,
+                                 fused=fused, compact_levels=compact_levels,
+                                 mesh=mesh)
+        prof = setup.profile
+        nb = setup.nb
+        if cfg.do_old_prof:
+            from .old_profile import read_old_profile
+            prof = read_old_profile(
+                "mc_grid_old.dat", cfg, setup.x_grid_cm, cfg.n_old_skip,
+                cfg.n_old_profs, cfg.n_old_per_prof)
+            log.info("restarted profile from mc_grid_old.dat")
 
-    gamma_grid = np.zeros((nb, 2))
-    q_px_hist = np.zeros(cfg.n_itrs)
-    q_en_hist = np.zeros(cfg.n_itrs)
-    px_esc_hist = np.zeros(cfg.n_itrs)
-    en_esc_hist = np.zeros(cfg.n_itrs)
-    gamma_dw_hist = np.zeros(cfg.n_itrs)
-    prof_weight_fac = cfg.prof_weight_fac
-    i_start = 0
+        gamma_grid = np.zeros((nb, 2))
+        q_px_hist = np.zeros(cfg.n_itrs)
+        q_en_hist = np.zeros(cfg.n_itrs)
+        px_esc_hist = np.zeros(cfg.n_itrs)
+        en_esc_hist = np.zeros(cfg.n_itrs)
+        gamma_dw_hist = np.zeros(cfg.n_itrs)
+        prof_weight_fac = cfg.prof_weight_fac
+        i_start = 0
 
-    mid_resume = None
-    if resume is not None:
-        if ck.is_mid_checkpoint(resume):
-            mid_resume = ck.load_mid_checkpoint(resume, engine.device)
-            got = mid_resume["driver"]
-            engine.n_pushes_total = int(got["engine_pushes"])
-            engine.n_trajectories_total = int(got["engine_trajs"])
-        else:
-            got = ck.load_checkpoint(resume)
-        prof = got["profile"]
-        gamma_grid = np.array(got["gamma_grid"])
-        n = min(len(got["q_px_hist"]), cfg.n_itrs)
-        for dst, key in ((q_px_hist, "q_px_hist"), (q_en_hist, "q_en_hist"),
-                         (px_esc_hist, "px_esc_hist"),
-                         (en_esc_hist, "en_esc_hist"),
-                         (gamma_dw_hist, "gamma_dw_hist")):
-            dst[:n] = got[key][:n]
-        prof_weight_fac = float(got["prof_weight_fac"])
-        i_start = int(got["i_iter"])
-        log.info("resumed from %s at iteration %d%s", resume, i_start,
-                 (" (mid-iteration, species %d segment %d)"
-                  % (mid_resume["i_ion"], mid_resume["next_seg"]))
-                 if mid_resume is not None else "")
+        mid_resume = None
+        if resume is not None:
+            if ck.is_mid_checkpoint(resume):
+                mid_resume = ck.load_mid_checkpoint(resume, engine.device)
+                got = mid_resume["driver"]
+                engine.n_pushes_total = int(got["engine_pushes"])
+                engine.n_trajectories_total = int(got["engine_trajs"])
+            else:
+                got = ck.load_checkpoint(resume)
+            prof = got["profile"]
+            gamma_grid = np.array(got["gamma_grid"])
+            n = min(len(got["q_px_hist"]), cfg.n_itrs)
+            for dst, key in ((q_px_hist, "q_px_hist"),
+                             (q_en_hist, "q_en_hist"),
+                             (px_esc_hist, "px_esc_hist"),
+                             (en_esc_hist, "en_esc_hist"),
+                             (gamma_dw_hist, "gamma_dw_hist")):
+                dst[:n] = got[key][:n]
+            prof_weight_fac = float(got["prof_weight_fac"])
+            i_start = int(got["i_iter"])
+            log.info("resumed from %s at iteration %d%s", resume, i_start,
+                     (" (mid-iteration, species %d segment %d)"
+                      % (mid_resume["i_ion"], mid_resume["next_seg"]))
+                     if mid_resume is not None else "")
 
-    mid_ckpt = None
-    mid_every = mid_every or int(os.environ.get("MCS_MID_CKPT_EVERY", "0"))
-    if checkpoint is not None and mid_every > 0:
-        mid_ckpt = ck.MidCheckpointer(
-            checkpoint + ".mid", every=mid_every,
-            stop_after_save=os.environ.get("MCS_MID_STOP_AFTER",
-                                           "0") == "1", mesh=mesh)
+        mid_ckpt = None
+        mid_every = mid_every or int(os.environ.get("MCS_MID_CKPT_EVERY", "0"))
+        if checkpoint is not None and mid_every > 0:
+            mid_ckpt = ck.MidCheckpointer(
+                checkpoint + ".mid", every=mid_every,
+                stop_after_save=os.environ.get("MCS_MID_STOP_AFTER",
+                                               "0") == "1", mesh=mesh)
 
-    rho0 = sum(sp.number_density * sp.mass for sp in cfg.species)
-    result = RunResult(setup=setup)
-    # a mesh's ranks keep their collectives in one order: no overlap
-    # (driver.py:269-273)
-    overlap = (mesh is None
-               and os.environ.get("MCS_OVERLAP_REDUCE", "1") == "1")
-    pool = ThreadPoolExecutor(max_workers=1) if overlap else None
-    try:
-        for i_iter in range(i_start, cfg.n_itrs):
-            log.info("iteration %d/%d", i_iter + 1, cfg.n_itrs)
-            it = engine.new_iteration_tallies(prof)
-            pending = []
-            i_ion_start = 0
-            resume_tr = None
-            if mid_resume is not None:
-                # the completed species' reductions come from the
-                # checkpoint; the species in flight restores its
-                # population and goes on at the saved segment
-                it = mid_resume["it"]
-                i_ion_start = int(mid_resume["i_ion"])
-                pending = list(mid_resume["driver"]["ion_finals"])
-                resume_tr, mid_resume = mid_resume, None
-            for i_ion in range(i_ion_start, cfg.n_ions):
-                if mid_ckpt is not None:
-                    def _ctx(pend=list(pending), ii=i_iter):
-                        return dict(
-                            profile=prof, gamma_grid=gamma_grid.copy(),
-                            q_px_hist=q_px_hist.copy(),
-                            q_en_hist=q_en_hist.copy(),
-                            px_esc_hist=px_esc_hist.copy(),
-                            en_esc_hist=en_esc_hist.copy(),
-                            gamma_dw_hist=gamma_dw_hist.copy(),
-                            prof_weight_fac=prof_weight_fac, i_iter=ii,
-                            random_seed=cfg.random_seed,
-                            engine_pushes=engine.n_pushes_total,
-                            engine_trajs=engine.n_trajectories_total,
-                            ion_finals=[_result(p) for p in pend])
-                    mid_ckpt.context_fn = _ctx
-                with timers.phase("transport"):
-                    res = engine.run_ion(i_iter, i_ion, prof, it,
-                                         ckpt=mid_ckpt, resume_mid=resume_tr)
+        rho0 = sum(sp.number_density * sp.mass for sp in cfg.species)
+        result = RunResult(setup=setup)
+        # a mesh's ranks keep their collectives in one order: no overlap
+        # (driver.py:269-273)
+        overlap = (mesh is None
+                   and os.environ.get("MCS_OVERLAP_REDUCE", "1") == "1")
+        pool = ThreadPoolExecutor(max_workers=1) if overlap else None
+        try:
+            for i_iter in range(i_start, cfg.n_itrs):
+                log.info("iteration %d/%d", i_iter + 1, cfg.n_itrs)
+                it = engine.new_iteration_tallies(prof)
+                pending = []
+                i_ion_start = 0
                 resume_tr = None
-                want_2d = (cfg.species[i_ion].is_electron
-                           or i_ion == cfg.n_ions - 1)
-                with timers.phase("reductions"):
-                    fin = ion_finalize_start(setup, res, prof, i_ion,
-                                             want_2d)
-                    pending.append(pool.submit(fin) if pool else fin())
-            with timers.phase("reductions"):
-                ion_finals = [_result(p) for p in pending]
+                if mid_resume is not None:
+                    # the completed species' reductions come from the
+                    # checkpoint; the species in flight restores its
+                    # population and goes on at the saved segment
+                    it = mid_resume["it"]
+                    i_ion_start = int(mid_resume["i_ion"])
+                    pending = list(mid_resume["driver"]["ion_finals"])
+                    resume_tr, mid_resume = mid_resume, None
+                for i_ion in range(i_ion_start, cfg.n_ions):
+                    if mid_ckpt is not None:
+                        def _ctx(pend=list(pending), ii=i_iter):
+                            return dict(
+                                profile=prof, gamma_grid=gamma_grid.copy(),
+                                q_px_hist=q_px_hist.copy(),
+                                q_en_hist=q_en_hist.copy(),
+                                px_esc_hist=px_esc_hist.copy(),
+                                en_esc_hist=en_esc_hist.copy(),
+                                gamma_dw_hist=gamma_dw_hist.copy(),
+                                prof_weight_fac=prof_weight_fac, i_iter=ii,
+                                random_seed=cfg.random_seed,
+                                engine_pushes=engine.n_pushes_total,
+                                engine_trajs=engine.n_trajectories_total,
+                                ion_finals=[_result(p) for p in pend])
+                        mid_ckpt.context_fn = _ctx
+                    with timers.phase("transport"):
+                        res = engine.run_ion(i_iter, i_ion, prof, it,
+                                             ckpt=mid_ckpt,
+                                             resume_mid=resume_tr)
+                    resume_tr = None
+                    want_2d = (cfg.species[i_ion].is_electron
+                               or i_ion == cfg.n_ions - 1)
+                    with timers.phase("reductions"):
+                        fin = ion_finalize_start(setup, res, prof, i_ion,
+                                                 want_2d)
+                        pending.append(pool.submit(fin) if pool else fin())
+                with timers.phase("reductions"), span("reductions.wait"):
+                    ion_finals = [_result(p) for p in pending]
 
-            # ---- iteration close-out (iter_finalize.jl:20-54) --------------
-            px_esc_hist[i_iter] = it.px_esc_upstream / setup.f_px_upstream
-            en_esc_hist[i_iter] = (it.energy_esc_upstream
-                                   / setup.f_energy_upstream)
-            p_par = sum(f.p_psd_par for f in ion_finals)
-            p_perp = sum(f.p_psd_perp for f in ion_finals)
-            e_dens = sum(f.energy_density_psd for f in ion_finals)
-            gamma_grid = set_gamma_adiab_grid(
-                gamma_grid, i_iter, setup.x_grid_cm, setup.gamma2_rh,
-                p_par, p_perp, e_dens)
-            gamma_dw_hist[i_iter] = 1.0 + (
-                it.sum_p_downstream / max(it.sum_ke_downstream, 1e-300))
-            q_px, q_en = q_esc_calcs(
-                gamma_dw_hist[i_iter], setup.r_comp, setup.r_rh, cfg.u0,
-                cfg.beta0, cfg.gamma0, cfg.species, setup.gamma2,
-                setup.beta2, setup.u2)
-            q_px_hist[i_iter] = q_px
-            q_en_hist[i_iter] = q_en
-            n_avg = min(i_iter + 1, 4)
-            q_px_avg = q_px_hist[i_iter - n_avg + 1:i_iter + 1].mean()
-            q_en_avg = q_en_hist[i_iter - n_avg + 1:i_iter + 1].mean()
+                # ---- iteration close-out (iter_finalize.jl:20-54) ----------
+                px_esc_hist[i_iter] = it.px_esc_upstream / setup.f_px_upstream
+                en_esc_hist[i_iter] = (it.energy_esc_upstream
+                                       / setup.f_energy_upstream)
+                p_par = sum(f.p_psd_par for f in ion_finals)
+                p_perp = sum(f.p_psd_perp for f in ion_finals)
+                e_dens = sum(f.energy_density_psd for f in ion_finals)
+                gamma_grid = set_gamma_adiab_grid(
+                    gamma_grid, i_iter, setup.x_grid_cm, setup.gamma2_rh,
+                    p_par, p_perp, e_dens)
+                gamma_dw_hist[i_iter] = 1.0 + (
+                    it.sum_p_downstream / max(it.sum_ke_downstream, 1e-300))
+                q_px, q_en = q_esc_calcs(
+                    gamma_dw_hist[i_iter], setup.r_comp, setup.r_rh, cfg.u0,
+                    cfg.beta0, cfg.gamma0, cfg.species, setup.gamma2,
+                    setup.beta2, setup.u2)
+                q_px_hist[i_iter] = q_px
+                q_en_hist[i_iter] = q_en
+                n_avg = min(i_iter + 1, 4)
+                q_px_avg = q_px_hist[i_iter - n_avg + 1:i_iter + 1].mean()
+                q_en_avg = q_en_hist[i_iter - n_avg + 1:i_iter + 1].mean()
 
-            with timers.phase("smoothing"):
-                prof_new, diag, prof_weight_fac = smooth_grid(
-                    i_iter, setup.i_shock, prof, cfg, setup.x_grid_rg,
-                    gamma_grid, p_par, p_perp, it.pxx_flux, it.energy_flux,
-                    q_px_avg, q_en_avg, setup.f_px_upstream,
-                    setup.f_energy_upstream, setup.gamma2_rh, setup.u2,
-                    setup.beta2, setup.gamma2, prof_weight_fac,
-                    cfg.species[0].number_density,
-                    cfg.species[0].temperature, rho0, cfg.use_custom_eps_b)
+                with timers.phase("smoothing"):
+                    prof_new, diag, prof_weight_fac = smooth_grid(
+                        i_iter, setup.i_shock, prof, cfg, setup.x_grid_rg,
+                        gamma_grid, p_par, p_perp, it.pxx_flux, it.energy_flux,
+                        q_px_avg, q_en_avg, setup.f_px_upstream,
+                        setup.f_energy_upstream, setup.gamma2_rh, setup.u2,
+                        setup.beta2, setup.gamma2, prof_weight_fac,
+                        cfg.species[0].number_density,
+                        cfg.species[0].temperature, rho0, cfg.use_custom_eps_b)
 
-            itres = IterationResult(
-                ion_finals=ion_finals, tallies=it, diag=diag,
-                gamma_downstream=gamma_dw_hist[i_iter], q_esc_px=q_px_avg,
-                q_esc_en=q_en_avg, px_esc_frac=px_esc_hist[i_iter],
-                en_esc_frac=en_esc_hist[i_iter], profile_after=prof_new)
-            if cfg.do_photons:
-                # photon production per shell/zone (ion_finalize.jl:72-78)
-                with timers.phase("emission"):
-                    itres.emission = photon_calcs(
-                        setup, prof, ion_finals, i_iter,
-                        device=engine.device)
-                if emission_hook is not None and writer:
-                    emission_hook(setup, prof, ion_finals, i_iter)
-            result.iterations.append(itres)
-            prof = prof_new
+                itres = IterationResult(
+                    ion_finals=ion_finals, tallies=it, diag=diag,
+                    gamma_downstream=gamma_dw_hist[i_iter], q_esc_px=q_px_avg,
+                    q_esc_en=q_en_avg, px_esc_frac=px_esc_hist[i_iter],
+                    en_esc_frac=en_esc_hist[i_iter], profile_after=prof_new)
+                if cfg.do_photons:
+                    # photon production per shell/zone (ion_finalize.jl:72-78)
+                    with timers.phase("emission"):
+                        itres.emission = photon_calcs(
+                            setup, prof, ion_finals, i_iter,
+                            device=engine.device)
+                    if emission_hook is not None and writer:
+                        emission_hook(setup, prof, ion_finals, i_iter)
+                result.iterations.append(itres)
+                prof = prof_new
 
-            if checkpoint is not None:
-                with timers.phase("checkpoint"):
-                    if writer:
-                        ck.save_checkpoint(
-                            checkpoint, i_iter=i_iter + 1, profile=prof,
-                            gamma_grid=gamma_grid, q_px_hist=q_px_hist,
-                            q_en_hist=q_en_hist, px_esc_hist=px_esc_hist,
-                            en_esc_hist=en_esc_hist,
-                            gamma_dw_hist=gamma_dw_hist,
-                            prof_weight_fac=prof_weight_fac,
-                            random_seed=cfg.random_seed)
-                if (writer and mid_ckpt is not None
-                        and os.path.exists(mid_ckpt.path)):
-                    # the iteration checkpoint supersedes the mid state
-                    # of this iteration
-                    os.remove(mid_ckpt.path)
+                if checkpoint is not None:
+                    with timers.phase("checkpoint"):
+                        if writer:
+                            ck.save_checkpoint(
+                                checkpoint, i_iter=i_iter + 1, profile=prof,
+                                gamma_grid=gamma_grid, q_px_hist=q_px_hist,
+                                q_en_hist=q_en_hist, px_esc_hist=px_esc_hist,
+                                en_esc_hist=en_esc_hist,
+                                gamma_dw_hist=gamma_dw_hist,
+                                prof_weight_fac=prof_weight_fac,
+                                random_seed=cfg.random_seed)
+                    if (writer and mid_ckpt is not None
+                            and os.path.exists(mid_ckpt.path)):
+                        # the iteration checkpoint supersedes the mid state
+                        # of this iteration
+                        os.remove(mid_ckpt.path)
+                    if mesh is not None:
+                        shard.barrier(mesh)
+        finally:
+            if pool is not None:
+                pool.shutdown(wait=True)
+
+        if engine.device.type == "cuda":
+            torch.cuda.synchronize(engine.device)
+        result.wall_time = time.time() - t_start
+        result.n_pushes = engine.n_pushes_total
+        result.n_trajectories = engine.n_trajectories_total
+        result.timers = timers
+        if mid_ckpt is not None:
+            timers.totals["mid_checkpoint"] += mid_ckpt.seconds
+            timers.counts["mid_checkpoint"] += mid_ckpt.n_saved
+        result.subtimers = dict(engine.subtimers) or None
+        result.graphs = engine.graphs
+        result.launches = dict(engine.launches)
+
+        if out_dir is not None:
+            from .io import write_outputs
+            with timers.phase("io"):
+                if writer:
+                    write_outputs(result, out_dir)
                 if mesh is not None:
                     shard.barrier(mesh)
-    finally:
-        if pool is not None:
-            pool.shutdown(wait=True)
-
-    if engine.device.type == "cuda":
-        torch.cuda.synchronize(engine.device)
-    result.wall_time = time.time() - t_start
-    result.n_pushes = engine.n_pushes_total
-    result.n_trajectories = engine.n_trajectories_total
-    result.timers = timers
-    if mid_ckpt is not None:
-        timers.totals["mid_checkpoint"] += mid_ckpt.seconds
-        timers.counts["mid_checkpoint"] += mid_ckpt.n_saved
-    result.subtimers = dict(engine.subtimers) or None
-    result.graphs = engine.graphs
-    result.launches = dict(engine.launches)
-
-    if out_dir is not None:
-        from .io import write_outputs
-        with timers.phase("io"):
-            if writer:
-                write_outputs(result, out_dir)
-            if mesh is not None:
-                shard.barrier(mesh)
-    if mesh is not None:
-        result.mesh = mesh.summary()
-    return result
+        if mesh is not None:
+            result.mesh = mesh.summary()
+        return result

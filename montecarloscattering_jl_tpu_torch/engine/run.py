@@ -68,6 +68,7 @@ ranks once, after its last segment.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import math
 import os
@@ -81,6 +82,7 @@ import torch
 from ..utils import constants as K
 from ..utils.config import RunConfig
 from ..utils.params import E_REL_PT
+from ..utils.tracing import span
 from ..models.injection import init_pop
 from ..ops import helix, hist, mega, rng
 from ..ops import step as xla_step
@@ -299,6 +301,20 @@ class TransportEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    @contextlib.contextmanager
+    def _stretch(self, name: str, subt: bool, sync: bool = True):
+        """One stretch of ``run_ion``: the span ``transport.<name>`` and,
+        with MCS_SUBTIMERS=1 (`subt`), its seconds in self.subtimers,
+        ended by a device synchronize where `sync` (measurement runs
+        only)."""
+        with span("transport." + name):
+            t0 = time.perf_counter()
+            yield
+            if subt:
+                if sync:
+                    self._sync()
+                self.subtimers[name] += time.perf_counter() - t0
+
     def _fixed(self, obj):
         """`obj` (the lane state or the tallies) copied into the XLA
         engine's fixed buffers of its kind."""
@@ -366,125 +382,117 @@ class TransportEngine:
         if ckpt is not None:
             ckpt.reset(resume_mid["next_seg"] if resume_mid else 0)
         # MCS_SUBTIMERS=1: the transport phase split into population
-        # setup, ladder and tally fetch in self.subtimers, each ended by
-        # a device synchronize (measurement runs only)
+        # setup, ladder and tally fetch in self.subtimers (_stretch)
         subt = os.environ.get("MCS_SUBTIMERS", "0") == "1"
-        t0 = time.perf_counter()
-        grids = self.segment_grids(prof, eps_target=it.eps_target,
-                                   recv_pool=it.energy_pool)
-        ion_key = rng.fold_in(rng.fold_in(self.base_key, i_iter), i_ion)
+        with self._stretch("pop_setup", subt):
+            grids = self.segment_grids(prof, eps_target=it.eps_target,
+                                       recv_pool=it.energy_pool)
+            ion_key = rng.fold_in(rng.fold_in(self.base_key, i_iter), i_ion)
 
-        if resume_mid is None:
-            # injected population (main_loops.jl:126-153), host rng keyed
-            # like the JAX package's
-            pop = init_pop(
-                np.random.default_rng((cfg.random_seed, i_iter, i_ion)),
-                cfg.species, i_ion, cfg.inp_distr, cfg.energy_inj,
-                cfg.inj_weight, cfg.n_pts_inj, setup.x_grid_start,
-                cfg.rg0, cfg.eta_mfp, cfg.do_fast_push,
-                cfg.x_fast_stop_rg, cfg.beta0, cfg.gamma0, cfg.u0,
-                setup.x_grid_rg, prof.ux_sk, prof.gamma_sf)
-            # fast-push analytic flux backfill (zeros when not applicable)
-            it.pxx_flux += pop.pxx_flux
-            it.pxz_flux += pop.pxz_flux
-            it.energy_flux += pop.energy_flux
+            if resume_mid is None:
+                # injected population (main_loops.jl:126-153), host rng keyed
+                # like the JAX package's
+                pop = init_pop(
+                    np.random.default_rng((cfg.random_seed, i_iter, i_ion)),
+                    cfg.species, i_ion, cfg.inp_distr, cfg.energy_inj,
+                    cfg.inj_weight, cfg.n_pts_inj, setup.x_grid_start,
+                    cfg.rg0, cfg.eta_mfp, cfg.do_fast_push,
+                    cfg.x_fast_stop_rg, cfg.beta0, cfg.gamma0, cfg.u0,
+                    setup.x_grid_rg, prof.ux_sk, prof.gamma_sf)
+                # fast-push analytic flux backfill (zeros when not applicable)
+                it.pxx_flux += pop.pxx_flux
+                it.pxz_flux += pop.pxz_flux
+                it.energy_flux += pop.energy_flux
 
-            n0 = len(pop.ptot_pf)
-            pad = lambda a: np.concatenate(
-                [np.asarray(a), np.zeros(b - len(a), np.asarray(a).dtype)])
-            state = stt.init_state(
-                pad(pop.weight), pad(pop.ptot_pf), pad(pop.pb_pf),
-                pad(pop.x_cm), pad(pop.i_grid).astype(np.int32),
-                pad(prof.ux_sk[pop.i_grid]), cfg.xn_per_fine,
-                setup.x_grid_stop, rng.fold_in(ion_key, 0), dev,
-                p_dtype=self.p_dtype)
-            tal = stt.make_tallies(nb, bins.n_mom, bins.n_theta, dev,
-                                   n_xspec=ss.n_xspec,
-                                   n_tcut_slots=self.n_tcut_slots)
-            reasons = torch.zeros(5, dtype=torch.int64, device=dev)
-            esc = EscapeTallies.zeros(bins.n_mom, bins.n_theta, dev)
-            start = pushes = 0
-            trajectories = n0
-            seg_new = []
-        else:
-            r = resume_mid
-            state, tal, esc = r["state"], r["tal"], r["esc"]
-            if state.device != dev:
-                # a kernel's wrapper would run its plain version there
-                raise ValueError(f"mid checkpoint state on {state.device}, "
-                                 f"the engine on {dev}")
-            reasons = r["reasons"]
-            start = int(r["next_seg"])
-            pushes, trajectories = int(r["pushes"]), int(r["trajectories"])
-            # the segments before the save (a checkpoint of an older
-            # port has no record of them)
-            seg_new = list(r.get("n_new", ()))
+                n0 = len(pop.ptot_pf)
+                pad = lambda a: np.concatenate(
+                    [np.asarray(a), np.zeros(b - len(a), np.asarray(a).dtype)])
+                state = stt.init_state(
+                    pad(pop.weight), pad(pop.ptot_pf), pad(pop.pb_pf),
+                    pad(pop.x_cm), pad(pop.i_grid).astype(np.int32),
+                    pad(prof.ux_sk[pop.i_grid]), cfg.xn_per_fine,
+                    setup.x_grid_stop, rng.fold_in(ion_key, 0), dev,
+                    p_dtype=self.p_dtype)
+                tal = stt.make_tallies(nb, bins.n_mom, bins.n_theta, dev,
+                                       n_xspec=ss.n_xspec,
+                                       n_tcut_slots=self.n_tcut_slots)
+                reasons = torch.zeros(5, dtype=torch.int64, device=dev)
+                esc = EscapeTallies.zeros(bins.n_mom, bins.n_theta, dev)
+                start = pushes = 0
+                trajectories = n0
+                seg_new = []
+            else:
+                r = resume_mid
+                state, tal, esc = r["state"], r["tal"], r["esc"]
+                if state.device != dev:
+                    # a kernel's wrapper would run its plain version there
+                    raise ValueError(f"mid checkpoint state on "
+                                     f"{state.device}, the engine on {dev}")
+                reasons = r["reasons"]
+                start = int(r["next_seg"])
+                pushes, trajectories = int(r["pushes"]), int(r["trajectories"])
+                # the segments before the save (a checkpoint of an older
+                # port has no record of them)
+                seg_new = list(r.get("n_new", ()))
+                if host:
+                    state = _fit_lanes(state, b)
+                if world > 1 and mesh.rank > 0:
+                    # the saved sums are every rank's: rank 0 carries them
+                    for a in [*vars(tal).values(), *vars(esc).values(),
+                              reasons]:
+                        if isinstance(a, torch.Tensor):
+                            a.zero_()
+            if world > 1:
+                state = multihost.global_state(state, mesh)
+            splits = None
+            if not k1:
+                state, tal = self._fixed(state), self._fixed(tal)
+
+        with self._stretch("ladder", subt):
+            launched = launch_counts()
             if host:
-                state = _fit_lanes(state, b)
-            if world > 1 and mesh.rank > 0:
-                # the saved sums are every rank's: rank 0 carries them
-                for a in [*vars(tal).values(), *vars(esc).values(),
-                          reasons]:
-                    if isinstance(a, torch.Tensor):
-                        a.zero_()
-        if world > 1:
-            state = multihost.global_state(state, mesh)
-        splits = None
-        if not k1:
-            state, tal = self._fixed(state), self._fixed(tal)
-        if subt:
-            self._sync()
-            self.subtimers["pop_setup"] += time.perf_counter() - t0
-            t0 = time.perf_counter()
+                state, pushes, trajectories = self._ladder_per_segment(
+                    i_iter, i_ion, prof, grids, ss, k1, ion_key, state, tal,
+                    esc, reasons, start, pushes, trajectories, seg_new, ckpt,
+                    mode, it)
+            else:
+                (state, pushes, trajectories, seg_new,
+                 splits) = self._ladder_async(
+                    i_iter, i_ion, prof, grids, ss, k1, ion_key, state, tal,
+                    esc, reasons, start, (pushes, trajectories, seg_new), ckpt,
+                    mode, it)
+            for k, v in launch_counts().items():
+                self.launches[k] += v - launched[k]
+            if world > 1:
+                shard.reduce_ion_accumulators(mesh, tal, esc, reasons)
 
-        launched = launch_counts()
-        if host:
-            state, pushes, trajectories = self._ladder_per_segment(
-                i_iter, i_ion, prof, grids, ss, k1, ion_key, state, tal,
-                esc, reasons, start, pushes, trajectories, seg_new, ckpt,
-                mode, it)
-        else:
-            state, pushes, trajectories, seg_new, splits = self._ladder_async(
-                i_iter, i_ion, prof, grids, ss, k1, ion_key, state, tal,
-                esc, reasons, start, (pushes, trajectories, seg_new), ckpt,
-                mode, it)
-        for k, v in launch_counts().items():
-            self.launches[k] += v - launched[k]
-        if world > 1:
-            shard.reduce_ion_accumulators(mesh, tal, esc, reasons)
-        if subt:
-            self._sync()
-            self.subtimers["ladder"] += time.perf_counter() - t0
-            t0 = time.perf_counter()
-
-        fin = stt.finalize_tallies(tal)
-        it.pxx_flux += fin.pxx_flux.cpu().numpy()
-        it.pxz_flux += fin.pxz_flux.cpu().numpy()
-        it.energy_flux += fin.energy_flux.cpu().numpy()
-        it.px_esc_upstream += float(fin.px_esc_up)
-        it.energy_esc_upstream += float(fin.en_esc_up)
-        it.sum_p_downstream += float(fin.sum_p_dw) * s.number_density
-        it.sum_ke_downstream += float(fin.sum_ke_dw) * s.number_density
-        if cfg.do_tcuts:
-            it.weight_coupled[:, i_ion] += fin.weight_coupled.cpu().numpy()
-            it.spectra_coupled[:, :, i_ion] += (
-                fin.spectra_coupled.cpu().numpy())
-        if it.energy_pool is not None and not ss.is_electron:
-            it.energy_pool += fin.energy_pool.cpu().numpy()
-        self.n_pushes_total += pushes
-        self.n_trajectories_total += trajectories
-        out = IonResult(
-            psd=fin.psd, therm_psd=fin.therm_psd,
-            num_crossings=fin.num_crossings.cpu().numpy(),
-            esc=esc.to_numpy(), spectra_sf=fin.spectra_sf.cpu().numpy(),
-            spectra_pf=fin.spectra_pf.cpu().numpy(), n_pushes=pushes,
-            n_trajectories=trajectories, n_new=seg_new, splits=splits,
-            reason_counts=reasons.cpu().numpy(),
-            retro_entries=float(fin.retro_entries),
-            energy_received=float(fin.energy_received),
-            energy_radiated=float(fin.energy_radiated))
-        if subt:
-            self.subtimers["tally_fetch"] += time.perf_counter() - t0
+        with self._stretch("tally_fetch", subt, sync=False):
+            fin = stt.finalize_tallies(tal)
+            it.pxx_flux += fin.pxx_flux.cpu().numpy()
+            it.pxz_flux += fin.pxz_flux.cpu().numpy()
+            it.energy_flux += fin.energy_flux.cpu().numpy()
+            it.px_esc_upstream += float(fin.px_esc_up)
+            it.energy_esc_upstream += float(fin.en_esc_up)
+            it.sum_p_downstream += float(fin.sum_p_dw) * s.number_density
+            it.sum_ke_downstream += float(fin.sum_ke_dw) * s.number_density
+            if cfg.do_tcuts:
+                it.weight_coupled[:, i_ion] += fin.weight_coupled.cpu().numpy()
+                it.spectra_coupled[:, :, i_ion] += (
+                    fin.spectra_coupled.cpu().numpy())
+            if it.energy_pool is not None and not ss.is_electron:
+                it.energy_pool += fin.energy_pool.cpu().numpy()
+            self.n_pushes_total += pushes
+            self.n_trajectories_total += trajectories
+            out = IonResult(
+                psd=fin.psd, therm_psd=fin.therm_psd,
+                num_crossings=fin.num_crossings.cpu().numpy(),
+                esc=esc.to_numpy(), spectra_sf=fin.spectra_sf.cpu().numpy(),
+                spectra_pf=fin.spectra_pf.cpu().numpy(), n_pushes=pushes,
+                n_trajectories=trajectories, n_new=seg_new, splits=splits,
+                reason_counts=reasons.cpu().numpy(),
+                retro_entries=float(fin.retro_entries),
+                energy_received=float(fin.energy_received),
+                energy_radiated=float(fin.energy_radiated))
         return out
 
     def _ladder_per_segment(self, i_iter, i_ion, prof, grids, ss, k1,
@@ -501,48 +509,51 @@ class TransportEngine:
         p_pcut_hi = pcut_hi_momentum(cfg.energy_pcut_hi,
                                      cfg.species[i_ion].mass)
         for i_pcut in range(start, len(cfg.pcuts)):
-            sc = self.segment_scalars(i_ion, i_pcut, prof.bmag2)
-            if k1:
-                mega.drain(state, mega.mega_tables(grids, sc, ss, dev), tal)
-                # K1 derives the zone from position; restore it for the
-                # exit bookkeeping
-                ig = torch.searchsorted(grids.x_grid, state.x,
-                                        right=True) - 1
-                state.igrid = ig.clamp(0, nb - 2).to(torch.int32)
-            else:
-                xla_step.run_segment(
-                    state, tal, self._fixed_tables(
-                        xla_step.step_tables(grids, sc, ss, dev)),
-                    compact_levels=self.compact_levels, graphs=self.graphs)
-            finish_particles(state, esc, grids, sc, ss)
-            _count_exits(reasons, state)
-            n_target = (cfg.n_pts_pcut if cfg.pcuts[i_pcut] < p_pcut_hi
-                        else cfg.n_pts_pcut_hi)
-            # every rank splits the whole batch alike and keeps its
-            # shard; the next segment's population stays whole for a
-            # checkpoint
-            full = shard.gather_state(state, mesh) if world > 1 else state
-            pushes += int(full.nsteps.sum(dtype=torch.int64))
-            full, n_new = self._host_split(full, n_target,
-                                           rng.fold_in(ion_key, i_pcut + 1))
-            state = (multihost.global_state(full, mesh) if world > 1
-                     else full)
-            seg_new.append(n_new)
-            trajectories += n_new
-            if n_new == 0:
-                log.info("iter %d ion %d: pcut chain ended at %d",
-                         i_iter, i_ion, i_pcut)
-                break
-            if not k1:
-                state = self._fixed(state)
-            if ckpt is not None:
-                ckpt.maybe(i_pcut + 1, lambda: dict(
-                    mode=mode, p_dtype=str(self.p_dtype), batch_size=b,
-                    i_iter=i_iter, i_ion=i_ion, next_seg=i_pcut + 1,
-                    state=full,
-                    **self._summed(tal=tal, esc=esc, reasons=reasons),
-                    pushes=pushes, trajectories=trajectories,
-                    n_new=list(seg_new), it=it))
+            with span("ladder.segment"):
+                sc = self.segment_scalars(i_ion, i_pcut, prof.bmag2)
+                if k1:
+                    mega.drain(state, mega.mega_tables(grids, sc, ss, dev),
+                               tal)
+                    # K1 derives the zone from position; restore it for the
+                    # exit bookkeeping
+                    ig = torch.searchsorted(grids.x_grid, state.x,
+                                            right=True) - 1
+                    state.igrid = ig.clamp(0, nb - 2).to(torch.int32)
+                else:
+                    xla_step.run_segment(
+                        state, tal, self._fixed_tables(
+                            xla_step.step_tables(grids, sc, ss, dev)),
+                        compact_levels=self.compact_levels, graphs=self.graphs)
+                with span("finish"):
+                    finish_particles(state, esc, grids, sc, ss)
+                    _count_exits(reasons, state)
+                n_target = (cfg.n_pts_pcut if cfg.pcuts[i_pcut] < p_pcut_hi
+                            else cfg.n_pts_pcut_hi)
+                # every rank splits the whole batch alike and keeps its
+                # shard; the next segment's population stays whole for a
+                # checkpoint
+                full = shard.gather_state(state, mesh) if world > 1 else state
+                pushes += int(full.nsteps.sum(dtype=torch.int64))
+                full, n_new = self._host_split(
+                    full, n_target, rng.fold_in(ion_key, i_pcut + 1))
+                state = (multihost.global_state(full, mesh) if world > 1
+                         else full)
+                seg_new.append(n_new)
+                trajectories += n_new
+                if n_new == 0:
+                    log.info("iter %d ion %d: pcut chain ended at %d",
+                             i_iter, i_ion, i_pcut)
+                    break
+                if not k1:
+                    state = self._fixed(state)
+                if ckpt is not None:
+                    ckpt.maybe(i_pcut + 1, lambda: dict(
+                        mode=mode, p_dtype=str(self.p_dtype), batch_size=b,
+                        i_iter=i_iter, i_ion=i_ion, next_seg=i_pcut + 1,
+                        state=full,
+                        **self._summed(tal=tal, esc=esc, reasons=reasons),
+                        pushes=pushes, trajectories=trajectories,
+                        n_new=list(seg_new), it=it))
         return state, pushes, trajectories
 
     def _ladder_async(self, i_iter, i_ion, prof, grids, ss, k1, ion_key,
@@ -631,60 +642,62 @@ class TransportEngine:
 
         def dispatch(i):
             nonlocal state, alive
-            if k1:
-                mt = table(i)
-                mass = mt.sf[mega.SF_M]
-                mega.drain(state, mt, tal)
-                # K1 derives the zone from position; restore it for the
-                # exit bookkeeping
-                ig = torch.searchsorted(grids.x_grid, state.x,
-                                        right=True) - 1
-                state.igrid = ig.clamp(0, nb - 2).to(torch.int32)
-            else:
-                tb, packed = table(i)
-                mass = tb.k["m"]
-                if k5:
-                    head = xla_step.run_segment(
-                        state, tal, tb, graphs=self.graphs, packed=packed,
-                        wait=False)
-                    if torch.is_tensor(head):
-                        # (K5's block loop, run for comparisons, returns
-                        # its steps and has counted its deposits)
-                        heads[i].copy_(head, non_blocking=True)
+            with span("ladder.segment"):
+                if k1:
+                    mt = table(i)
+                    mass = mt.sf[mega.SF_M]
+                    mega.drain(state, mt, tal)
+                    # K1 derives the zone from position; restore it for the
+                    # exit bookkeeping
+                    ig = torch.searchsorted(grids.x_grid, state.x,
+                                            right=True) - 1
+                    state.igrid = ig.clamp(0, nb - 2).to(torch.int32)
                 else:
-                    xla_step.run_segment(
-                        state, tal, self._fixed_tables(tb),
-                        compact_levels=self.compact_levels,
-                        graphs=self.graphs)
-            finish_particles(state, esc, grids, scs[i], ss, m=mass,
-                             live=alive)
-            _count_exits(reasons, state, alive)
-            nsteps = state.nsteps.sum(dtype=torch.int64)
-            key = rng.fold_in(ion_key, i + 1)
-            if mesh is None:
-                state, n_new = split_on_device(state, targets[i], key)
-            else:
-                saved = state.status == stt.SAVED
-                n_saved = saved.sum()
-                # a masked sum: weight[saved] would wait on a nonzero
-                w_saved = torch.where(saved, state.weight, 0.0).sum(
-                    dtype=torch.float64)
-                state, n_new = split_on_device(state, shares[i], key,
-                                               lane_offset=offset)
-                target = torch.full((), shares[i], dtype=torch.float64,
-                                    device=dev)
-                # shard.SPLIT_FIELDS
-                rows[i] = torch.stack([v.to(torch.float64) for v in (
-                    n_saved, target, n_new, nsteps, w_saved,
-                    state.weight.sum(dtype=torch.float64))])
-            alive = (n_new > 0).to(torch.int64)
-            if watch:
-                news[i].copy_(n_new, non_blocking=True)
-                done.append(torch.cuda.Event())
-                done[-1].record()
-            if not k1:
-                state = self._fixed(state)
-            return n_new, nsteps
+                    tb, packed = table(i)
+                    mass = tb.k["m"]
+                    if k5:
+                        head = xla_step.run_segment(
+                            state, tal, tb, graphs=self.graphs, packed=packed,
+                            wait=False)
+                        if torch.is_tensor(head):
+                            # (K5's block loop, run for comparisons, returns
+                            # its steps and has counted its deposits)
+                            heads[i].copy_(head, non_blocking=True)
+                    else:
+                        xla_step.run_segment(
+                            state, tal, self._fixed_tables(tb),
+                            compact_levels=self.compact_levels,
+                            graphs=self.graphs)
+                with span("finish"):
+                    finish_particles(state, esc, grids, scs[i], ss, m=mass,
+                                     live=alive)
+                    _count_exits(reasons, state, alive)
+                nsteps = state.nsteps.sum(dtype=torch.int64)
+                key = rng.fold_in(ion_key, i + 1)
+                if mesh is None:
+                    state, n_new = split_on_device(state, targets[i], key)
+                else:
+                    saved = state.status == stt.SAVED
+                    n_saved = saved.sum()
+                    # a masked sum: weight[saved] would wait on a nonzero
+                    w_saved = torch.where(saved, state.weight, 0.0).sum(
+                        dtype=torch.float64)
+                    state, n_new = split_on_device(state, shares[i], key,
+                                                   lane_offset=offset)
+                    target = torch.full((), shares[i], dtype=torch.float64,
+                                        device=dev)
+                    # shard.SPLIT_FIELDS
+                    rows[i] = torch.stack([v.to(torch.float64) for v in (
+                        n_saved, target, n_new, nsteps, w_saved,
+                        state.weight.sum(dtype=torch.float64))])
+                alive = (n_new > 0).to(torch.int64)
+                if watch:
+                    news[i].copy_(n_new, non_blocking=True)
+                    done.append(torch.cuda.Event())
+                    done[-1].record()
+                if not k1:
+                    state = self._fixed(state)
+                return n_new, nsteps
 
         def gather(i0, i1):
             got = shard.gather_splits(mesh, rows[i0:i1])

@@ -66,6 +66,7 @@ import torch
 from ..utils.constants import C_CGS, RAD_LOSS_FAC
 from ..utils.params import (
     ALL_FLUX_SPIKE_AWAY, E_REL_PT, MAX_HELIX_STEPS)
+from ..utils.tracing import span
 from . import build, rng
 from .scattering import radiation_loss
 from .transforms import hyp
@@ -1076,7 +1077,8 @@ def drive_ladder_async(dispatch, n_seg: int, check=None, capture=None,
     dispatch returned and calls it at each sync point for the segments
     since the last read, and once at the end for every segment it ran,
     so that every rank makes the same calls.  None of the three changes
-    the result.
+    the result.  Each blocking read is a ``ladder.sync`` span
+    (utils/tracing.py).
 
     Returns (n_new[n_seg] int64, nsteps[n_seg] uint64), the segments
     past the first die-out reported as the zeros they were."""
@@ -1100,12 +1102,13 @@ def drive_ladder_async(dispatch, n_seg: int, check=None, capture=None,
         n_done = i + 1
         if ((sync_every and n_done % sync_every == 0)
                 or (sync_at is not None and sync_at(i))):
-            if read is None:
-                dead = int(n_new) == 0
-            else:
-                held = tuple(map(np.concatenate, zip(
-                    held, summed(start + len(held[0]), n_done))))
-                dead = held[0][-1] == 0
+            with span("ladder.sync"):
+                if read is None:
+                    dead = int(n_new) == 0
+                else:
+                    held = tuple(map(np.concatenate, zip(
+                        held, summed(start + len(held[0]), n_done))))
+                    dead = held[0][-1] == 0
             if check is not None:
                 check(i)
             if capture is not None:
@@ -1117,9 +1120,10 @@ def drive_ladder_async(dispatch, n_seg: int, check=None, capture=None,
     n_new_out = np.zeros(n_seg, np.int64)
     nsteps_out = np.zeros(n_seg, np.uint64)
     if n_done > start:
-        n_new_out[start:n_done], nsteps_out[start:n_done] = (
-            _fetch(n_new_d, nsteps_d) if read is None
-            else summed(start, n_done))
+        with span("ladder.sync"):
+            n_new_out[start:n_done], nsteps_out[start:n_done] = (
+                _fetch(n_new_d, nsteps_d) if read is None
+                else summed(start, n_done))
     # segments past the first die-out ran as no-ops and stay zero (scan
     # only the segments this call ran: [0, start) are the caller's)
     dead = np.flatnonzero(n_new_out[start:n_done] == 0)

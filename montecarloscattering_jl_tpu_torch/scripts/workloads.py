@@ -1,5 +1,5 @@
 """The populations, config variants and timers that chip_smoke.py, the
-probes (probe_k1.py, profile_run.py) and the tests share.
+probes (scripts/probe_*.py) and the tests share.
 
 * ``flagship_case``: tests/data/dsa_nonrel.toml's injected population at
   pcut index 2 (bench.py's drain population) with K1's tables and a maker

@@ -176,7 +176,7 @@ def test_port_runs_without_jax():
         "from montecarloscattering_jl_tpu_torch.models.emission import "
         "device as edev\n"
         "from montecarloscattering_jl_tpu_torch.scripts import "
-        "flagship_sed, probe_k1, profile_run, workloads\n"
+        "flagship_sed, probe_k1, workloads\n"
         "grid = torch.full((30, 4), 1e-20, dtype=torch.float64)\n"
         "e_g = torch.logspace(-18, -15, 30, dtype=torch.float64)\n"
         "ism = edev.doppler_shift_device(\n"
