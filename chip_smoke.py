@@ -5,9 +5,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
 1. Prints the card (nvidia-smi name and power limit) and builds every
    kernel of the port with nvcc for sm_90a, one nvcc per source, all
    started together: K1 (csrc/mega_step.cu, one instance per flag word
-   of ops/mega.py INSTANCES), K2/K3 (csrc/psd_hist.cu) and K5
-   (csrc/helix_step.cu, the instances of ops/helix.py INSTANCES), with
-   each kernel's registers, stack and spills.
+   of ops/mega.py INSTANCES), K2/K3 (csrc/psd_hist.cu), K5
+   (csrc/helix_step.cu, the instances of ops/helix.py INSTANCES) and
+   the rebinning (csrc/rebin.cu), with each kernel's registers, stack
+   and spills.
 2. ``k1``: holds K1 against its plain PyTorch version (ops/mega.py
    step_twin) on the card, on the flagship population:
    tests/data/dsa_nonrel.toml, 65,536 injected lanes at pcut index 2.
@@ -68,6 +69,17 @@ Run from the root of a checkout:  python3 chip_smoke.py
    with an instance of its own also runs the run-time instance (the same
    bits, its time); the drain's instance prints its registers and the
    blocks an SM holds.
+4b. ``rebin``: the reductions' dN/dp rebinning (csrc/rebin.cu, ops/
+   reduce.py ``rebin_dndp``) on the benchmark cell's shapes
+   (benchmark/configs/nonrel_nonlinear.toml: 101 zones, 54 x 41 PSD
+   cells, its profile's boosts; seeded spectrum-like CR and thermal
+   PSDs) at i_approx 2: the kernel against the plain version on the CPU
+   (``_dn_frames_plain``) to REBIN_TOL of each output's largest entry,
+   two launches bit for bit; its ms (CUDA events around REBIN_REPS
+   launches queued behind a sleeping kernel), its bound (the PSDs read and the rows written once, or
+   the corner transforms and the nonzero fractions at the float64
+   rate) and the plain version's ms on the card (host clock ending in a
+   synchronize: its launches and host waits).
 5. ``f32``: drives the K1 path: ``engine.driver.run`` on the flagship
    nonlinear config with float32 momenta (65,536 particles per pcut,
    smoothing on, 2 iterations); checks that every transport launch went
@@ -358,6 +370,16 @@ K5_OPS_PER_PUSH = 230
 # bytes of one lane's state K5 reads and writes a launch (float64 and
 # float32 momenta: 112 + 96, 84 + 72)
 K5_STATE_BYTES = {8: 208, 4: 156}
+# phase rebin: the kernel against the plain version (of each output's
+# largest entry: the same float64 arithmetic summed in another order),
+# and its timing launches; float64 operations counted a corner of a
+# frame's table (a hypot, a sqrt and a log10 among ~14) and a nonzero
+# (frame, cell, bin) fraction at i_approx 2 (two triangle CDFs, the
+# peak and the span, ~25) and its product and sum a PSD (3)
+REBIN_TOL = 1e-12
+REBIN_REPS = 50
+REBIN_SLEEP_CYCLES = 100_000_000       # ~50 ms at the H100's clocks
+REBIN_OPS_CORNER, REBIN_OPS_FRACTION, REBIN_OPS_PSD = 14, 25, 3
 # phase f64's pushes on the plain step (PERF.md §5, PR 8)
 F64_PLAIN_PUSHES = 536_113_343
 # the host waits a species' fused ladder (engine/run.py _ladder_async)
@@ -704,6 +726,83 @@ def hist_phase(dev) -> dict:
         if not r["rel_err_f64"] < 1e-4:
             fail(f"{name}: max rel err {r['rel_err_f64']!r} against "
                  f"float64")
+    return out
+
+
+def rebin_phase(dev) -> dict:
+    """The rebinning kernel on the benchmark cell's shapes (phase
+    rebin): held to the plain version, timed beside its bound and the
+    plain version on the card."""
+    import numpy as np
+    import torch
+
+    from montecarloscattering_jl_tpu_torch.engine.setup import build_setup
+    from montecarloscattering_jl_tpu_torch.ops import reduce as red
+    from montecarloscattering_jl_tpu_torch.utils import load_config
+
+    setup = build_setup(load_config(os.path.join(
+        ROOT, "benchmark", "configs", "nonrel_nonlinear.toml")))
+    bins, cfg = setup.bins, setup.cfg
+    e0 = cfg.species[0].rest_energy
+    gam = np.asarray(setup.profile.gamma_sf, np.float64)
+    nb, n_bins = len(gam), bins.n_mom + 1
+    g = np.random.default_rng(17)
+    shape = (n_bins, bins.n_theta + 1, nb)
+    p_fac = 10.0 ** (-0.3 * np.arange(n_bins))[:, None, None]
+    host = [g.random(shape) * p_fac * (g.random(shape) < f)
+            for f in (0.7, 0.3)]
+    psds = [torch.from_numpy(a).to(dev) for a in host]
+    want = red._dn_frames_plain([torch.from_numpy(a) for a in host], bins,
+                                e0, gam, cfg.gamma0, 2)
+    got = red._dn_frames(psds, bins, e0, gam, cfg.gamma0, 2)
+    errs = []
+    for name, a, b in zip(("dn_cr", "dn_th"), want, got):
+        scale = float(a.abs().max())
+        err = float((a - b.cpu()).abs().max())
+        if not (scale > 0 and err <= REBIN_TOL * scale):
+            fail(f"rebin {name}: max abs err {err!r} against the plain "
+                 f"version (largest entry {scale!r})")
+        errs.append(err / scale)
+    tab = red.bin_tables(bins, dev)
+    frames = red.on_device(red.frame_grids(gam, cfg.gamma0), dev)
+    first = red.rebin_dndp(psds, tab, *frames, e0, 2)
+    again = red.rebin_dndp(psds, tab, *frames, e0, 2)
+    if not torch.equal(first.view(torch.int64), again.view(torch.int64)):
+        fail("rebin: two launches on one input differ")
+    # the launches queue up behind a sleeping kernel, so the events time
+    # the card's work and not the host's enqueue
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda._sleep(REBIN_SLEEP_CYCLES)
+    ev[0].record()
+    for _ in range(REBIN_REPS):
+        red.rebin_dndp(psds, tab, *frames, e0, 2)
+    ev[1].record()
+    torch.cuda.synchronize()
+    ms = ev[0].elapsed_time(ev[1]) / REBIN_REPS
+    plain = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        red._dn_frames_plain(psds, bins, e0, gam, cfg.gamma0, 2)
+        torch.cuda.synchronize()
+        plain.append((time.perf_counter() - t0) * 1e3)
+    # the nonzero fractions: each zone's frame and the ISM's, whose
+    # fractions every zone's ISM row takes
+    clp = lambda gm: red.corner_logp(gm, e0, tab.mom_edges.cpu(),
+                                     tab.cos_bounds.cpu())
+    edges = tab.edges_log.cpu()
+    nnz = sum(int((red.rebin_matrix(clp(float(x)), edges) != 0).sum())
+              for x in gam)
+    nnz += nb * int((red.rebin_matrix(clp(cfg.gamma0), edges) != 0).sum())
+    n_corners = 2 * nb * (bins.n_mom + 2) * (bins.n_theta + 2)
+    n_ops = (n_corners * REBIN_OPS_CORNER
+             + nnz * (REBIN_OPS_FRACTION + 2 * REBIN_OPS_PSD))
+    n_bytes = 8 * (2 * np.prod(shape) + 2 * 2 * nb * n_bins)
+    bound_ms, bound_by = bound(n_bytes, n_ops, F64_OPS_S)
+    out = dict(max_rel_err=max(errs), ms=ms, plain_ms=min(plain),
+               bound_ms=bound_ms, bound_by=bound_by, nonzero_fractions=nnz,
+               corners=n_corners)
+    print(f"rebin (cell shapes, {nb} zones, {n_bins} x {bins.n_theta + 1} "
+          f"cells): {json.dumps(out)}")
     return out
 
 
@@ -1056,15 +1155,18 @@ def slope_of(res) -> tuple[float, float]:
 def zero_counts() -> None:
     """Every kernel's launch count and the plain versions' calls to 0."""
     from montecarloscattering_jl_tpu_torch.ops import helix, hist, mega
+    from montecarloscattering_jl_tpu_torch.ops import reduce as red
 
     mega.LAUNCHES = mega.TWIN_CALLS = mega.HOST_WAITS = 0
     hist.LAUNCHES = hist.BAND_LAUNCHES = hist.PLAIN_CALLS = 0
     helix.LAUNCHES = helix.DRAINS = helix.DEPOSIT_STEPS = 0
     helix.HOST_READS = helix.PLAIN_CALLS = 0
+    red.LAUNCHES = 0
 
 
 def read_counts() -> dict:
     from montecarloscattering_jl_tpu_torch.ops import helix, hist, mega
+    from montecarloscattering_jl_tpu_torch.ops import reduce as red
 
     return dict(k1=mega.LAUNCHES, k1_host_waits=mega.HOST_WAITS,
                 twin=mega.TWIN_CALLS, k2=hist.LAUNCHES,
@@ -1072,7 +1174,18 @@ def read_counts() -> dict:
                 k5=helix.LAUNCHES, k5_drains=helix.DRAINS,
                 k5_host_reads=helix.HOST_READS,
                 k5_deposit_steps=helix.DEPOSIT_STEPS,
-                plain_blocks=helix.PLAIN_CALLS)
+                plain_blocks=helix.PLAIN_CALLS, rebin=red.LAUNCHES)
+
+
+def check_rebin(tag, counts, res, n_ions: int) -> None:
+    """A driven run on the card rebins each species of each iteration
+    it ran in one launch (ops/reduce.py rebin_dndp), and reports them
+    in RunResult.launches."""
+    want = len(res.iterations) * n_ions
+    if counts["rebin"] != want or res.launches["rebin"] != want:
+        fail(f"{tag}: {counts['rebin']} rebin launches "
+             f"(RunResult.launches: {res.launches['rebin']}), {want} "
+             f"expected: one a species and iteration")
 
 
 @contextlib.contextmanager
@@ -1206,6 +1319,7 @@ def drive(cfg, dev, p_dtype, tag: str, cap: int = 0, killed: bool = False,
           f"{wall:.2f} s ({res.n_pushes / wall / 1e6:.2f} M pushes/s); "
           f"launches {json.dumps(counts)}; phases {json.dumps(phases)}")
     check_engine(tag, counts, p_dtype)
+    check_rebin(tag, counts, res, cfg.n_ions)
     if (p_dtype == torch.float64 and "resume" not in run_kw
             and counts["k5_deposit_steps"] != res.n_pushes):
         fail(f"{tag}: the K5 drains made {counts['k5_deposit_steps']} "
@@ -1918,6 +2032,9 @@ def mesh_rank(mesh, parts) -> dict:
         counts = read_counts()
         check_engine(f"mesh {part} rank {mesh.rank}", counts,
                      torch.float64 if part == "xla" else torch.float32)
+        if part != "xla":
+            check_rebin(f"mesh {part} rank {mesh.rank}", counts, res,
+                        cfg.n_ions)
         out[part] = dict(
             result=res if mesh.rank == 0 else None, counts=counts,
             wall=wall, pushes=pushes, collectives=mesh.collectives - c0,
@@ -2272,14 +2389,15 @@ def main() -> int:
     t0 = time.perf_counter()
     from montecarloscattering_jl_tpu_torch.ops import helix
 
-    libs = build.build_all(["mega_step", "psd_hist", *helix.targets()],
-                           verbose=True)
+    libs = build.build_all(["mega_step", "psd_hist", "rebin",
+                            *helix.targets()], verbose=True)
     print(f"build (nvcc, in parallel): {time.perf_counter() - t0:.2f} s "
           f"({', '.join(p.name for p in libs.values())})")
 
     done = {}
     for phase, fn in (("k1", kernel_vs_twin), ("flags", kernel_vs_twin_flags),
                       ("hist", hist_phase),
+                      ("rebin", rebin_phase),
                       ("k5", k5_phase),
                       ("f32", lambda d: main_path(d, torch.float32, 2,
                                                   False)),
@@ -2364,7 +2482,8 @@ def kernel_records(done, instances, k5_inst) -> list:
     the flagship f32, science, electrons32, sed, nonlinear, kw, endurance
     and mesh paths, K5 on the f64 flagship, resume, shipped, electron,
     compact and mesh paths, the mesh's on every rank; K2's standalone
-    launches on the same paths, and its deposits inside K5), its error
+    launches on the same paths, and its deposits inside K5; the
+    rebinning on all of them), its error
     against its plain
     version, its time, its plain version's, its bound and the library
     call's.  K2's and K4's ``ms`` and ``library_ms`` are device times
@@ -2376,12 +2495,14 @@ def kernel_records(done, instances, k5_inst) -> list:
                   hp["K4 = K2 (2^16 records)"])
     mesh = lambda kernel: sum(c[kernel] for part in done["mesh"].values()
                               for c in part.get("counts", []))
-    k1_launches = (done["f32"]["k1"] + done["science"]["counts"]["k1"]
-                   + done["electrons32"]["counts"]["k1"]
-                   + done["sed"]["counts"]["k1"]
-                   + done["nonlinear"]["counts"]["k1"]
-                   + done["kw"]["counts"]["k1"]
-                   + done["endurance"]["counts"]["k1"] + mesh("k1"))
+    k1_paths = lambda kernel: (
+        done["f32"][kernel] + done["science"]["counts"][kernel]
+        + done["electrons32"]["counts"][kernel]
+        + done["sed"]["counts"][kernel]
+        + done["nonlinear"]["counts"][kernel]
+        + done["kw"]["counts"][kernel]
+        + done["endurance"]["counts"][kernel] + mesh(kernel))
+    k1_launches = k1_paths("k1")
     f64_paths = lambda kernel: (
         done["f64"][kernel] + done["shipped"]["counts"][kernel]
         + done["electrons"]["counts"][kernel]
@@ -2463,6 +2584,22 @@ def kernel_records(done, instances, k5_inst) -> list:
                  "at 2^21 records, ms under CUDA-graph replay; one "
                  "cooperative launch; its band filter has no single "
                  "PyTorch call"},
+        {"name": "rebin dndp", "route": "cuda",
+         "source": src + "rebin.cu",
+         "replaces": "none: the JAX package's rebinning is XLA's "
+                     "(montecarloscattering_jl_tpu/ops/reduce.py "
+                     "_ion_reduce_prog)",
+         "launches": k1_paths("rebin") + f64_paths("rebin")
+                     - mesh("rebin"),
+         "max_abs_err": done["rebin"]["max_rel_err"],
+         **{k: done["rebin"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by")},
+         "library_ms": None,
+         "note": "every zone's plasma- and ISM-frame dN/dp of the CR and "
+                 "thermal PSDs on the benchmark cell's shapes, one "
+                 "launch; max_abs_err relative to each output's largest "
+                 "entry; plain_ms: the per-zone torch loop on the card, "
+                 "host clock; no single PyTorch call computes it"},
         {"name": "K4 = K2 psd_scatter", "route": "cuda",
          "source": src + "psd_hist.cu",
          "replaces": "scripts/probe_hist.py:173",

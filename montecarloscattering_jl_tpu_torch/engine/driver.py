@@ -92,9 +92,10 @@ class RunResult:
     # step's graph captures and their seconds, and the blocks' device
     # times under GraphCache.timing
     graphs: object = None
-    # the ladders' kernel launches on this rank: K1, K2, K5 and K5's
-    # helix steps, and plain blocks on a CUDA device (engine/run.py
-    # launch_counts)
+    # the kernel launches on this rank: the ladders' K1, K2, K5 and K5's
+    # helix steps and plain blocks on a CUDA device (engine/run.py
+    # launch_counts), and the reductions' rebinning (ops/reduce.py
+    # rebin_dndp) under "rebin"
     launches: dict | None = None
     # this rank's mesh (parallel/shard.Mesh.summary): world size, rank,
     # device, backend, collectives (a species' gathers of the splits, a
@@ -320,6 +321,7 @@ def run(cfg: RunConfig | str, device="cuda", out_dir: str | None = None,
         overlap = (mesh is None
                    and os.environ.get("MCS_OVERLAP_REDUCE", "1") == "1")
         pool = ThreadPoolExecutor(max_workers=1) if overlap else None
+        rebin_launches = 0
         try:
             for i_iter in range(i_start, cfg.n_itrs):
                 log.info("iteration %d/%d", i_iter + 1, cfg.n_itrs)
@@ -359,8 +361,10 @@ def run(cfg: RunConfig | str, device="cuda", out_dir: str | None = None,
                     want_2d = (cfg.species[i_ion].is_electron
                                or i_ion == cfg.n_ions - 1)
                     with timers.phase("reductions"):
+                        launched = red.LAUNCHES
                         fin = ion_finalize_start(setup, res, prof, i_ion,
                                                  want_2d)
+                        rebin_launches += red.LAUNCHES - launched
                         pending.append(pool.submit(fin) if pool else fin())
                 with timers.phase("reductions"), span("reductions.wait"):
                     ion_finals = [_result(p) for p in pending]
@@ -446,7 +450,7 @@ def run(cfg: RunConfig | str, device="cuda", out_dir: str | None = None,
             timers.counts["mid_checkpoint"] += mid_ckpt.n_saved
         result.subtimers = dict(engine.subtimers) or None
         result.graphs = engine.graphs
-        result.launches = dict(engine.launches)
+        result.launches = dict(engine.launches, rebin=rebin_launches)
 
         if out_dir is not None:
             from .io import write_outputs

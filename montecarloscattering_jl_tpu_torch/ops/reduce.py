@@ -7,10 +7,15 @@ Counterpart of the JAX package's ops/reduce.py on the slice's path:
   cell weight spread by ``i_approx`` as ``_rebin_matrix`` spreads it
   (reduce.py:150-189; 2, the scalene triangle, is the reference's
   production choice, particle_counter.jl:72), and the center-point
-  boosted d2N (thermo_calcs.jl:179-208).  It runs in torch on the PSD's
-  device in float64: the reference ran it in float32 only because f64
-  is emulated on a TPU.  The per-zone rebin is a plain product of the
-  weights with the fraction matrix, left to ``torch.matmul``.
+  boosted d2N (thermo_calcs.jl:179-208).  It runs on the PSD's device in
+  float64: the reference ran it in float32 only because f64 is emulated
+  on a TPU.  On the CPU the rebinning is ``_dn_frames_plain``, a loop
+  over the zones of a dense fraction matrix each and ``torch.matmul``;
+  on a CUDA device it is one launch of ``rebin_dndp`` (csrc/rebin.cu)
+  over every zone and both frames, which holds the plain version as its
+  spec.  The bins' tables live on the device once per bins
+  (``bin_tables``) and a call's boosts arrive by one pinned copy, so on
+  a card the reduction enqueues without a host wait.
 * the host helpers ``ion_finalize`` uses, in NumPy float64 as in the
   reference: ``zone_populations``, ``normalize_dndp``, ``thermo_calcs``
   and ``ef_zone_norm``.
@@ -22,16 +27,103 @@ Counterpart of the JAX package's ops/reduce.py on the slice's path:
 
 from __future__ import annotations
 
+import ctypes
 import math
+import weakref
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from ..utils.constants import C_CGS, KB_CGS, PC_CM
 from ..models.psd_bins import PsdBins, psd_bin_angle, psd_bin_momentum
+from . import build
 from .transforms import boost_x
 
 F64 = torch.float64
+
+# launches of the rebinning kernel (csrc/rebin.cu) since import: the
+# driver counts them as RunResult.launches["rebin"]
+LAUNCHES = 0
+
+_LIB = None
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        lib = build.library("rebin")
+        p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+        lib.mcs_rebin_dndp.argtypes = [p] * 9 + [i] * 5 + [d, d, p]
+        lib.mcs_rebin_dndp.restype = i
+        _LIB = lib
+    return _LIB
+
+
+# ---------------------------------------------------------------------------
+# the bins' tables and a call's boosts on the reduction's device
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class BinTables:
+    """A ``PsdBins``' float64 tables on one device."""
+
+    mom_edges: torch.Tensor     # [n_mom+2] [g cm/s]
+    cos_bounds: torch.Tensor    # [n_theta+2]
+    edges_log: torch.Tensor     # [n_mom+2] log10 lower edges
+    mom_centers: torch.Tensor   # [n_mom+1]
+    cos_centers: torch.Tensor   # [n_theta+1]
+    dp: torch.Tensor            # [n_mom+1] bin widths
+
+
+# (id(bins), device) -> (weak reference to bins, BinTables)
+_TABLES: dict = {}
+
+
+def on_device(rows, dev) -> list:
+    """1-D float64 host arrays as tensors on `dev`: on a CUDA device by
+    one non-blocking copy from pinned memory (no host wait), on the CPU
+    the arrays' own memory."""
+    rows = [np.asarray(r, np.float64) for r in rows]
+    dev = torch.device(dev)
+    if dev.type == "cpu":
+        return [torch.as_tensor(r) for r in rows]
+    host = torch.from_numpy(np.concatenate(rows)).pin_memory()
+    flat = host.to(dev, non_blocking=True)
+    return list(torch.split(flat, [len(r) for r in rows]))
+
+
+def bin_tables(bins: PsdBins, dev) -> BinTables:
+    """`bins`' tables on `dev`, copied there once for the bins' life."""
+    dev = torch.device(dev)
+    key = (id(bins), dev)
+    hit = _TABLES.get(key)
+    if hit is not None and hit[0]() is bins:
+        return hit[1]
+    for k in [k for k, (ref, _) in _TABLES.items() if ref() is None]:
+        del _TABLES[k]
+    mom_edges, cos_bounds, edges_log, p_cent, cos_cent = on_device(
+        [bins.mom_edges, bins.cos_bounds(), bins.mom_bounds_log,
+         bins.mom_centers, bins.cos_centers()], dev)
+    tab = BinTables(mom_edges, cos_bounds, edges_log, p_cent, cos_cent,
+                    torch.diff(mom_edges))
+    _TABLES[key] = (weakref.ref(bins), tab)
+    return tab
+
+
+def boost_beta(gamma: float) -> float:
+    """The speed of a frame boost of Lorentz factor `gamma` as the corner
+    transform takes it: 0 below gamma 1.000001."""
+    return (math.sqrt(max(1.0 - 1.0 / gamma ** 2, 0.0))
+            if gamma >= 1.000001 else 0.0)
+
+
+def frame_grids(gamma_sf_grid, gamma0: float) -> list:
+    """[gammas, betas], each [nb+1]: the rebinning's frames, every zone's
+    plasma frame and then the ISM's."""
+    gam = [float(g) for g in np.asarray(gamma_sf_grid, np.float64)]
+    gam.append(float(gamma0))
+    return [np.array(gam), np.array([boost_beta(g) for g in gam])]
 
 
 # ---------------------------------------------------------------------------
@@ -42,8 +134,7 @@ def corner_logp(gamma: float, e0: float, mom_edges: torch.Tensor,
                 cos_bounds: torch.Tensor) -> torch.Tensor:
     """Transformed corner log10-momenta [n_mom+2, n_theta+2]
     (transform_psd_corners, transformers.jl:634-682)."""
-    beta = (math.sqrt(max(1.0 - 1.0 / gamma ** 2, 0.0))
-            if gamma >= 1.000001 else 0.0)
+    beta = boost_beta(gamma)
     pt = mom_edges[:, None]
     ct = cos_bounds[None, :]
     px = pt * ct
@@ -168,13 +259,15 @@ def d2n_boosted(total: torch.Tensor, gammas, betas, e0: float,
                 bins: PsdBins) -> torch.Tensor:
     """Center-point boost of a d2N histogram [n_mom+1, n_theta+1, nb]
     into per-zone frames (thermo_calcs.jl:179-208): each cell's weight
-    moves to the bin its boosted center lands in."""
+    moves to the bin its boosted center lands in.  `gammas` and `betas`
+    [nb] are arrays, or float64 tensors on the histogram's device."""
     dev = total.device
     nmp1, ntp1, nb = total.shape
-    p_cent = torch.as_tensor(bins.mom_centers, dtype=F64, device=dev)
-    cos_cent = torch.as_tensor(bins.cos_centers(), dtype=F64, device=dev)
-    g = torch.as_tensor(np.asarray(gammas, np.float64), device=dev)
-    b = torch.as_tensor(np.asarray(betas, np.float64), device=dev)
+    tab = bin_tables(bins, dev)
+    p_cent, cos_cent = tab.mom_centers, tab.cos_centers
+    if not isinstance(gammas, torch.Tensor):
+        gammas, betas = on_device([gammas, betas], dev)
+    g, b = gammas, betas
     pt = (p_cent[:, None] * torch.ones_like(cos_cent)[None, :])[None]
     px = (p_cent[:, None] * cos_cent[None, :])[None]
     pt_t, px_t = boost_x(pt, px, g[:, None, None], b[:, None, None], e0,
@@ -192,35 +285,114 @@ def d2n_boosted(total: torch.Tensor, gammas, betas, e0: float,
     return out.reshape(nb, nmp1, ntp1).permute(1, 2, 0)
 
 
-def _dn_frames(psds, bins: PsdBins, e0: float, gamma_sf_grid,
-               gamma0: float, i_approx: int) -> list:
-    """dN/dp [n_mom+1, nb, 3] in the (shock, plasma, ISM) frames of each
-    float64 PSD of `psds`, un-normalized; the per-zone rebin matrix,
-    which depends only on the zone's boost, is shared by all of them
-    (``_ion_reduce_prog``, reduce.py:256-277)."""
+def _dn_frames_plain(psds, bins: PsdBins, e0: float, gamma_sf_grid,
+                     gamma0: float, i_approx: int) -> list:
+    """``_dn_frames``' plain version, on any device: a loop over the
+    zones, each building the zone's dense fraction matrix and
+    multiplying the weights by it; the matrix, which depends only on
+    the zone's boost, is shared by all the PSDs (``_ion_reduce_prog``,
+    reduce.py:256-277)."""
     dev = psds[0].device
     nb = psds[0].shape[-1]
-    t = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=dev)
-    mom_edges = t(bins.mom_edges)
-    cos_bounds = t(bins.cos_bounds())
-    edges_log = t(bins.mom_bounds_log)
+    tab = bin_tables(bins, dev)
+    mom_edges, cos_bounds = tab.mom_edges, tab.cos_bounds
     gam = np.asarray(gamma_sf_grid, np.float64)
-    dp = torch.diff(mom_edges)[:, None]
     zoned = [p.permute(2, 0, 1) for p in psds]     # [nb, nm+1, nt+1]
     dn_pf = [torch.empty(nb, psds[0].shape[0], dtype=F64, device=dev)
              for _ in psds]
     for z in range(nb):
         g = float(gam[z])
         m = rebin_matrix(corner_logp(g, e0, mom_edges, cos_bounds),
-                         edges_log, i_approx)
+                         tab.edges_log, i_approx)
         for out, p in zip(dn_pf, zoned):
             out[z] = torch.matmul((p[z] / g).reshape(-1), m)
     m0 = rebin_matrix(corner_logp(gamma0, e0, mom_edges, cos_bounds),
-                      edges_log, i_approx)
+                      tab.edges_log, i_approx)
     return [torch.stack([p.sum(dim=1), pf.T,
                          torch.matmul(pz.reshape(nb, -1) / gamma0, m0).T],
-                        dim=-1) / dp[..., None]
+                        dim=-1) / tab.dp[:, None, None]
             for p, pf, pz in zip(psds, dn_pf, zoned)]
+
+
+def _check_rebin(psds, tab: BinTables, gammas, betas) -> None:
+    """Raise ValueError on what the rebinning kernel does not take: its
+    dtype, shape and contiguity first, then its device."""
+    n_mom, n_theta = tab.mom_edges.shape[0] - 2, tab.cos_bounds.shape[0] - 2
+    if not 1 <= len(psds) <= 2:
+        raise ValueError(f"psds: want one or two PSDs, got {len(psds)}")
+    nb = psds[0].shape[-1] if psds[0].dim() == 3 else -1
+    want = {"psd": (n_mom + 1, n_theta + 1, nb), "gammas": (nb + 1,),
+            "betas": (nb + 1,)}
+    named = [("psd", p) for p in psds] + [("gammas", gammas),
+                                          ("betas", betas)]
+    named += [(f, getattr(tab, f)) for f in ("mom_edges", "cos_bounds",
+                                             "edges_log")]
+    for name, a in named:
+        shape = want.get(name, tuple(a.shape))
+        if a.dtype != F64:
+            raise ValueError(f"{name}: want dtype float64, got {a.dtype}")
+        if tuple(a.shape) != shape or nb < 1:
+            raise ValueError(f"{name}: want shape {shape}, got "
+                             f"{tuple(a.shape)}")
+        if not a.is_contiguous():
+            raise ValueError(f"{name}: want a contiguous tensor")
+    dev = psds[0].device
+    for name, a in named:
+        if a.device.type != "cuda" or a.device != dev:
+            raise ValueError(f"{name}: the rebinning kernel runs on the "
+                             f"PSD's CUDA device, got {a.device} (PSD on "
+                             f"{dev})")
+
+
+def rebin_dndp(psds, tab: BinTables, gammas, betas, e0: float,
+               i_approx: int) -> torch.Tensor:
+    """The un-normalized plasma-frame and ISM-frame dN/dp rows of each
+    PSD of `psds` (one or two, float64 [n_mom+1, n_theta+1, nb] on a CUDA
+    device), [n_psd, 2, nb, n_mom+1], by one launch of csrc/rebin.cu on
+    the current stream.  `gammas` / `betas` [nb+1] are the frames'
+    boosts (``frame_grids``) on the same device, `tab` the bins' tables
+    there."""
+    global LAUNCHES
+    _check_rebin(psds, tab, gammas, betas)
+    dev = psds[0].device
+    n_mom, n_theta = tab.mom_edges.shape[0] - 2, tab.cos_bounds.shape[0] - 2
+    nb = psds[0].shape[-1]
+    out = torch.empty(len(psds), 2, nb, n_mom + 1, dtype=F64, device=dev)
+    corners = torch.empty(2 * nb, (n_mom + 2) * (n_theta + 2), dtype=F64,
+                          device=dev)
+    ptr = lambda a: ctypes.c_void_p(a.data_ptr())
+    i = ctypes.c_int
+    err = _lib().mcs_rebin_dndp(
+        ptr(tab.mom_edges), ptr(tab.cos_bounds), ptr(tab.edges_log),
+        ptr(gammas), ptr(betas), ptr(psds[0]), ptr(psds[-1]), ptr(corners),
+        ptr(out), i(n_mom), i(n_theta), i(nb), i(len(psds)), i(i_approx),
+        ctypes.c_double(e0), ctypes.c_double(C_CGS),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"rebin launch failed: CUDA error {err}")
+    LAUNCHES += 1
+    return out
+
+
+def _dn_frames(psds, bins: PsdBins, e0: float, gamma_sf_grid,
+               gamma0: float, i_approx: int, frames=None) -> list:
+    """dN/dp [n_mom+1, nb, 3] in the (shock, plasma, ISM) frames of each
+    float64 PSD of `psds` (one or two), un-normalized: on the CPU the
+    plain version, on another device ``rebin_dndp``, whose frames
+    `frames` ([gammas, betas] on the device) are made from the grids
+    where not given."""
+    dev = psds[0].device
+    if dev.type == "cpu":
+        return _dn_frames_plain(psds, bins, e0, gamma_sf_grid, gamma0,
+                                i_approx)
+    tab = bin_tables(bins, dev)
+    if frames is None:
+        frames = on_device(frame_grids(gamma_sf_grid, gamma0), dev)
+    psds = [p.contiguous() for p in psds]
+    rows = rebin_dndp(psds, tab, *frames, e0, i_approx)
+    dp = tab.dp[:, None, None]
+    return [torch.stack([p.sum(dim=1), r[0].T, r[1].T], dim=-1) / dp
+            for p, r in zip(psds, rows)]
 
 
 def dndp_cr(psd, bins: PsdBins, e0: float, gamma_sf_grid, gamma0: float,
@@ -255,20 +427,28 @@ def ion_reduce_device(psd, therm_psd, bins: PsdBins, e0: float,
     the reduction runs on."""
     psd = psd.to(F64)
     therm = therm_psd.to(F64)
+    dev = psd.device
     nb = psd.shape[-1]
-    dn_cr, dn_th = _dn_frames([psd, therm], bins, e0, gamma_sf_grid,
-                              gamma0, i_approx)
-    total = psd + therm
+    # every boost of the call in one copy: the d2N's zones, the ISM
+    # frame's (want_ef), and on a card the rebinning's frames
     gam = np.asarray(gamma_sf_grid, np.float64)
-    betas = np.asarray(ux_sk_grid, np.float64) / C_CGS
-    d2n_tot = d2n_boosted(total, gam, betas, e0, bins)
-    d2n_ef = None
+    rows = [gam, np.asarray(ux_sk_grid, np.float64) / C_CGS]
     if want_ef:
         beta0 = math.sqrt(1.0 - 1.0 / gamma0 ** 2)
-        dp = torch.diff(torch.as_tensor(bins.mom_edges, dtype=F64,
-                                        device=psd.device))
-        d2n_ef = d2n_boosted(total, np.full(nb, gamma0), np.full(nb, beta0),
-                             e0, bins) / dp[:, None, None]
+        rows += [np.full(nb, gamma0), np.full(nb, beta0)]
+    kernel = dev.type != "cpu"
+    if kernel:
+        rows += frame_grids(gam, gamma0)
+    grids = on_device(rows, dev)
+    dn_cr, dn_th = _dn_frames([psd, therm], bins, e0, gamma_sf_grid,
+                              gamma0, i_approx,
+                              frames=grids[-2:] if kernel else None)
+    total = psd + therm
+    d2n_tot = d2n_boosted(total, grids[0], grids[1], e0, bins)
+    d2n_ef = None
+    if want_ef:
+        d2n_ef = d2n_boosted(total, grids[2], grids[3], e0,
+                             bins) / bin_tables(bins, dev).dp[:, None, None]
     out = (dn_cr, dn_th, d2n_tot, d2n_ef)
     if not fetch:
         return out

@@ -491,7 +491,9 @@ def test_run_result_counts_the_ladders_launches(monkeypatch):
     """RunResult.launches carries the ladders' launch counts
     (engine/run.py launch_counts) over the run: here every XLA-engine
     segment is made to count one K5 launch of SYNC_EVERY steps, which
-    the run must report, and nothing else."""
+    the run must report, and nothing else (the rebinning kernel, which
+    a CUDA device launches once a species and iteration, none on the
+    CPU)."""
     from montecarloscattering_jl_tpu_torch.engine.driver import run
     from montecarloscattering_jl_tpu_torch.engine.run import launch_counts
 
@@ -515,8 +517,8 @@ def test_run_result_counts_the_ladders_launches(monkeypatch):
           "calculate-photon-production = false")])
     cfg.pcuts = cfg.pcuts[:2]
     res = run(cfg, "cpu", p_dtype=torch.float64)
-    assert set(res.launches) == set(launch_counts())
+    assert set(res.launches) == set(launch_counts()) | {"rebin"}
     assert res.launches == dict(k1=0, k2=0, k5=len(segments),
                                 k5_steps=step.SYNC_EVERY * len(segments),
-                                plain_blocks=0)
+                                plain_blocks=0, rebin=0)
     assert len(segments) >= 2
