@@ -5,6 +5,8 @@ window), then the numbers the benchmark compares (harness/check.py),
 read two ways: the program's outputs (sound), and the plain reference
 computed in the next lower precision put in the program's place (the
 control: float32 for a float64 cell, bfloat16 for a float32 cell).
+The numbers of the configuration's own check (checks/<configuration>.py),
+where it has one, are read both ways too, after the shared ones.
 
     python3 benchmark/control.py --workload <name> --seeds 11 12 13 ...
 
@@ -41,6 +43,8 @@ def main(argv=None) -> int:
 
     torch.set_num_threads(hm.THREADS)
     p_dtype = cell["traffic"]["p_dtype"]
+    own = cell["check"]
+    own_names = own.LIMITS[p_dtype] if own else ()
     max_helix = int(os.environ.get("MCS_MAX_HELIX_STEPS", "10000"))
     out_dir = os.path.join(hm.WORK, "control", args.workload)
     capture = lanes.Capture(0)
@@ -61,7 +65,8 @@ def main(argv=None) -> int:
             low = None if name == "program" else getattr(torch, name)
             t1 = time.perf_counter()
             got, seen = check.judge(capture, res, out_dir, args.device,
-                                    max_helix, low=low)
+                                    max_helix, low=low, own=own,
+                                    own_names=own_names)
             print(json.dumps(dict(
                 workload=args.workload, seed=seed, reading=name,
                 run_s=wall, check_s=time.perf_counter() - t1,

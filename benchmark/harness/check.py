@@ -34,6 +34,14 @@ number compared has its limit, by the momentum precision of the cell
 The reference follows the program stage by stage: the drawn drain from
 the lanes and tables it was handed, the split from its lanes, dN/dp
 and the smoothing from each iteration's tallies and shock profile.
+
+A configuration may bring numbers of its own, for what the shared ones
+cannot see (``checks/<configuration>.py``, found by harness/manifest.py:
+its ``LIMITS`` and ``read``).  ``judge`` returns them after the shared
+numbers, and a cell is judged against both tables of limits.  Their
+names never repeat a shared number's (``manifest.problems`` refuses such
+a file), so a configuration's check can add a judgement and never
+override or loosen a shared one.
 """
 
 from __future__ import annotations
@@ -187,12 +195,36 @@ def control(result, dtype, device):
                                                 dtype, device)
 
 
+def cell_limits(cell: dict) -> dict:
+    """The limits a cell (manifest.cell) is judged by: the shared
+    numbers' at its precision, then its configuration's own."""
+    p_dtype, own = cell["traffic"]["p_dtype"], cell["check"]
+    return {**LIMITS[p_dtype], **(own.LIMITS[p_dtype] if own else {})}
+
+
+def own_readings(own, names, result, out_dir: str, device,
+                 low=None) -> dict:
+    """{number: reading} of the configuration's own check module `own`
+    (its ``read``) for each of `names`, the numbers its ``LIMITS``
+    declares at the cell's precision: MISSING where ``read`` returns no
+    finite reading of a number; what it returns beyond `names` is not
+    judged."""
+    got = own.read(result, out_dir, device, low=low)
+    out = {}
+    for k in names:
+        v = got.get(k)
+        v = MISSING if v is None else float(v)
+        out[k] = v if np.isfinite(v) else MISSING
+    return out
+
+
 def judge(capture, result, out_dir: str, device, max_helix: int,
-          low=None) -> tuple:
+          low=None, own=None, own_names=()) -> tuple:
     """({number: reading}, {what the readings rest on}) of the run
     `result` whose drains and splits `capture` drew; with `low` (a torch
     dtype) the plain reference computed in that precision is judged in
-    the program's place (the control)."""
+    the program's place (the control).  `own`, the configuration's check
+    module, adds its numbers `own_names` after the shared ones."""
     d = lanes.drain_readings(capture.drain, max_helix, dtype=low)
     numbers = {k: d[k] for k in ("lanes_diverged", "psd_gap", "flux_gap",
                                  "esc_gap")}
@@ -204,6 +236,9 @@ def judge(capture, result, out_dir: str, device, max_helix: int,
     numbers["smooth_gap"] = smoothing.gap(result, cast)
     numbers.update(readings(result, out_dir, device, program=(
         None if low is None else control(result, low, device))))
+    if own is not None:
+        numbers.update(own_readings(own, own_names, result, out_dir, device,
+                                    low=low))
     seen = {"lanes": d["lanes"], "steps": d.get("steps"),
             "off": d.get("off"), "kind": (capture.drain or {}).get("kind"),
             "drains": capture.n_drains, "splits": capture.n_splits}

@@ -256,11 +256,13 @@ def run_cell(cell: dict, args, t_start: float, device: str):
             metrics[m["name"]] = {"value": v, "unit": m["unit"]}
 
     capture.remove()
-    limits = check.LIMITS[p_dtype]
+    limits = check.cell_limits(cell)
+    own = cell["check"]
     if last is not None:
         t_check = time.perf_counter()
-        numbers, seen = check.judge(capture, last, out_dir, device,
-                                    max_helix)
+        numbers, seen = check.judge(
+            capture, last, out_dir, device, max_helix, own=own,
+            own_names=own.LIMITS[p_dtype] if own else ())
         err(f"check {time.perf_counter() - t_check:.4f} s: {seen}")
     else:
         numbers = {k: check.MISSING for k in limits}

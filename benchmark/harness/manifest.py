@@ -9,18 +9,31 @@ files of its own that are found by name:
   and the ``env`` set before the port is imported;
 * ``traffic/<traffic>.json``: the mix's parameters (``p_dtype``);
 * ``metrics/<metric>.py``: the metric's reader, ``read(ctx)``, which
-  returns a number or None (nothing to read).
+  returns a number or None (nothing to read);
+* ``checks/<configuration>.py``, where it exists: the configuration's own
+  numbers for ``correct``, beside the shared ones of harness/check.py.
+  It holds ``LIMITS`` ({precision: {number: limit}}, for each precision
+  a cell of the configuration runs) and ``read(result, out_dir, device,
+  low=None)``, which returns {number: reading} of the window's last run
+  (with `low`, a torch dtype, the plain reference in that precision in
+  the program's place: the control).  It is plain torch and NumPy, and
+  imports nothing of the port or of JAX.  Its numbers may not repeat a
+  shared number's name, so it adds judgements and never replaces or
+  loosens one.  A configuration without the file is judged by the
+  shared numbers alone.
 """
 
 from __future__ import annotations
 
 import importlib.util
 import json
+import math
 import os
 import re
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROOT = os.path.dirname(HERE)
+CHECKS = os.path.join(HERE, "checks")
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -75,19 +88,79 @@ def cell(man: dict, workload: str, root: str = ROOT) -> dict:
         traffic = json.load(f)
     return dict(
         workload=w, config=c, toml=toml, meta=meta, traffic=traffic,
+        check=check_module(c["name"]),
         end_to_end=[m for m in man["end_to_end"] if reports(m, workload)],
         per_layer=[m for m in man["per_layer"] if reports(m, workload)])
+
+
+def _load(path: str, prefix: str, name: str):
+    spec = importlib.util.spec_from_file_location(
+        prefix + re.sub(r"\W", "_", name), path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def reader(name: str):
     """The module ``metrics/<name>.py``, loaded by path (a metric's name
     may hold dots)."""
-    path = os.path.join(HERE, "metrics", name + ".py")
-    spec = importlib.util.spec_from_file_location(
-        "benchmark_metric_" + re.sub(r"\W", "_", name), path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    return _load(os.path.join(HERE, "metrics", name + ".py"),
+                 "benchmark_metric_", name)
+
+
+def check_module(config: str):
+    """The module ``checks/<config>.py``, loaded by path, or None where
+    the configuration has no check of its own."""
+    path = os.path.join(CHECKS, config + ".py")
+    if not os.path.exists(path):
+        return None
+    return _load(path, "benchmark_check_", config)
+
+
+def check_problems(man: dict) -> list:
+    """What in the files under ``checks/`` breaks their rules: a stem
+    that names no configuration, no ``LIMITS`` or ``read``, no limits
+    for the precision of a cell that runs the configuration, a limit
+    that is not a finite number >= 0, a number named as a shared one of
+    harness/check.py."""
+    from .check import LIMITS as SHARED
+
+    shared = {k for lim in SHARED.values() for k in lim}
+    out = []
+    configs = {c["name"] for c in man["configs"]}
+    stems = sorted(f[:-3] for f in (os.listdir(CHECKS) if os.path.isdir(
+        CHECKS) else []) if f.endswith(".py"))
+    for stem in stems:
+        if stem not in configs:
+            out.append(f"checks/{stem}.py: names no configuration")
+            continue
+        mod = check_module(stem)
+        if not callable(getattr(mod, "read", None)):
+            out.append(f"checks/{stem}.py: no read")
+        limits = getattr(mod, "LIMITS", None)
+        if not isinstance(limits, dict):
+            out.append(f"checks/{stem}.py: no LIMITS")
+            continue
+        for w in man["workloads"]:
+            path = os.path.join(HERE, "traffic", w["traffic"] + ".json")
+            if w["config"] != stem or not os.path.exists(path):
+                continue
+            with open(path) as f:
+                p_dtype = json.load(f).get("p_dtype")
+            if not isinstance(limits.get(p_dtype), dict):
+                out.append(f"checks/{stem}.py: no limits for {p_dtype} "
+                           f"({w['name']})")
+        named = {k for lim in limits.values() if isinstance(lim, dict)
+                 for k in lim}
+        for k in sorted(named & shared):
+            out.append(f"checks/{stem}.py: {k} is a shared number")
+        for p_dtype, lim in limits.items():
+            for k, v in (lim.items() if isinstance(lim, dict) else ()):
+                if isinstance(v, bool) or not isinstance(
+                        v, (int, float)) or not math.isfinite(v) or v < 0:
+                    out.append(f"checks/{stem}.py: {p_dtype} {k}: limit "
+                               f"{v!r} is not a finite number >= 0")
+    return out
 
 
 def problems(man: dict, root: str = ROOT) -> list:
@@ -191,4 +264,4 @@ def problems(man: dict, root: str = ROOT) -> list:
         layers.setdefault(m["layer"], []).append(m["name"])
         if "\n" in m["layer"] or not 1 <= len(m["layer"]) <= 200:
             out.append(f"{m['name']}: bad layer")
-    return out
+    return out + check_problems(man)

@@ -16,12 +16,14 @@ record, has none.  From them:
   outside the union of device intervals) under `name` and not under
   `minus`;
 * ``launched_s(trace, name)``: the device time of the operations whose
-  launching call ran inside `name`.  ``Trace`` keeps no correlation ids,
-  so launches and operations are paired in order, as the port's one
-  stream runs them: the k-th operation the device started in the window
-  is the k-th kernel launch, copy or set the host called there.  Where
-  the two counts differ (a CUDA graph's launch, say, runs several
-  operations) the pairing is unknown and the reading is None.
+  launching call ran inside `name`: the call with the operation's
+  correlation id (``Trace.device_ids``, ``Trace.calls``), on the span's
+  own thread and inside one of its intervals.  The join holds on any
+  number of streams and threads, for a CUDA graph's launch (its
+  operations carry the launch's id) and where the window holds launches
+  and operations in unequal numbers.  An operation whose call the trace
+  lacks counts under no span; a trace without correlation ids reads
+  None.
 
 A trace of a program without spans has none to read: ``has_spans`` is
 false there and the metrics' readers return None.
@@ -35,9 +37,6 @@ from .trace import clip, gaps, union
 
 PREFIX = "mcs."
 RUN = PREFIX + "run"
-# the CUDA runtime and driver calls that put one operation on a stream
-# (cudaLaunchKernel, cuLaunchKernel, cudaMemcpyAsync, cudaMemsetAsync)
-LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cudaMemset")
 
 
 def has_spans(trace) -> bool:
@@ -89,34 +88,28 @@ def idle_s(trace, name: str, minus: str | None = None) -> float:
     return seconds(intersect(gaps(trace.busy(), lo, hi), where))
 
 
-def launches(trace) -> list | None:
-    """The start of the launching call of each device operation that
-    starts in the window, in the operations' order; None where the
-    counts differ."""
-    lo, hi = trace.window
-    calls = sorted(s for n, s, _ in trace.host
-                   if lo <= s < hi and n.startswith(LAUNCH_CALLS))
-    ops = [d for d in trace.device if lo <= d[1] < hi]
-    if len(calls) != len(ops):
-        return None
-    return calls
-
-
 def launched_s(trace, name: str) -> float | None:
     """Device seconds (the union, inside the window) of the operations
-    whose launching call ran under the span `name`; None where the
-    launches cannot be paired with the operations."""
-    calls = launches(trace)
-    if calls is None:
+    whose launching call ran under the span `name` on that span's
+    thread, the two joined by the profiler's correlation id; None where
+    the operations or the calls carry no id."""
+    if not trace.calls or all(c is None for c in trace.device_ids):
         return None
-    spans = under(trace, name)
-    starts = [s for s, _ in spans]
-
-    def inside(t) -> bool:
-        k = bisect.bisect_right(starts, t) - 1
-        return k >= 0 and t <= spans[k][1]
-
     lo, hi = trace.window
-    ops = sorted((s, e) for _, s, e in trace.device if lo <= s < hi)
-    return seconds(union(clip([op for op, t in zip(ops, calls)
-                               if inside(t)], lo, hi)))
+    by_thread = {}
+    for (n, s, e), tid in zip(trace.host, trace.host_threads):
+        if n == name:
+            by_thread.setdefault(tid, []).append((s, e))
+    spans = {tid: union(clip(iv, lo, hi)) for tid, iv in by_thread.items()}
+    starts = {tid: [s for s, _ in iv] for tid, iv in spans.items()}
+
+    def inside(call) -> bool:
+        tid, t = call
+        if tid not in spans:
+            return False
+        k = bisect.bisect_right(starts[tid], t) - 1
+        return k >= 0 and t <= spans[tid][k][1]
+
+    ops = [(s, e) for (_, s, e), c in zip(trace.device, trace.device_ids)
+           if lo <= s < hi and c in trace.calls and inside(trace.calls[c])]
+    return seconds(union(clip(ops, lo, hi)))

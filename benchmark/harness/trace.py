@@ -11,6 +11,11 @@ The profiler's Chrome trace is read into plain tuples (``collect``,
   the host operator the profiler shows across most of it (until the port
   opens ranges of its own, the nearest torch operator or CUDA runtime
   call);
+* each device operation keeps the profiler's correlation id
+  (``args.correlation``), and each CUDA runtime or driver call that
+  carries one keeps it with its thread and start: the id joins an
+  operation to the call that launched it, copied or set it, on any
+  stream and from any thread (harness/spans.py ``launched_s``);
 * host waits are the calls that block the host on the device:
   ``cudaStreamSynchronize``, ``cudaDeviceSynchronize``,
   ``cudaEventSynchronize``, and device-to-host copies into pageable
@@ -80,12 +85,19 @@ def name_gap(gap, host) -> str:
 class Trace:
     """A traced window: device intervals (name, start, end) and top-level
     host events (name, start, end), in seconds on one clock, the window's
-    bounds, and the host waits counted."""
+    bounds, and the host waits counted.  ``device_ids`` holds the
+    correlation id of each ``device`` entry (None where the trace gives
+    none), ``host_threads`` the thread of each ``host`` entry, and
+    ``calls`` {correlation id: (thread, start)} of the CUDA runtime and
+    driver calls that carry an id."""
 
     window: tuple
     device: list = field(default_factory=list)
     host: list = field(default_factory=list)
     host_waits: int = 0
+    device_ids: list = field(default_factory=list)
+    host_threads: list = field(default_factory=list)
+    calls: dict = field(default_factory=dict)
 
     @property
     def window_s(self) -> float:
@@ -130,28 +142,37 @@ def from_events(events) -> Trace:
     """A Trace of a Chrome-format trace's events (torch.profiler's
     ``export_chrome_trace``), over its ``benchmark.window`` range: device
     intervals are kernels, copies and sets (not the device-side copies of
-    host ranges), host events are operators and CUDA runtime calls."""
+    host ranges), host events are operators and CUDA runtime and driver
+    calls; correlation ids and threads are kept beside them."""
     window, device, host, waits = None, [], [], 0
+    device_ids, host_threads, calls = [], [], {}
     for e in events:
         if e.get("ph") != "X":
             continue
         cat, name = e.get("cat", ""), e.get("name", "")
         s = float(e["ts"]) * 1e-6
         t = s + float(e.get("dur", 0.0)) * 1e-6
+        corr = (e.get("args") or {}).get("correlation")
         if cat in DEVICE_CATS:
             device.append((name, s, t))
+            device_ids.append(corr)
             if cat == "gpu_memcpy" and "DtoH" in name and \
                     "Pinned" not in name:
                 waits += 1
         elif cat in HOST_CATS:
             host.append((name, s, t))
+            host_threads.append(e.get("tid"))
+            if corr is not None and cat != "cpu_op":
+                calls[corr] = (e.get("tid"), s)
             if name in SYNC_CALLS:
                 waits += 1
         elif cat == "user_annotation" and name == WINDOW:
             window = (s, t)
     if window is None:
         raise RuntimeError(f"the trace holds no {WINDOW} range")
-    return Trace(window=window, device=device, host=host, host_waits=waits)
+    return Trace(window=window, device=device, host=host, host_waits=waits,
+                 device_ids=device_ids, host_threads=host_threads,
+                 calls=calls)
 
 
 def collect(prof, path: str) -> Trace:

@@ -3,6 +3,8 @@
 import json
 import os
 
+import pytest
+
 from harness import manifest
 
 MAN = manifest.load()
@@ -81,3 +83,46 @@ def test_every_cell_resolves():
                  if c["name"] == w["config"])["reduced"]
         for m in cell["end_to_end"] + cell["per_layer"]:
             assert callable(manifest.reader(m["name"]).read)
+
+
+SOUND = """
+LIMITS = {"float64": {"own.gap": 1e-9}, "float32": {"own.gap": 1e-6}}
+
+
+def read(result, out_dir, device, low=None):
+    return {"own.gap": 0.0}
+"""
+
+
+@pytest.mark.parametrize("stem,text,want", [
+    ("nonrel_nonlinear", SOUND, None),
+    ("no_such_config", SOUND, "names no configuration"),
+    ("nonrel_nonlinear", SOUND.replace("own.gap", "dndp_gap"),
+     "dndp_gap is a shared number"),
+    ("nonrel_nonlinear", SOUND.replace(', "float32": {"own.gap": 1e-6}', ""),
+     "no limits for float32 (nonrel_nonlinear.f32)"),
+    ("nonrel_nonlinear", SOUND.split("def read")[0], "no read"),
+    ("nonrel_nonlinear", "def read(*a, **kw):\n    return {}\n", "no LIMITS"),
+    ("nonrel_nonlinear", SOUND.replace("1e-6", "-1e-6"),
+     "float32 own.gap: limit -1e-06 is not a finite number >= 0"),
+    ("nonrel_nonlinear", SOUND.replace("1e-6", "float('inf')"),
+     "float32 own.gap: limit inf is not a finite number >= 0"),
+    ("nonrel_nonlinear", SOUND.replace("1e-6", "'1e-6'"),
+     "float32 own.gap: limit '1e-6' is not a finite number >= 0"),
+], ids=["sound", "stem", "shared", "precision", "read", "limits",
+        "negative", "infinite", "string"])
+def test_problems_of_a_check_file(tmp_path, monkeypatch, stem, text, want):
+    monkeypatch.setattr(manifest, "CHECKS", str(tmp_path))
+    (tmp_path / (stem + ".py")).write_text(text)
+    got = manifest.problems(MAN)
+    if want is None:
+        assert got == []
+    else:
+        assert got == [f"checks/{stem}.py: {want}"]
+
+
+def test_no_check_file_for_an_existing_configuration():
+    """The configurations judged by the shared numbers alone."""
+    assert manifest.check_problems(MAN) == []
+    for c in MAN["configs"]:
+        assert manifest.check_module(c["name"]) is None

@@ -2,8 +2,9 @@
 skipped: the result line's keys, the numbers `correct` compares, the
 controls (the plain reference at a lower precision in the program's
 place) and the faults of the timed path that have to come out not
-correct.  The test marked ``cuda`` runs benchmark/run.py itself where a
-card is present."""
+correct, and a configuration's own check (checks/<configuration>.py)
+written for the tests.  The test marked ``cuda`` runs benchmark/run.py
+itself where a card is present."""
 
 import argparse
 import importlib
@@ -17,7 +18,7 @@ import time
 import pytest
 import torch
 
-from harness import check, lanes, main as hm, manifest
+from harness import check, guard, lanes, main as hm, manifest
 
 ROOT = os.path.dirname(manifest.HERE)
 CELL = "nonrel_nonlinear.f64"
@@ -70,10 +71,164 @@ def test_line_keys_and_checked_last(small):
         assert m["value"] > 0 and set(m) == {"value", "unit"}
     assert set(line["device"]) == {"platform", "kind", "count",
                                    "memory_peak_bytes"}
+    # a configuration without a check file: the shared numbers alone
+    assert small["check"] is None
     assert set(checked) == set(check.LIMITS["float64"])
+    assert check.cell_limits(small) == check.LIMITS["float64"]
     for k, v in checked.items():
         assert v["value"] <= v["limit"], k
     json.dumps(line)
+
+
+OWN = '''"""A configuration's own check, for the tests: the last iteration's
+CR dN/dp of the first species against the plain reference, the array
+multiplied by FACTOR where it is read."""
+
+import numpy as np
+import torch
+
+from harness import check
+
+FACTOR = {factor!r}
+LIMITS = {{"float64": {{"own.cr_gap": 1e-9}},
+          "float32": {{"own.cr_gap": 1e-9}}}}
+
+
+def read(result, out_dir, device, low=None):
+    i = len(result.iterations) - 1
+    want = check.reference_dndp(result, i, 0, torch.float64, device)[1]
+    got = (result.iterations[i].ion_finals[0].dndp_cr if low is None
+           else check.reference_dndp(result, i, 0, low, device)[1])
+    return {{"own.cr_gap": check.gap(np.asarray(got) * FACTOR, want)}}
+'''
+
+
+def write_own(checks_dir, config, factor=1.0):
+    """checks/<config>.py under `checks_dir`: OWN at `factor`."""
+    os.makedirs(checks_dir, exist_ok=True)
+    with open(os.path.join(checks_dir, config + ".py"), "w") as f:
+        f.write(OWN.format(factor=factor))
+
+
+def test_check_files_load_neither_the_port_nor_jax(tmp_path):
+    """Every file under checks/, and the tests' own, loaded by name in a
+    fresh interpreter: no module of the port or of JAX comes with it."""
+    tmp = str(tmp_path / "checks")
+    write_own(tmp, "tmp_config")
+    files = [(tmp, "tmp_config")]
+    if os.path.isdir(manifest.CHECKS):
+        files += [(manifest.CHECKS, f[:-3]) for f in sorted(
+            os.listdir(manifest.CHECKS)) if f.endswith(".py")]
+    bad = guard.FORBIDDEN + ("montecarloscattering_jl_tpu_torch",)
+    for where, stem in files:
+        code = (
+            "import sys\n"
+            f"sys.path[:0] = [{manifest.HERE!r}, {ROOT!r}]\n"
+            "from harness import manifest\n"
+            f"manifest.CHECKS = {where!r}\n"
+            f"mod = manifest.check_module({stem!r})\n"
+            "assert callable(mod.read) and isinstance(mod.LIMITS, dict)\n"
+            "print(sorted(n for n in sys.modules\n"
+            f"             if n.split('.', 1)[0] in {bad!r}))\n")
+        out = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
+                             capture_output=True, text=True, timeout=300)
+        assert out.returncode == 0, out.stderr[-2000:]
+        assert out.stdout.strip() == "[]", (stem, out.stdout)
+
+
+@pytest.fixture
+def own(small, tmp_path, monkeypatch):
+    """`small` with a check of its configuration's own, found by name
+    under a checks directory in `tmp_path`; call it with the factor."""
+    checks = str(tmp_path / "checks")
+    monkeypatch.setattr(manifest, "CHECKS", checks)
+
+    def make(factor):
+        write_own(checks, small["config"]["name"], factor)
+        cell = manifest.cell(manifest.load(), CELL)
+        cell["toml"] = small["toml"]
+        return cell
+    return make
+
+
+def test_own_check_sound(own):
+    cell = own(1.0)
+    assert cell["check"] is not None
+    line, checked = _run(cell)
+    assert line["correct"] is True, checked
+    # the shared numbers first, the configuration's own after them
+    assert list(checked)[-1] == "own.cr_gap"
+    assert set(checked) == set(check.LIMITS["float64"]) | {"own.cr_gap"}
+    assert checked["own.cr_gap"]["limit"] == 1e-9
+    assert line["checked"] == checked
+
+
+def test_own_check_fault(own):
+    """The check's read doubles the array it is handed."""
+    line, checked = _run(own(2.0))
+    assert _limit(checked, "own.cr_gap")
+    assert checked["own.cr_gap"]["value"] == pytest.approx(1.0)
+    assert line["correct"] is False
+    # the shared numbers still hold
+    assert all(v["value"] <= v["limit"] for k, v in checked.items()
+               if k != "own.cr_gap")
+
+
+def test_own_check_control_fails(own):
+    """The control reads the configuration's numbers too: the plain
+    reference at float32 in the program's place fails its limit."""
+    from montecarloscattering_jl_tpu_torch.engine import driver
+    from montecarloscattering_jl_tpu_torch.utils import load_config
+
+    cell = own(1.0)
+    cfg = load_config(cell["toml"])
+    capture = lanes.Capture(5)
+    capture.start_run(0)
+    capture.install()
+    out = os.path.join(hm.WORK, "control")
+    try:
+        res = driver.run(cfg, device="cpu", out_dir=out,
+                         p_dtype=torch.float64)
+    finally:
+        capture.remove()
+    limits = check.cell_limits(cell)
+    names = cell["check"].LIMITS["float64"]
+    sound, _ = check.judge(capture, res, out, "cpu", 200, own=cell["check"],
+                           own_names=names)
+    low, _ = check.judge(capture, res, out, "cpu", 200, low=torch.float32,
+                         own=cell["check"], own_names=names)
+    assert list(sound) == list(low) and list(sound)[-1] == "own.cr_gap"
+    assert check.verdict(sound, limits)[1], sound
+    assert low["own.cr_gap"] > limits["own.cr_gap"], low
+
+
+def test_own_check_no_run_reads_missing(own, monkeypatch):
+    """No run of the window completes: every number, the configuration's
+    own among them, reads MISSING."""
+    from montecarloscattering_jl_tpu_torch.engine import driver
+
+    base = driver.run
+
+    def run(cfg, *a, **kw):
+        if cfg.n_itrs > 1:
+            raise RuntimeError("a run that fails")
+        return base(cfg, *a, **kw)
+
+    monkeypatch.setattr(driver, "run", run)
+    line, checked = _run(own(1.0))
+    assert line["correct"] is False and line["failed"] == 1
+    assert set(checked) == set(check.LIMITS["float64"]) | {"own.cr_gap"}
+    assert {v["value"] for v in checked.values()} == {check.MISSING}
+
+
+def test_own_check_number_not_read(own):
+    """A number LIMITS declares that read does not return reads
+    MISSING."""
+    cell = own(1.0)
+    cell["check"].read = lambda *a, **kw: {}
+    line, checked = _run(cell)
+    assert checked["own.cr_gap"]["value"] == check.MISSING
+    assert line["correct"] is False
 
 
 @pytest.mark.parametrize("p_dtype,lows", [

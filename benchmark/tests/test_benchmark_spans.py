@@ -9,7 +9,9 @@ drain 2.5-5 s launched at 2.2 under the transport; an index_put 5-5.4
 launched at 3.2 under the first finish; a reduction 8-8.5 launched at
 6.5, outside both; a kernel 12.3-12.5 and a copy 13-13.1 launched at
 12.1 and 12.15 under the second finish; a kernel 14-14.2 launched at
-13.95.  A stream sync and an event record launch nothing.
+13.95.  A stream sync and an event record launch nothing.  Each launching
+call and its operation share a correlation id, as the profiler writes
+them; the spans and the calls run on thread 1.
 """
 
 import json
@@ -37,33 +39,41 @@ def _x(cat, name, s, e, tid=1, corr=None):
     return ev
 
 
-def _events(with_spans=True, drop=None, extra=(), ops=()):
+def _events(with_spans=True, drop=None, extra=(), ops=(), ids=True):
     """The synthetic trace; `drop` leaves out the launching call of that
-    start, `extra` adds host calls (name, start), `ops` device kernels
-    (start, end)."""
+    start, `extra` adds host calls (name, start[, thread]), each with
+    correlation id 100 + its index, `ops` device kernels (start, end[,
+    id, stream]); `ids` false writes no correlation id, as a trace
+    without them."""
+    dev = [("kernel", "helix_drain_kernel<double>", 2.5, 5.0),
+           ("kernel", "indexing_backward_kernel", 5.0, 5.4),
+           ("kernel", "reduce_kernel", 8.0, 8.5),
+           ("kernel", "indexing_backward_kernel", 12.3, 12.5),
+           ("gpu_memcpy", "Memcpy DtoH (Device -> Pageable)", 13.0, 13.1),
+           ("kernel", "elementwise_kernel", 14.0, 14.2)]
+    corr = (lambda k: k) if ids else (lambda k: None)
     ev = [_x("user_annotation", "benchmark.window", 0.0, 20.0),
           _x("cpu_op", "aten::index_put_", 3.1, 3.4),
-          _x("cuda_runtime", "cudaEventRecord", 2.3, 2.31),
-          _x("kernel", "helix_drain_kernel<double>", 2.5, 5.0, 7),
-          _x("kernel", "indexing_backward_kernel", 5.0, 5.4, 7),
-          _x("kernel", "reduce_kernel", 8.0, 8.5, 7),
-          _x("kernel", "indexing_backward_kernel", 12.3, 12.5, 7),
-          _x("gpu_memcpy", "Memcpy DtoH (Device -> Pageable)", 13.0, 13.1,
-             7),
-          _x("cuda_runtime", "cudaStreamSynchronize", 13.2, 13.9),
-          _x("kernel", "elementwise_kernel", 14.0, 14.2, 7),
+          _x("cuda_runtime", "cudaEventRecord", 2.3, 2.31, corr=corr(50)),
+          _x("cuda_runtime", "cudaStreamSynchronize", 13.2, 13.9,
+             corr=corr(51)),
           {"ph": "f", "cat": "ac2g", "name": "flow", "ts": 2.2e6}]
+    ev += [_x(cat, name, s, e, 7, corr=corr(k))
+           for k, (cat, name, s, e) in enumerate(dev)]
     for k, t in enumerate(LAUNCHED):
         if t != drop:
             name = "cudaMemcpyAsync" if t == 12.15 else (
                 "cuLaunchKernel" if t == 13.95 else "cudaLaunchKernel")
             ev.append(_x("cuda_driver" if name[:2] == "cu" and
                          name[2] != "d" else "cuda_runtime",
-                         name, t, t + 0.01, corr=k))
-    for name, t in extra:
-        ev.append(_x("cuda_runtime", name, t, t + 0.01))
-    for s, e in ops:
-        ev.append(_x("kernel", "graph_node_kernel", s, e, 7))
+                         name, t, t + 0.01, corr=corr(k)))
+    for k, (name, t, *tid) in enumerate(extra):
+        ev.append(_x("cuda_runtime", name, t, t + 0.01, *tid,
+                     corr=corr(100 + k)))
+    for s, e, *more in ops:
+        k, stream = more if more else (100, 7)
+        ev.append(_x("kernel", "graph_node_kernel", s, e, stream,
+                     corr=corr(k)))
     if with_spans:
         for name, s, e in SPANS:
             ev.append(_x("cpu_op", name, s, e))
@@ -96,25 +106,99 @@ def test_spans_are_host_operators():
     assert spans.under(t, "mcs.finish") == [(3.0, 3.5), (12.0, 12.2)]
 
 
+# the calls that put one operation on a stream, as the pairing in order
+# read them (cudaLaunchKernel, cuLaunchKernel, cudaMemcpyAsync,
+# cudaMemsetAsync)
+LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cudaMemset")
+
+
+def _in_order(t):
+    """The launching calls' starts paired in order with the operations
+    that start in the window: the k-th operation with the k-th launch,
+    copy or set; None where the counts differ."""
+    lo, hi = t.window
+    calls = sorted(s for n, s, _ in t.host
+                   if lo <= s < hi and n.startswith(LAUNCH_CALLS))
+    ops = [d for d in t.device if lo <= d[1] < hi]
+    return calls if len(calls) == len(ops) else None
+
+
+def _in_order_s(t, name):
+    """launched_s by the pairing in order, the join's reference on one
+    stream and one thread."""
+    calls = _in_order(t)
+    if calls is None:
+        return None
+    lo, hi = t.window
+    ops = sorted((s, e) for _, s, e in t.device if lo <= s < hi)
+    return spans.seconds(trace.union(trace.clip(
+        [op for op, c in zip(ops, calls)
+         if any(s <= c <= e for s, e in spans.under(t, name))], lo, hi)))
+
+
 def test_launches_pair_in_order():
     t = trace.from_events(_events())
-    assert spans.launches(t) == pytest.approx(LAUNCHED)
+    assert _in_order(t) == pytest.approx(LAUNCHED)
+    assert [t.calls[c][1] for c in t.device_ids] == pytest.approx(LAUNCHED)
+    assert {t.calls[c][0] for c in t.device_ids} == {1}
 
 
-@pytest.mark.parametrize("drop,extra,ops", [
+def test_join_reads_the_pairing_in_order_on_one_stream():
+    t = trace.from_events(_events())
+    assert spans.launched_s(t, "mcs.finish") == pytest.approx(0.7)
+    assert spans.launched_s(t, "mcs.finish") == _in_order_s(t, "mcs.finish")
+    assert spans.launched_s(t, "mcs.transport") == \
+        _in_order_s(t, "mcs.transport") == pytest.approx(3.4)
+
+
+UNPAIRED = [
     (13.95, (), ()),                                # an operation unpaired
     (None, (("cudaLaunchKernel", 15.0),), ()),      # a launch without one
     # a CUDA graph's launch: several operations
     (None, (("cudaGraphLaunch", 15.0),), ((15.1, 15.2), (15.2, 15.3))),
-])
+]
+
+
+@pytest.mark.parametrize("drop,extra,ops", UNPAIRED)
 def test_unpaired_launches_read_nothing(drop, extra, ops):
-    t = trace.from_events(_events(drop=drop, extra=extra, ops=ops))
-    assert spans.launches(t) is None
+    """Without correlation ids nothing joins an operation to its call,
+    and the pairing in order fails on these traces."""
+    events = _events(drop=drop, extra=extra, ops=ops, ids=False)
+    t = trace.from_events(events)
+    assert _in_order(t) is None
+    assert t.calls == {} and set(t.device_ids) == {None}
     assert spans.launched_s(t, "mcs.finish") is None
-    ctx = _ctx(_events(drop=drop, extra=extra, ops=ops))
+    ctx = _ctx(events)
     assert manifest.reader("finish.device_s").read(ctx) is None
     # the idle and the waits need no pairing
     assert manifest.reader("ladder.idle_s").read(ctx) is not None
+
+
+@pytest.mark.parametrize("drop,extra,ops,finish", [
+    case + (0.7,) for case in UNPAIRED] + [
+    # a worker thread's graph launch at 12.05, inside the second finish's
+    # time but not on its thread, runs a kernel on a second stream
+    (None, (("cudaGraphLaunch", 12.05, 2),), ((12.6, 12.7, 100, 9),),
+     0.7),
+    # the same launch on the spans' thread counts, both of its kernels
+    (None, (("cudaGraphLaunch", 12.05, 1),),
+     ((12.6, 12.7, 100, 9), (12.7, 12.75, 100, 9)), 0.85),
+    # a copy on a second stream, launched at 4.0 outside the finish, that
+    # runs 4.1-4.3, before the first finish's index_put: in order, the
+    # copy is put down to the finish's launch at 3.2
+    (None, (("cudaMemcpyAsync", 4.0),), ((4.1, 4.3, 100, 9),), 0.7),
+])
+def test_join_by_correlation(drop, extra, ops, finish):
+    """One operation has no launching call in order: the pairing in order
+    reads None or the wrong seconds, the join the right ones."""
+    events = _events(drop=drop, extra=extra, ops=ops)
+    t = trace.from_events(events)
+    in_order = _in_order_s(t, "mcs.finish")
+    assert in_order is None or abs(in_order - finish) > 0.1
+    assert spans.launched_s(t, "mcs.finish") == pytest.approx(finish)
+    ctx = _ctx(events)
+    assert manifest.reader("finish.device_s").read(ctx) == \
+        pytest.approx(finish / 2)
 
 
 @pytest.mark.parametrize("name,per_run", [
