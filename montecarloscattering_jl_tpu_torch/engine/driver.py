@@ -11,6 +11,7 @@ summed tallies, and rank 0 writes the files.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import time
@@ -353,7 +354,10 @@ def run(cfg: RunConfig | str, device="cuda", out_dir: str | None = None,
                                 engine_trajs=engine.n_trajectories_total,
                                 ion_finals=[_result(p) for p in pend])
                         mid_ckpt.context_fn = _ctx
-                    with timers.phase("transport"):
+                    with timers.phase("transport"), (
+                            span("transport.electrons")
+                            if cfg.species[i_ion].is_electron
+                            else contextlib.nullcontext()):
                         res = engine.run_ion(i_iter, i_ion, prof, it,
                                              ckpt=mid_ckpt,
                                              resume_mid=resume_tr)

@@ -19,6 +19,16 @@ def _log10s(x):
     return np.log10(np.maximum(np.asarray(x, float), 1e-99))
 
 
+def _lines(fmt: str, *cols) -> str:
+    """`fmt` % each row of the columns `cols` (arrays of one length, or
+    scalars repeated), formatted from Python numbers: the text a row-by-
+    row f-string of the same specs writes, without NumPy's per-scalar
+    cost."""
+    n = max(np.size(c) for c in cols)
+    rows = zip(*(np.broadcast_to(c, (n,)).tolist() for c in cols))
+    return "".join(fmt % r for r in rows)
+
+
 def write_mc_grid(result, path: str) -> None:
     """33-column per-zone dashboard, one block per iteration
     (smoothers.jl:234-272 column list)."""
@@ -91,16 +101,14 @@ def write_dndp(result, out_dir: str) -> None:
                         "log_dNdp_sf log_dNdp_pf log_dNdp_ism\n")
                 for i_ion, fi in enumerate(itr.ion_finals):
                     dn = getattr(fi, attr)
+                    lg = _log10s(dn)
                     for i in range(1, setup.nb - 1):
                         if dn[:, i, :].max() <= 1e-66:
                             continue
-                        for j in range(bins.n_mom + 1):
-                            f.write(
-                                f"{i} {i_ion + 1} {logp[j]:.5f} "
-                                f"{logp_nat[j]:.5f} "
-                                f"{_log10s(dn[j, i, 0]):.5e} "
-                                f"{_log10s(dn[j, i, 1]):.5e} "
-                                f"{_log10s(dn[j, i, 2]):.5e}\n")
+                        f.write(_lines("%d %d %.5f %.5f %.5e %.5e %.5e\n",
+                                       i, i_ion + 1, logp, logp_nat,
+                                       lg[:, i, 0], lg[:, i, 1],
+                                       lg[:, i, 2]))
                 f.write(plot_vals_footer(setup))
         if not setup.cfg.do_multi_dndps:
             break  # single file covers the final iteration only
@@ -272,18 +280,16 @@ def write_photons(result, out_dir: str) -> None:
         with open(path, "w") as f:
             f.write("# i_zone log_photon_flux log_E_MeV "
                     "log_energy_flux_MeV log_dN_dE\n")
-            e_mev = e_gamma / K.MEV_ERG
+            e_mev = e_gamma[:-1] / K.MEV_ERG
             for i in range(grid.shape[1]):
                 col = grid[:, i]
                 if col.max() <= 1e-90:
                     continue
-                emis_mev = col / K.MEV_ERG
+                emis_mev = col[:-1] / K.MEV_ERG
                 pf = np.where(emis_mev > 1e-99, emis_mev / e_mev, 1e-99)
-                for j in range(len(e_gamma) - 1):
-                    f.write(f"{i} {_log10s(pf[j]):.5f} "
-                            f"{np.log10(e_mev[j]):.5f} "
-                            f"{_log10s(emis_mev[j]):.5f} "
-                            f"{_log10s(pf[j] / e_mev[j]):.5f}\n")
+                f.write(_lines("%d %.5f %.5f %.5f %.5f\n", i, _log10s(pf),
+                               np.log10(e_mev), _log10s(emis_mev),
+                               _log10s(pf / e_mev)))
 
     grid_file("pion_decay", em.e_pion, em.pion_grid)
     grid_file("synch", em.e_synch, em.synch_grid)
@@ -296,14 +302,12 @@ def write_photons(result, out_dir: str) -> None:
         with open(path, "w") as f:
             f.write("# i_shell log_photon_flux log_E_MeV "
                     "log_energy_flux_MeV\n")
-            e_mev = e_gamma / K.MEV_ERG
+            e_mev = e_gamma[:-1] / K.MEV_ERG
             for n in range(shells.shape[1]):
-                for j in range(len(e_gamma) - 1):
-                    v = shells[j, n] / K.MEV_ERG
-                    pf = v / e_mev[j] if v > 1e-99 else 1e-99
-                    f.write(f"{n + 1} {_log10s(pf):.5f} "
-                            f"{np.log10(e_mev[j]):.5f} "
-                            f"{_log10s(v):.5f}\n")
+                v = shells[:-1, n] / K.MEV_ERG
+                pf = np.where(v > 1e-99, v / e_mev, 1e-99)
+                f.write(_lines("%d %.5f %.5f %.5f\n", n + 1, _log10s(pf),
+                               np.log10(e_mev), _log10s(v)))
 
     summed_file("pion", em.e_pion, em.pion_shell)
     summed_file("synch", em.e_synch, em.synch_shell)
@@ -315,11 +319,10 @@ def write_photons(result, out_dir: str) -> None:
     with open(os.path.join(out_dir, "photon_tot.dat"), "w") as f:
         f.write("# log_E_MeV log_energy_flux_MeV log_photon_flux\n")
         e_mev = em.e_tot / K.MEV_ERG
-        for j in range(len(em.e_tot)):
-            v = em.tot[j] / K.MEV_ERG
-            pf = v / e_mev[j] if v > 1e-99 else 1e-99
-            f.write(f"{np.log10(e_mev[j]):.5f} {_log10s(v):.5f} "
-                    f"{_log10s(pf):.5f}\n")
+        v = em.tot / K.MEV_ERG
+        pf = np.where(v > 1e-99, v / e_mev, 1e-99)
+        f.write(_lines("%.5f %.5f %.5f\n", np.log10(e_mev), _log10s(v),
+                       _log10s(pf)))
 
 
 def write_xspec(result, out_dir: str) -> None:

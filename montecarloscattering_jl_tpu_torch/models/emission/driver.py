@@ -25,6 +25,7 @@ import torch
 
 from ...ops.reduce import shell_surface_areas
 from ...utils.constants import C_CGS, ME_C2, MEV_ERG, MPC_CM
+from ...utils.tracing import span
 from . import device as dev
 from .inverse_compton import (cmb_photon_field, ic_emission,
                               ic_photon_energy_grid)
@@ -236,36 +237,44 @@ def _grids_batched(setup, prof, ion_finals, ps: _Pass, grids, device):
         counts_z = t(((fi.dndp_therm[:, zs, 1] + fi.dndp_cr[:, zs, 1])
                       * ps.dp[:, None]).T)              # [nz, n_p]
         if s.aa >= 1:
-            scaling = heavy_nuclei_scaling(s.aa, ps.aa_ion, ps.n0_ion)
-            emis = host(dev.pion_grid_device(
-                counts_z, ps.p_edges, ps.e_pion, target_z, s.aa, s.mc,
-                scaling))
-            pion_grid[:, zs] = (np.maximum(pion_grid[:, zs], 0.0)
-                                + emis * ps.flux_fac)
+            with span("emission.pion"):
+                scaling = heavy_nuclei_scaling(s.aa, ps.aa_ion, ps.n0_ion)
+                emis = host(dev.pion_grid_device(
+                    counts_z, ps.p_edges, ps.e_pion, target_z, s.aa, s.mc,
+                    scaling))
+                pion_grid[:, zs] = (np.maximum(pion_grid[:, zs], 0.0)
+                                    + emis * ps.flux_fac)
             continue
-        emis = host(dev.synch_grid_device(counts_z, t(prof.btot[zs]),
-                                          p_edges, e_synch))
-        synch_grid[:, zs] += emis * ps.flux_fac
+        with span("emission.synch"):
+            emis = host(dev.synch_grid_device(counts_z, t(prof.btot[zs]),
+                                              p_edges, e_synch))
+            synch_grid[:, zs] += emis * ps.flux_fac
         if fi.d2n_ef is None:
             continue
-        ne_z = dev.cone_cut_counts(fi.d2n_ef[:, :, zs] * ps.dp[:, None, None],
-                                   ps.cos_bounds, cfg.jet_sph_frac)
-        a1, n_ph = cmb_photon_field(setup.redshift)
-        ic_grid[:, zs] += host(dev.ic_grid_device(
-            t(ne_z), p_edges, alpha_ic, (t(a1), t(n_ph)), s.mc,
-            cfg.jet_sph_frac, ps.dist_lum))
-        if not cfg.do_ssc:
-            continue
-        for k, n in enumerate(range(zs.start, zs.stop)):
-            if emis[:, k].max() <= 1e-90:
+        with span("emission.ic"):
+            d2n_z = fi.d2n_ef[:, :, zs] * ps.dp[:, None, None]
+            ne_z = dev.cone_cut_counts(d2n_z, ps.cos_bounds,
+                                       cfg.jet_sph_frac)
+            a1, n_ph = cmb_photon_field(setup.redshift)
+            ic = host(dev.ic_grid_device(
+                t(ne_z), p_edges, alpha_ic, (t(a1), t(n_ph)), s.mc,
+                cfg.jet_sph_frac, ps.dist_lum))
+            # a zone without electrons keeps the grid's floor, as the
+            # per-zone body leaves it (it skips the zone)
+            live = d2n_z.max(axis=(0, 1)) > 1e-90
+            ic_grid[:, zs] += np.where(live[None, :], ic, 0.0)
+            if not cfg.do_ssc:
                 continue
-            d2n_counts = fi.d2n_ef[:, :, n] * ps.dp[:, None]
-            if d2n_counts.max() <= 1e-90:
-                continue
-            ssc_grid[:, n] += ic_emission(
-                d2n_counts, ps.p_edges, ps.cos_bounds, ps.alpha_ic,
-                setup.redshift, cfg.jet_sph_frac, ps.dist_lum, s.mc,
-                seed=ps.ssc_seed(emis[:, k], n))
+            for k, n in enumerate(range(zs.start, zs.stop)):
+                if emis[:, k].max() <= 1e-90:
+                    continue
+                d2n_counts = fi.d2n_ef[:, :, n] * ps.dp[:, None]
+                if d2n_counts.max() <= 1e-90:
+                    continue
+                ssc_grid[:, n] += ic_emission(
+                    d2n_counts, ps.p_edges, ps.cos_bounds, ps.alpha_ic,
+                    setup.redshift, cfg.jet_sph_frac, ps.dist_lum, s.mc,
+                    seed=ps.ssc_seed(emis[:, k], n))
 
 
 def photon_calcs(setup, prof, ion_finals, i_iter: int = 0, *,
@@ -323,16 +332,17 @@ def photon_calcs(setup, prof, ion_finals, i_iter: int = 0, *,
                                       device=device)
         shift = lambda g, e: dev.doppler_shift_device(
             t(g), t(e), t(prof.beta_ef), t(prof.gamma_ef)).cpu().numpy()
-    pion_shell = sum_shells(shift(pion_grid, e_pion), ends)
-    synch_shell = sum_shells(shift(synch_grid, e_synch), ends)
-    ic_shell = sum_shells(ic_grid, ends)
-    ssc_shell = None
-    if cfg.do_ssc:
-        ssc_shell = sum_shells(ssc_grid, ends)
-        # SSC shares the IC outgoing grid; fold it into the IC channel
-        # of the master merge
-        ic_shell = ic_shell + np.maximum(ssc_shell, 0.0)
-    e_tot, tot_shell = merge_total(pion_shell, synch_shell, ic_shell)
+    with span("emission.sum"):
+        pion_shell = sum_shells(shift(pion_grid, e_pion), ends)
+        synch_shell = sum_shells(shift(synch_grid, e_synch), ends)
+        ic_shell = sum_shells(ic_grid, ends)
+        ssc_shell = None
+        if cfg.do_ssc:
+            ssc_shell = sum_shells(ssc_grid, ends)
+            # SSC shares the IC outgoing grid; fold it into the IC
+            # channel of the master merge
+            ic_shell = ic_shell + np.maximum(ssc_shell, 0.0)
+        e_tot, tot_shell = merge_total(pion_shell, synch_shell, ic_shell)
 
     return EmissionResult(
         e_pion=e_pion, e_synch=e_synch, e_ic=alpha_ic * ME_C2,

@@ -19,9 +19,16 @@ The spans nest on the main thread, and the nesting is the parent link:
   the driver's phases (``PhaseTimers.phase``);
 * ``mcs.reductions.wait``: the main thread blocked on the worker
   thread's host reductions;
+* ``mcs.transport.electrons``: an electron species' whole transport
+  (engine/run.py ``run_ion``), inside ``mcs.transport``;
 * ``mcs.transport.pop_setup``, ``mcs.transport.ladder``,
   ``mcs.transport.tally_fetch``: a species' population build, pcut
   ladder and tally reads (engine/run.py ``run_ion``);
+* ``mcs.emission.synch``, ``mcs.emission.ic``, ``mcs.emission.pion``:
+  inside ``mcs.emission``, each process's spectra of every zone on the
+  device (models/emission/driver.py ``_grids_batched``);
+  ``mcs.emission.sum``: the Doppler shift to the ISM frame, the shell
+  sums and the merge (``photon_calcs``);
 * ``mcs.ladder.segment``: one pcut segment's host enqueue (drain,
   finish, split), with ``mcs.finish`` (the exit bookkeeping) inside it;
 * ``mcs.ladder.sync``: the ladder's blocking reads (ops/mega.py

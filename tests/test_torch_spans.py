@@ -8,8 +8,13 @@ iteration checkpoint: K1's twin on the fused ladder (photons on), K1's
 twin on the host-split ladder, and the XLA engine on the fused ladder.
 
 * Every span of the table in utils/tracing.py is in the Chrome trace,
-  on the main thread, nested under the span it belongs to; one
-  ``mcs.ladder.segment`` and one ``mcs.finish`` a segment drained.
+  on the main thread, nested under the span it belongs to (an electron
+  species' population, ladder and tally reads under
+  ``mcs.transport.electrons``, the emission's processes and sum under
+  ``mcs.emission``); one ``mcs.ladder.segment`` and one ``mcs.finish``
+  a segment drained.
+* The species' pushes (each iteration's ``ion_finals[i].n_pushes``)
+  sum to ``RunResult.n_pushes``.
 * The driver's phases and the spans under ``mcs.run`` have one set of
   names, and ``RunResult.timers.totals`` keeps its keys.
 * With no profiler, no range is made (the profiler's range types
@@ -55,12 +60,19 @@ PARENT = {"mcs.run": None,
               "setup", "transport", "reductions", "smoothing", "emission",
               "checkpoint", "io")},
           "mcs.reductions.wait": "mcs.reductions",
+          "mcs.transport.electrons": "mcs.transport",
           "mcs.transport.pop_setup": "mcs.transport",
           "mcs.transport.ladder": "mcs.transport",
           "mcs.transport.tally_fetch": "mcs.transport",
           "mcs.ladder.segment": "mcs.transport.ladder",
           "mcs.ladder.sync": "mcs.transport.ladder",
-          "mcs.finish": "mcs.ladder.segment"}
+          "mcs.finish": "mcs.ladder.segment",
+          **{"mcs.emission." + p: "mcs.emission" for p in (
+              "synch", "ic", "pion", "sum")}}
+# an electron species' transport spans nest in mcs.transport.electrons
+ELECTRONS = {"mcs.transport.pop_setup", "mcs.transport.ladder",
+             "mcs.transport.tally_fetch"}
+EMISSION = {s for s in PARENT if s.startswith("mcs.emission")}
 PHASES = {"setup", "transport", "reductions", "smoothing", "io",
           "checkpoint"}
 
@@ -157,16 +169,28 @@ def test_spans_nest(runs, case):
     if not fused:
         want.discard("mcs.ladder.sync")     # no drive_ladder_async
     if not photons:
-        want.discard("mcs.emission")
+        want -= EMISSION
     assert {s[0] for s in spans} == want
     # the main thread's alone: the reductions' worker records none
     assert len({s[3] for s in spans}) == 1
+    electrons = [s for s in spans if s[0] == "mcs.transport.electrons"]
     for sp in spans:
-        assert _parent(sp, spans) == PARENT[sp[0]], sp
+        inside = any(e[1] <= sp[1] and sp[2] <= e[2] for e in electrons)
+        want_parent = ("mcs.transport.electrons"
+                       if sp[0] in ELECTRONS and inside else PARENT[sp[0]])
+        assert _parent(sp, spans) == want_parent, sp
     n = Counter(s[0] for s in spans)
     assert n["mcs.run"] == 1
     assert n["mcs.transport"] == n["mcs.transport.ladder"] == 2
+    # the second species, the electrons: their population, ladder and
+    # tally reads inside the span
+    assert n["mcs.transport.electrons"] == 1
+    assert sum(1 for s in spans if s[0] in ELECTRONS and any(
+        e[1] <= s[1] and s[2] <= e[2] for e in electrons)) == 3
     assert n["mcs.reductions.wait"] == 1
+    if photons:
+        # one species of each kind: each process once, one sum
+        assert all(n[s] == 1 for s in EMISSION)
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -187,6 +211,18 @@ def test_phases_keep_their_keys(runs, case):
     phases = PHASES | ({"emission"} if CASES[case][2] else set())
     assert set(res.timers.totals) == set(plain.timers.totals) == phases
     assert {s[0][4:] for s in spans if PARENT[s[0]] == "mcs.run"} == phases
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_species_pushes_sum_to_the_pushes(runs, case):
+    res, _, _, plain = runs[case]
+    by_species = [sum(it.ion_finals[i].n_pushes for it in res.iterations)
+                  for i in range(2)]
+    assert all(p > 0 for p in by_species)
+    assert sum(by_species) == res.n_pushes
+    assert by_species == [
+        sum(it.ion_finals[i].n_pushes for it in plain.iterations)
+        for i in range(2)]
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -213,6 +249,9 @@ def test_span_is_a_shared_no_op_without_a_profiler(monkeypatch):
     assert not torch.autograd._profiler_enabled()
     a, b = tracing.span("run"), tracing.span("ladder.sync")
     assert a is b
+    for name in ("transport.electrons", "emission.synch", "emission.ic",
+                 "emission.pion", "emission.sum"):
+        assert tracing.span(name) is a
     with a:
         pass
     timers = tracing.PhaseTimers()
