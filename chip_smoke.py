@@ -7,8 +7,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
    started together: K1 (csrc/mega_step.cu, one instance per flag word
    of ops/mega.py INSTANCES), K2/K3 (csrc/psd_hist.cu), K5
    (csrc/helix_step.cu, the instances of ops/helix.py INSTANCES) and
-   the rebinning (csrc/rebin.cu), with each kernel's registers, stack
-   and spills.
+   the rebinning (csrc/rebin.cu) and the finish kernel (csrc/finish.cu),
+   with each kernel's registers, stack and spills.
 2. ``k1``: holds K1 against its plain PyTorch version (ops/mega.py
    step_twin) on the card, on the flagship population:
    tests/data/dsa_nonrel.toml, 65,536 injected lanes at pcut index 2.
@@ -80,6 +80,18 @@ Run from the root of a checkout:  python3 chip_smoke.py
    the corner transforms and the nonzero fractions at the float64
    rate) and the plain version's ms on the card (host clock ending in a
    synchronize: its launches and host waits).
+4c. ``finish``: the finish kernel (csrc/finish.cu, ops/finish.py
+   ``tally_escapes``) on the main path's data: of one iteration of the
+   nonrel cell (65,536 protons a pcut, K5, 54 x 41 PSD cells), the
+   finish with the most upstream finishers, and the same lanes all in
+   one cell; each case must touch all four binned tallies.  Bit for bit
+   against its
+   twin on the CPU (``tally_twin``) and on a second launch, within
+   FINISH_TOL of each cell against index_put_ (``tally_index_put``); its
+   ms and the index_put_ path's on the card (CUDA events around
+   FINISH_REPS calls queued behind a sleeping kernel) beside its byte
+   bound.  Every driven run below counts one finish launch a segment
+   its ladders queued (``check_finish``).
 5. ``f32``: drives the K1 path: ``engine.driver.run`` on the flagship
    nonlinear config with float32 momenta (65,536 particles per pcut,
    smoothing on, 2 iterations); checks that every transport launch went
@@ -380,6 +392,16 @@ REBIN_TOL = 1e-12
 REBIN_REPS = 50
 REBIN_SLEEP_CYCLES = 100_000_000       # ~50 ms at the H100's clocks
 REBIN_OPS_CORNER, REBIN_OPS_FRACTION, REBIN_OPS_PSD = 14, 25, 3
+# phase finish: the finish kernel against its twin (bit for bit) and
+# against index_put_ (each cell within FINISH_TOL of its value: the same
+# float64 addends summed in another order, tests/test_torch_finish_kernel
+# .py), its timing launches, and the bytes it must move: every lane's two
+# flags, a downstream finisher's two int64 bins and its wwf, an upstream
+# one's bins and its wwf, we and wd, each touched cell read and written
+FINISH_TOL = 1e-12
+FINISH_REPS = 50
+FINISH_LANE_BYTES, FINISH_CELL_BYTES = 2, 16
+FINISH_DOWNSTREAM_BYTES, FINISH_UPSTREAM_BYTES = 24, 40
 # phase f64's pushes on the plain step (PERF.md §5, PR 8)
 F64_PLAIN_PUSHES = 536_113_343
 # the host waits a species' fused ladder (engine/run.py _ladder_async)
@@ -806,6 +828,115 @@ def rebin_phase(dev) -> dict:
     return out
 
 
+def finish_phase(dev) -> dict:
+    """The finish kernel on the main path's data (phase finish): every
+    finish of one iteration of the nonrel cell (65,536 protons a pcut,
+    K5 at float64, 54 x 41 PSD cells) recorded as ``finish_lanes``
+    handed it on, and of those the one with the most lanes finished
+    upstream or past pmax, as it is ("drained") and with every lane in
+    one cell ("one cell").  Each case must add into all four binned
+    tallies (downstream and upstream finishers both), so that none is
+    held vacuously at +0.0.  Held to the twin bit for bit, to index_put_
+    within FINISH_TOL of each cell and to itself on a second launch;
+    timed beside its bound and the index_put_ path on the card (today's
+    CPU path, which the card ran before the kernel)."""
+    import copy
+
+    import torch
+
+    from montecarloscattering_jl_tpu_torch.engine.driver import run
+    from montecarloscattering_jl_tpu_torch.engine.setup import build_setup
+    from montecarloscattering_jl_tpu_torch.ops import finish as fin
+    from montecarloscattering_jl_tpu_torch.utils import load_config
+
+    cfg = copy.deepcopy(load_config(os.path.join(
+        ROOT, "benchmark", "configs", "nonrel_nonlinear.toml")))
+    cfg.n_itrs = 1
+    b = build_setup(cfg).bins
+    seen = []
+    lanes_of = fin.finish_lanes
+
+    def recorded(*a, **kw):
+        x = lanes_of(*a, **kw)
+        seen.append({k: v.clone() for k, v in x.items() if k != "px"})
+        return x
+
+    fin.finish_lanes = recorded
+    try:
+        run(cfg, device=dev, p_dtype=torch.float64)
+    finally:
+        fin.finish_lanes = lanes_of
+    ups = [int(x["is_up"].sum()) for x in seen]
+    drained = seen[ups.index(max(ups))]
+    print(f"finish: {len(seen)} finishes recorded, upstream finishers "
+          f"{ups}; the case is finish {ups.index(max(ups))}")
+    zeros = torch.zeros_like(drained["ip"])
+    binned = ("esc_psd_dw", "esc_psd_up", "esc_energy_eff", "esc_num_eff")
+    fresh = lambda d: fin.EscapeTallies.zeros(b.n_mom, b.n_theta, d)
+    n = drained["ip"].shape[0]
+    scratch = fin.FinishScratch.for_lanes(n, dev)
+    out = {}
+    for case, x in (("drained", drained),
+                    ("one cell", dict(drained, ip=zeros, jt=zeros))):
+        host = {k: v.cpu() for k, v in x.items()}
+        got = []
+        for _ in range(2):
+            acc = fresh(dev)
+            fin.tally_escapes(acc, **x, scratch=scratch)
+            got.append({f: getattr(acc, f).cpu() for f in binned})
+        untouched = [f for f in binned if not bool((got[0][f] != 0).any())]
+        if untouched:
+            fail(f"finish {case}: {untouched} untouched (downstream "
+                 f"{int(host['is_dw'].sum())}, upstream "
+                 f"{int(host['is_up'].sum())} finishers): the case holds "
+                 f"them at +0.0 alone")
+        twin, ref = fresh("cpu"), fresh("cpu")
+        fin.tally_twin(twin, **host)
+        fin.tally_index_put(ref, **host)
+        worst = 0.0
+        for f in binned:
+            a, w, r = got[0][f], getattr(twin, f), getattr(ref, f)
+            if not (torch.equal(a.view(torch.int64), w.view(torch.int64))
+                    and torch.equal(a.view(torch.int64),
+                                    got[1][f].view(torch.int64))):
+                fail(f"finish {case}: {f} is not the twin's bits, or two "
+                     f"launches differ")
+            err = (a - r).abs()
+            if not bool((err <= FINISH_TOL * r.abs()).all()):
+                fail(f"finish {case}: {f} off index_put_'s by more than "
+                     f"{FINISH_TOL} of a cell")
+            worst = max(worst, float((err / r.abs().clamp(
+                min=1e-300)).max()))
+        # the launches queue up behind a sleeping kernel, so the events
+        # time the card's work and not the host's enqueue
+        times = {}
+        for name, call in (
+                ("ms", lambda acc: fin.tally_escapes(acc, **x,
+                                                     scratch=scratch)),
+                ("index_put_ms", lambda acc: fin.tally_index_put(acc, **x))):
+            acc = fresh(dev)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            torch.cuda._sleep(REBIN_SLEEP_CYCLES)
+            ev[0].record()
+            for _ in range(FINISH_REPS):
+                call(acc)
+            ev[1].record()
+            torch.cuda.synchronize()
+            times[name] = ev[0].elapsed_time(ev[1]) / FINISH_REPS
+        n_dw, n_up = int(host["is_dw"].sum()), int(host["is_up"].sum())
+        cells = sum(int((got[0][f] != 0).sum()) for f in binned)
+        n_bytes = (FINISH_LANE_BYTES * n + FINISH_DOWNSTREAM_BYTES * n_dw
+                   + FINISH_UPSTREAM_BYTES * n_up + FINISH_CELL_BYTES * cells)
+        bound_ms, bound_by = bound(n_bytes, 4 * (n_dw + n_up), F64_OPS_S)
+        out[case] = dict(max_rel_err=worst, **times, bound_ms=bound_ms,
+                         bound_by=bound_by, lanes=n, finished=n_dw + n_up,
+                         downstream=n_dw, upstream=n_up,
+                         touched_cells=cells)
+        print(f"finish ({case}, {b.n_mom + 1} x {b.n_theta + 1} cells): "
+              f"{json.dumps(out[case])}")
+    return out
+
+
 def k5_uniforms(st) -> int:
     """K5's in-kernel uniforms (its debug entry) against
     rng.lane_uniforms_xla on the card, bit for bit, at every counter of
@@ -1154,6 +1285,7 @@ def slope_of(res) -> tuple[float, float]:
 
 def zero_counts() -> None:
     """Every kernel's launch count and the plain versions' calls to 0."""
+    from montecarloscattering_jl_tpu_torch.ops import finish as fin
     from montecarloscattering_jl_tpu_torch.ops import helix, hist, mega
     from montecarloscattering_jl_tpu_torch.ops import reduce as red
 
@@ -1161,10 +1293,11 @@ def zero_counts() -> None:
     hist.LAUNCHES = hist.BAND_LAUNCHES = hist.PLAIN_CALLS = 0
     helix.LAUNCHES = helix.DRAINS = helix.DEPOSIT_STEPS = 0
     helix.HOST_READS = helix.PLAIN_CALLS = 0
-    red.LAUNCHES = 0
+    red.LAUNCHES = fin.LAUNCHES = 0
 
 
 def read_counts() -> dict:
+    from montecarloscattering_jl_tpu_torch.ops import finish as fin
     from montecarloscattering_jl_tpu_torch.ops import helix, hist, mega
     from montecarloscattering_jl_tpu_torch.ops import reduce as red
 
@@ -1174,7 +1307,8 @@ def read_counts() -> dict:
                 k5=helix.LAUNCHES, k5_drains=helix.DRAINS,
                 k5_host_reads=helix.HOST_READS,
                 k5_deposit_steps=helix.DEPOSIT_STEPS,
-                plain_blocks=helix.PLAIN_CALLS, rebin=red.LAUNCHES)
+                plain_blocks=helix.PLAIN_CALLS, rebin=red.LAUNCHES,
+                finish=fin.LAUNCHES)
 
 
 def check_rebin(tag, counts, res, n_ions: int) -> None:
@@ -1186,6 +1320,20 @@ def check_rebin(tag, counts, res, n_ions: int) -> None:
         fail(f"{tag}: {counts['rebin']} rebin launches "
              f"(RunResult.launches: {res.launches['rebin']}), {want} "
              f"expected: one a species and iteration")
+
+
+def check_finish(tag, counts, res, cfg) -> None:
+    """A driven run on the card adds each segment's exits through the
+    finish kernel (ops/finish.py tally_escapes), one launch a segment its
+    ladders queued: at least one a species and iteration, at most one a
+    pcut of each, and RunResult.launches says as many."""
+    least = len(res.iterations) * cfg.n_ions
+    n = counts["finish"]
+    if (res.launches["finish"] != n
+            or not least <= n <= least * len(cfg.pcuts)):
+        fail(f"{tag}: {n} finish launches (RunResult.launches: "
+             f"{res.launches['finish']}), {least} to "
+             f"{least * len(cfg.pcuts)} expected: one a segment")
 
 
 @contextlib.contextmanager
@@ -1320,6 +1468,7 @@ def drive(cfg, dev, p_dtype, tag: str, cap: int = 0, killed: bool = False,
           f"launches {json.dumps(counts)}; phases {json.dumps(phases)}")
     check_engine(tag, counts, p_dtype)
     check_rebin(tag, counts, res, cfg.n_ions)
+    check_finish(tag, counts, res, cfg)
     if (p_dtype == torch.float64 and "resume" not in run_kw
             and counts["k5_deposit_steps"] != res.n_pushes):
         fail(f"{tag}: the K5 drains made {counts['k5_deposit_steps']} "
@@ -2035,6 +2184,7 @@ def mesh_rank(mesh, parts) -> dict:
         if part != "xla":
             check_rebin(f"mesh {part} rank {mesh.rank}", counts, res,
                         cfg.n_ions)
+            check_finish(f"mesh {part} rank {mesh.rank}", counts, res, cfg)
         out[part] = dict(
             result=res if mesh.rank == 0 else None, counts=counts,
             wall=wall, pushes=pushes, collectives=mesh.collectives - c0,
@@ -2389,7 +2539,7 @@ def main() -> int:
     t0 = time.perf_counter()
     from montecarloscattering_jl_tpu_torch.ops import helix
 
-    libs = build.build_all(["mega_step", "psd_hist", "rebin",
+    libs = build.build_all(["finish", "mega_step", "psd_hist", "rebin",
                             *helix.targets()], verbose=True)
     print(f"build (nvcc, in parallel): {time.perf_counter() - t0:.2f} s "
           f"({', '.join(p.name for p in libs.values())})")
@@ -2398,6 +2548,7 @@ def main() -> int:
     for phase, fn in (("k1", kernel_vs_twin), ("flags", kernel_vs_twin_flags),
                       ("hist", hist_phase),
                       ("rebin", rebin_phase),
+                      ("finish", finish_phase),
                       ("k5", k5_phase),
                       ("f32", lambda d: main_path(d, torch.float32, 2,
                                                   False)),
@@ -2483,9 +2634,8 @@ def kernel_records(done, instances, k5_inst) -> list:
     and mesh paths, K5 on the f64 flagship, resume, shipped, electron,
     compact and mesh paths, the mesh's on every rank; K2's standalone
     launches on the same paths, and its deposits inside K5; the
-    rebinning on all of them), its error
-    against its plain
-    version, its time, its plain version's, its bound and the library
+    rebinning and the finish kernel on all of them), its error against
+    its plain version, its time, its plain version's, its bound and the library
     call's.  K2's and K4's ``ms`` and ``library_ms`` are device times
     under CUDA-graph replay (``eager_ms`` and ``library_eager_ms``: the
     eager calls'); K1 carries its full drains and its instances."""
@@ -2600,6 +2750,28 @@ def kernel_records(done, instances, k5_inst) -> list:
                  "launch; max_abs_err relative to each output's largest "
                  "entry; plain_ms: the per-zone torch loop on the card, "
                  "host clock; no single PyTorch call computes it"},
+        {"name": "finish tally", "route": "cuda",
+         "source": src + "finish.cu",
+         "replaces": "none: the JAX package's escape tallies are XLA's "
+                     "scatter-adds (montecarloscattering_jl_tpu/ops/"
+                     "finish.py finish_particles)",
+         "launches": k1_paths("finish") + f64_paths("finish")
+                     - mesh("finish"),
+         "max_abs_err": max(v["max_rel_err"]
+                            for v in done["finish"].values()),
+         **{k: done["finish"]["drained"][k] for k in ("ms", "bound_ms",
+                                                      "bound_by")},
+         "plain_ms": done["finish"]["drained"]["index_put_ms"],
+         "one_cell": {k: done["finish"]["one cell"][k]
+                      for k in ("ms", "index_put_ms", "bound_ms")},
+         "library_ms": None,
+         "note": "the four binned escape tallies of the finish with "
+                 "the most upstream finishers in one iteration of the "
+                 "nonrel cell (65,536 protons a pcut, K5), one call "
+                 "(two kernels); max_abs_err relative to each cell "
+                 "against index_put_, the twin's bits held exactly; "
+                 "plain_ms: the four accumulating index_put_ on the card; "
+                 "one_cell: the same lanes all in one cell"},
         {"name": "K4 = K2 psd_scatter", "route": "cuda",
          "source": src + "psd_hist.cu",
          "replaces": "scripts/probe_hist.py:173",

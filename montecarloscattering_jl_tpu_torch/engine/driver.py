@@ -94,9 +94,10 @@ class RunResult:
     # times under GraphCache.timing
     graphs: object = None
     # the kernel launches on this rank: the ladders' K1, K2, K5 and K5's
-    # helix steps and plain blocks on a CUDA device (engine/run.py
-    # launch_counts), and the reductions' rebinning (ops/reduce.py
-    # rebin_dndp) under "rebin"
+    # helix steps and plain blocks, and the finish kernel under "finish"
+    # (ops/finish.py tally_escapes, one a segment) on a CUDA device
+    # (engine/run.py launch_counts), and the reductions' rebinning
+    # (ops/reduce.py rebin_dndp) under "rebin"
     launches: dict | None = None
     # this rank's mesh (parallel/shard.Mesh.summary): world size, rank,
     # device, backend, collectives (a species' gathers of the splits, a

@@ -33,8 +33,8 @@ engines drain a segment, chosen as the JAX package chooses them
   across segments, species and iterations (``graphs``).
 
 ``TransportEngine.launches`` counts the kernels the ladders launched
-(K1, K2, K5 and K5's steps) and the plain blocks on a CUDA device, over
-the engine's life (``RunResult.launches``).
+(K1, K2, K5 and K5's steps, the finish kernel) and the plain blocks on a
+CUDA device, over the engine's life (``RunResult.launches``).
 
 Keys are derived as the JAX package derives them, so both packages hand
 every lane the same random stream on either engine.
@@ -84,11 +84,11 @@ from ..utils.config import RunConfig
 from ..utils.params import E_REL_PT
 from ..utils.tracing import span
 from ..models.injection import init_pop
-from ..ops import helix, hist, mega, rng
+from ..ops import finish, helix, hist, mega, rng
 from ..ops import step as xla_step
 from ..ops import state as stt
 from ..ops.cuts import pcut_split
-from ..ops.finish import EscapeTallies, finish_particles
+from ..ops.finish import EscapeTallies, FinishScratch, finish_particles
 from ..ops.split import split_on_device
 from ..parallel import multihost, shard
 from .setup import RunSetup
@@ -109,7 +109,8 @@ def launch_counts() -> dict:
     """The kernels' launch counters and the plain blocks on a CUDA
     device, as they stand."""
     return dict(k1=mega.LAUNCHES, k2=hist.LAUNCHES, k5=helix.LAUNCHES,
-                k5_steps=helix.DEPOSIT_STEPS, plain_blocks=helix.PLAIN_CALLS)
+                k5_steps=helix.DEPOSIT_STEPS, plain_blocks=helix.PLAIN_CALLS,
+                finish=finish.LAUNCHES)
 
 
 def auto_compact_levels(batch_size: int) -> int:
@@ -508,6 +509,8 @@ class TransportEngine:
         mesh, world = self.mesh, self.world
         p_pcut_hi = pcut_hi_momentum(cfg.energy_pcut_hi,
                                      cfg.species[i_ion].mass)
+        scratch = (FinishScratch.for_lanes(state.weight.shape[0], dev)
+                   if dev.type == "cuda" else None)
         for i_pcut in range(start, len(cfg.pcuts)):
             with span("ladder.segment"):
                 sc = self.segment_scalars(i_ion, i_pcut, prof.bmag2)
@@ -525,7 +528,8 @@ class TransportEngine:
                             xla_step.step_tables(grids, sc, ss, dev)),
                         compact_levels=self.compact_levels, graphs=self.graphs)
                 with span("finish"):
-                    finish_particles(state, esc, grids, sc, ss)
+                    finish_particles(state, esc, grids, sc, ss,
+                                     scratch=scratch)
                     _count_exits(reasons, state)
                 n_target = (cfg.n_pts_pcut if cfg.pcuts[i_pcut] < p_pcut_hi
                             else cfg.n_pts_pcut_hi)
@@ -639,6 +643,8 @@ class TransportEngine:
                 if watch else None)
         done, seen = [], start
         alive = torch.ones((), dtype=torch.int64, device=dev)
+        scratch = (FinishScratch.for_lanes(state.weight.shape[0], dev)
+                   if dev.type == "cuda" else None)
 
         def dispatch(i):
             nonlocal state, alive
@@ -670,7 +676,7 @@ class TransportEngine:
                             graphs=self.graphs)
                 with span("finish"):
                     finish_particles(state, esc, grids, scs[i], ss, m=mass,
-                                     live=alive)
+                                     scratch=scratch)
                     _count_exits(reasons, state, alive)
                 nsteps = state.nsteps.sum(dtype=torch.int64)
                 key = rng.fold_in(ion_key, i + 1)

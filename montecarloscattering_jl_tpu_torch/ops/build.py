@@ -35,7 +35,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false")
 # the sources built as libraries (the others are units linked into one)
-LIBRARIES = ("helix_step", "mega_step", "psd_hist", "rebin")
+LIBRARIES = ("finish", "helix_step", "mega_step", "psd_hist", "rebin")
 
 LOGS: dict[str, str] = {}
 

@@ -16,7 +16,11 @@ functions (models/emission/device.py) on the card against the per-zone
 NumPy oracles; and the mesh (parallel/): two ranks sharing the card
 under gloo against one process (counts exact, lanes bit for bit), two
 cards under NCCL where there are two, and NCCL's one card a rank where
-there is one.  Every test here needs the
+there is one; and the finish kernel (csrc/finish.cu) against its twin
+(ops/finish.py tally_twin) bit for bit, on itself a second time, and
+against index_put_ within tests/torch_finish_cases.TOL of each cell, on
+the cases of tests/test_torch_finish_kernel.py and a drained K5
+population.  Every test here needs the
 card: it carries the ``cuda`` marker and skips without one.  Run on the
 card with
 
@@ -773,3 +777,94 @@ def test_nccl_takes_one_card_a_rank(card, tmp_path):
                         device="cuda", timeout=120)
     with pytest.raises(RuntimeError, match="NCCL"):
         cli_main([CFG, "-o", str(tmp_path), "--devices", "2"])
+
+
+# ---------------------------------------------------------------------------
+# the finish kernel (csrc/finish.cu) against its twin and index_put_
+# ---------------------------------------------------------------------------
+
+def _finish_on_card(card, x, start=None):
+    """The kernel's four binned tallies after `x` (on the CPU) was added
+    into tests/torch_finish_cases.tallies(start) on the card, one
+    launch."""
+    import torch_finish_cases as fc
+    from montecarloscattering_jl_tpu_torch.ops import finish as fin
+
+    acc = fc.tallies(start)
+    for f in fc.BINNED:
+        setattr(acc, f, getattr(acc, f).to(card))
+    before = fin.LAUNCHES
+    fin.tally_escapes(acc, **{k: v.to(card) for k, v in x.items()},
+                      scratch=fin.FinishScratch.for_lanes(len(x["ip"]), card))
+    torch.cuda.synchronize()
+    assert fin.LAUNCHES == before + 1
+    return {f: getattr(acc, f).cpu() for f in fc.BINNED}
+
+
+def _hold_finish(card, x, start=None):
+    """The kernel bit for bit against its twin, twice in the same bits,
+    and within TOL of each cell against index_put_ (both on the CPU)."""
+    import torch_finish_cases as fc
+    from montecarloscattering_jl_tpu_torch.ops import finish as fin
+
+    got = _finish_on_card(card, x, start)
+    assert fc.same_bits(got, fc.run(fin.tally_twin, x, start))
+    assert fc.same_bits(got, _finish_on_card(card, x, start))
+    fc.assert_close(got, fc.run(fin.tally_index_put, x, start))
+    return got
+
+
+@pytest.mark.parametrize("start", [None, 3], ids=["fresh", "holding"])
+@pytest.mark.parametrize("case", ["few", "hot_cells", "mixed", "one_cell",
+                                  "one_cell_upstream", "one_d", "ragged"])
+def test_finish_kernel_matches_twin(card, case, start):
+    import torch_finish_cases as fc
+
+    kw = dict(fc.CASES[case])
+    _hold_finish(card, fc.lanes(kw.pop("n"), seed=len(case), **kw), start)
+
+
+def test_finish_kernel_skips_zero_addends(card):
+    """A dead segment's lanes (every addend 0) leave the bits; the
+    zero-addend lanes moved to one cell and flagged upstream give the
+    same bits."""
+    import torch_finish_cases as fc
+
+    x = fc.lanes(fc.LANES, seed=11)
+    dead = dict(x, **{k: torch.zeros_like(x[k]) for k in ("wwf", "we", "wd")})
+    assert fc.same_bits(_finish_on_card(card, dead, 3),
+                        fc.run(lambda acc, **_: None, dead, 3))
+    zero = x["wd"] == 0
+    moved = dict(x, ip=torch.where(zero, 0, x["ip"]),
+                 jt=torch.where(zero, 0, x["jt"]),
+                 is_up=torch.where(zero, True, x["is_up"]))
+    assert fc.same_bits(_hold_finish(card, moved), _hold_finish(card, x))
+
+
+def test_finish_kernel_on_a_drained_k5_population(card):
+    """The flagship's 4,096 injected lanes drained by K5 at pcut index 0:
+    the lanes' finish_lanes on the card through the kernel, held as
+    above; finish_particles launches it once and gives its bits."""
+    from montecarloscattering_jl_tpu_torch.ops import finish as fin
+    from montecarloscattering_jl_tpu_torch.ops import step
+
+    st, tb, fresh = _f64_segment(card, LANES)
+    step.run_segment(st, fresh(), tb, compact_levels=5)
+    cfg = load_config(CFG)
+    setup = build_setup(cfg)
+    eng = TransportEngine(setup, device=card)
+    args = (eng.segment_grids(setup.profile),
+            eng.segment_scalars(0, 0, setup.profile.bmag2),
+            eng.step_static(0))
+    x = fin.finish_lanes(st, *args)
+    x.pop("px")
+    x = {k: v.cpu() for k, v in x.items()}
+    assert int((x["is_dw"] | x["is_up"]).sum()) > 0
+    got = _hold_finish(card, x)
+    b = setup.bins
+    acc = fin.EscapeTallies.zeros(b.n_mom, b.n_theta, card)
+    before = fin.LAUNCHES
+    fin.finish_particles(st, acc, *args, scratch=fin.FinishScratch.for_lanes(
+        st.weight.shape[0], card))
+    assert fin.LAUNCHES == before + 1
+    assert all(torch.equal(getattr(acc, f).cpu(), got[f]) for f in got)

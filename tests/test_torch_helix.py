@@ -492,8 +492,8 @@ def test_run_result_counts_the_ladders_launches(monkeypatch):
     (engine/run.py launch_counts) over the run: here every XLA-engine
     segment is made to count one K5 launch of SYNC_EVERY steps, which
     the run must report, and nothing else (the rebinning kernel, which
-    a CUDA device launches once a species and iteration, none on the
-    CPU)."""
+    a CUDA device launches once a species and iteration, and the finish
+    kernel, once a segment there: none on the CPU)."""
     from montecarloscattering_jl_tpu_torch.engine.driver import run
     from montecarloscattering_jl_tpu_torch.engine.run import launch_counts
 
@@ -520,5 +520,5 @@ def test_run_result_counts_the_ladders_launches(monkeypatch):
     assert set(res.launches) == set(launch_counts()) | {"rebin"}
     assert res.launches == dict(k1=0, k2=0, k5=len(segments),
                                 k5_steps=step.SYNC_EVERY * len(segments),
-                                plain_blocks=0, rebin=0)
+                                plain_blocks=0, finish=0, rebin=0)
     assert len(segments) >= 2

@@ -281,10 +281,10 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc"):
         build.build_all(["psd_hist"])
     assert sorted(p.name for p in build.CSRC.glob("*.cu")) == [
-        "helix_pow.cu", "helix_step.cu", "mega_step.cu", "psd_hist.cu",
-        "rebin.cu"]
-    assert build.LIBRARIES == ("helix_step", "mega_step", "psd_hist",
-                               "rebin")
+        "finish.cu", "helix_pow.cu", "helix_step.cu", "mega_step.cu",
+        "psd_hist.cu", "rebin.cu"]
+    assert build.LIBRARIES == ("finish", "helix_step", "mega_step",
+                               "psd_hist", "rebin")
 
 
 # ---------------------------------------------------------------------------
